@@ -1,0 +1,11 @@
+"""slam_tpu_torch: the PyTorch/CUDA port of slam_tpu for NVIDIA Hopper.
+
+Mirrors `slam_tpu`'s layers (`core/`, `ops/`, `models/`, `utils/`) and
+names. Plain tensor code is PyTorch; the two TPU Pallas kernels of the
+MCL step are hand-written CUDA C++ under `csrc/` (built at first use by
+`ops/_build.py`). A CUDA tensor goes to the kernel, a CPU tensor to the
+kernel's plain PyTorch version beside it.
+
+This package never imports `jax` or `slam_tpu`: the machines it targets
+need not have JAX installed.
+"""
