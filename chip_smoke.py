@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Chip smoke test of slam_tpu_torch: the 100k-particle MCL step on one
-NVIDIA GPU, through both hand-written CUDA kernels.
+"""Chip smoke test of slam_tpu_torch on one NVIDIA GPU: the 100k-particle
+MCL step through both hand-written CUDA kernels, and the 1M-particle full
+SLAM step.
 
     python3 chip_smoke.py
 
@@ -21,6 +22,17 @@ raises, so the exit code is nonzero):
               5 blocks of 20 predict -> update steps), CUDA-event timed,
               with per-phase times and the kernel launch counts
   8. track    40 steps of tracking a moving pose with 100k particles
+  9. slam       `benchmarks/suite.py slam`'s configuration end to end
+              through GridSLAM at 1M particles (init, 4 warm-up steps, 5
+              blocks of 20 steps, CUDA-event timed, under
+              set_sync_debug_mode("error"): a host sync in the step raises),
+              with per-phase times, the profile and K1 at N = 1M
+ 10. edt        edt_capped on the card == on the CPU bit for bit; 20 steps
+              with the incremental EDT cache (edt_box=512), each equal to a
+              full rebuild bit for bit; the map update on the card vs the
+              CPU
+ 11. slam-track closed-loop SLAM at 1M particles on the floor plan: final
+              pose error and the share of mapped walls near true walls
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device; without one it
@@ -45,6 +57,15 @@ N_PARTICLES = 100_000
 # 0.31-1.33 px: the step is not bitwise run-to-run deterministic (CUDA's
 # float cumsum in the resampler is not), so one seed's error varies too.
 TRACK_BOUND_PX = 2.5
+SLAM_PARTICLES = 1_000_000
+SLAM_TRACK_STEPS = 50
+# Closed-loop SLAM bounds (phase 11). Over 50 H100 runs (seeds 0-21, seed
+# 1 in 28 of them) the final est_pose error ranged 1.97-3.44 px (seed 1
+# over 25 runs in one process: mean 2.88, sd 0.29; the step is not bitwise
+# reproducible) and the share of mapped blocked cells within 2 px of a
+# true wall 0.888-1.0.
+SLAM_TRACK_BOUND_PX = 4.5
+SLAM_WALL_SHARE = 0.8
 
 
 def check(cond, msg: str) -> None:
@@ -94,10 +115,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3):
-    """(device ms, kernel launches) per call of `fn`: the summed time of
-    the CUDA kernels `iters` calls ran, from torch.profiler, so host-side
-    overhead between launches is left out."""
+def kernel_profile(fn, iters: int = 20, warmup: int = 3):
+    """{kernel name: [device ms per call, launches per call]} of `fn`, from
+    torch.profiler over `iters` calls after `warmup` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -107,10 +127,79 @@ def device_ms(fn, iters: int = 20, warmup: int = 3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0]
-    check(kernels, "the profiler saw no CUDA kernels")
-    return sum(e.device_time for e in kernels) / 1e3 / iters, len(kernels) / iters
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0:
+            row = by_name.setdefault(e.name, [0.0, 0.0])
+            row[0] += e.device_time / 1e3 / iters
+            row[1] += 1 / iters
+    check(by_name, "the profiler saw no CUDA kernels")
+    return by_name
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3):
+    """(device ms, kernel launches) per call of `fn`: the summed time of
+    the CUDA kernels `iters` calls ran, from torch.profiler, so host-side
+    overhead between launches is left out."""
+    rows = kernel_profile(fn, iters, warmup).values()
+    return sum(r[0] for r in rows), sum(r[1] for r in rows)
+
+
+def slam_config(shape=None, edt_box=None):
+    """`benchmarks/suite.py slam`'s production configuration (`suite.py:
+    82-99`): 1M particles, 90 beams over pi, max_dist 500, sigma 5, the
+    boxed correlative table (box 128, 32 f32 bins), resample_every=4,
+    map_pose="mode", on MapConfig()'s 1000x1000 grid unless `shape`."""
+    from slam_tpu_torch.core.config import (
+        LidarConfig, MapConfig, MCLConfig, MotionConfig, RaycastConfig, SLAMConfig,
+    )
+
+    return SLAMConfig(
+        mcl=MCLConfig(n_particles=SLAM_PARTICLES, meas_stddev=5.0,
+                      measurement="likelihood_field_table", lf_table_box=128,
+                      resample_every=4),
+        map=MapConfig() if shape is None else MapConfig(height=shape[0], width=shape[1]),
+        lidar=LidarConfig(start=0.0, stop=math.pi, max_dist=500.0, n_rays=90),
+        motion=MotionConfig(alphas=(5e-4, 5e-4, 1e-2, 1e-2)),
+        raycast=RaycastConfig(step=0.5, max_dist=500.0, backend="sdf"),
+        map_pose="mode",
+        edt_box=edt_box,
+    )
+
+
+def slam_track(dev, blocked, seed: int):
+    """Closed-loop SLAM at 1M particles on the floor plan `blocked` (a
+    bool tensor on `dev`), in its own frame: from (640, 190, 0) along the
+    free arc of odometry (0.01, 2.0, 0.01) for SLAM_TRACK_STEPS steps, scans
+    from the truth. Returns (final est_pose error px, share of mapped
+    blocked cells within 2 px of a true wall, mapped blocked cells)."""
+    from slam_tpu_torch.core import grid as gridlib
+    from slam_tpu_torch.core.types import Odometry, Pose
+    from slam_tpu_torch.models import fake_lidar
+    from slam_tpu_torch.models import slam as slam_mod
+    from slam_tpu_torch.ops import edt as edtlib
+    from slam_tpu_torch.ops.measurement import sensor_pose
+
+    cfg = slam_config(shape=tuple(blocked.shape))
+    truth = [640.0, 190.0, 0.0]
+    engine = slam_mod.GridSLAM(cfg, seed=seed, device=dev)
+    state = engine.init(Pose.create(*truth, device=dev))
+    cmd = (0.01, 2.0, 0.01)
+    odom = Odometry.create(*cmd)
+    for _ in range(SLAM_TRACK_STEPS):
+        r1, t, r2 = cmd
+        truth = [truth[0] + t * math.cos(truth[2] + r1),
+                 truth[1] + t * math.sin(truth[2] + r1), truth[2] + r1 + r2]
+        sensor = sensor_pose(Pose.create(*truth, device=dev), cfg.mcl.scanner_offset)
+        state = engine.step(state, odom, fake_lidar.scan(blocked, sensor, cfg.lidar,
+                                                         cfg.raycast))
+    est = state.est_pose
+    for v in (est.x, est.y, est.theta, state.grid, state.mcl.particles.log_weight):
+        check(bool(torch.isfinite(v).all()), "slam-track produced non-finite values")
+    err = math.hypot(float(est.x) - truth[0], float(est.y) - truth[1])
+    mapped = gridlib.blocked_from_logodds(state.grid)
+    near = edtlib.edt_capped(blocked, 3.0)[mapped] <= 2.0
+    return err, float(near.float().mean()), int(mapped.sum())
 
 
 def main() -> None:
@@ -441,19 +530,233 @@ def main() -> None:
         f"({truth[0]:.3f}, {truth[1]:.3f}, {truth[2]:.4f}): {pos_err:.3f} px, "
         f"{th_err:.4f} rad (bound {TRACK_BOUND_PX} px)")
 
+    # 9. slam: benchmarks/suite.py slam's configuration at 1M particles ----
+    from slam_tpu_torch.core import grid as gridlib
+    from slam_tpu_torch.models import slam as slam_mod
+    from slam_tpu_torch.ops import edt as edtlib
+    from slam_tpu_torch.ops import mapping
+
+    slam_cfg = slam_config()
+    mcfg = slam_cfg.mcl
+    cap = slam_mod._lf_cap(slam_cfg)
+    slam_odom = Odometry.create(0.02, 2.5, 0.02)
+    # Two alternating scans keep map cells flipping in steady state (as
+    # the suite does), from (400, 400, pi) and (403, 403, pi + 0.05).
+    slam_scans = [
+        fake_lidar.scan(blocked, measurement.sensor_pose(p, mcfg.scanner_offset),
+                        slam_cfg.lidar, slam_cfg.raycast)
+        for p in (Pose.create(400.0, 400.0, math.pi, device=dev),
+                  Pose.create(403.0, 403.0, math.pi + 0.05, device=dev))
+    ]
+    engine = slam_mod.GridSLAM(slam_cfg, seed=0, device=dev)
+    gather.launches = 0
+    sampler.launches = 0
+    st = engine.init(Pose.create(400.0, 400.0, math.pi, device=dev))
+    n_steps = 0
+    for _ in range(4):
+        st = engine.step(st, slam_odom, slam_scans[n_steps % 2])
+        n_steps += 1
+    torch.cuda.synchronize()
+    block_ms = []
+    for _ in range(blocks):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda.set_sync_debug_mode("error")  # a host sync in the step raises
+        try:
+            for _ in range(iters):
+                st = engine.step(st, slam_odom, slam_scans[n_steps % 2])
+                n_steps += 1
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        stop.record()
+        stop.synchronize()
+        block_ms.append(start.elapsed_time(stop))
+    slam_launches = {"gather_rows": gather.launches, "motion_odometry": sampler.launches}
+    slam_steps = n_steps
+    check(slam_launches["motion_odometry"] == slam_steps,
+          f"K1 launches {slam_launches} != {slam_steps} SLAM steps")
+    p = st.mcl.particles
+    for v in (p.pose.x, p.pose.y, p.pose.theta, p.log_weight, st.grid, st.est_pose.x,
+              st.est_pose.y, st.est_pose.theta):
+        check(bool(torch.isfinite(v).all()), "slam step produced non-finite values")
+    check(p.n == SLAM_PARTICLES and st.grid.shape == slam_cfg.map.shape, "slam state shapes")
+    check(bool((st.grid != 0).any()), "slam step mapped nothing")
+    slam_ms = [b / iters for b in block_ms]
+    slam_med = statistics.median(slam_ms)
+
+    # Per-phase times on the steady state, each phase alone.
+    pp = p.pose
+    scan0 = slam_scans[0]
+    blocked_st = gridlib.blocked_from_logodds(st.grid)
+    edt_st = edtlib.edt_capped(blocked_st, cap)
+    field_st = rayfield.RayField(blocked=blocked_st, edt=edt_st)
+    lf = dict(rc=slam_cfg.raycast, scanner_offset=mcfg.scanner_offset,
+              stddev=mcfg.meas_stddev, z_hit=mcfg.lf_z_hit, z_rand=mcfg.lf_z_rand)
+    win = dict(grid_shape=slam_cfg.map.shape, scanner_offset=mcfg.scanner_offset,
+               table_bins=mcfg.lf_table_bins, spread_mult=mcfg.lf_table_spread,
+               min_halfwidth=mcfg.lf_table_min_halfwidth, box_size=mcfg.lf_table_box)
+    window = measurement.lf_table_window(pp, **win)
+    prep = measurement.lf_table_prepare(
+        field_st, pp, scan0, table_bins=mcfg.lf_table_bins,
+        spread_mult=mcfg.lf_table_spread, min_halfwidth=mcfg.lf_table_min_halfwidth,
+        table_dtype=mcfg.lf_table_dtype, box_size=mcfg.lf_table_box, **lf)
+    lw = measurement.lf_table_lookup(prep, pp, scan0, rc=slam_cfg.raycast,
+                                     scanner_offset=mcfg.scanner_offset,
+                                     z_rand=mcfg.lf_z_rand, grid_shape=slam_cfg.map.shape)
+    check(bool(torch.isfinite(lw).all()), "non-finite table weights")
+    mm = slam_cfg.map
+    slam_phases = {
+        "predict": phase_ms(lambda: mcl_mod.predict(st.mcl, slam_odom,
+                                                    slam_cfg.motion.alphas)),
+        "edt_rebuild": phase_ms(lambda: edtlib.edt_capped(blocked_st, cap)),
+        "table_window": phase_ms(lambda: measurement.lf_table_window(pp, **win)),
+        "table_build": phase_ms(lambda: measurement.lf_score_table(
+            edt_st, scan0, window[3], dtype=mcfg.lf_table_dtype,
+            origin=(window[4], window[5]), out_shape=(window[6], window[7]),
+            **{k: v for k, v in lf.items() if k != "scanner_offset"})),
+        "table_prepare": phase_ms(lambda: measurement.lf_table_prepare(
+            field_st, pp, scan0, table_bins=mcfg.lf_table_bins,
+            spread_mult=mcfg.lf_table_spread, min_halfwidth=mcfg.lf_table_min_halfwidth,
+            table_dtype=mcfg.lf_table_dtype, box_size=mcfg.lf_table_box, **lf)),
+        "lookup": phase_ms(lambda: measurement.lf_table_lookup(
+            prep, pp, scan0, rc=slam_cfg.raycast, scanner_offset=mcfg.scanner_offset,
+            z_rand=mcfg.lf_z_rand, grid_shape=slam_cfg.map.shape)),
+        "estimate": phase_ms(lambda: mcl_mod.estimate(pp, p.log_weight + lw, lw,
+                                                      mcfg.mode_tau)),
+        "map_update": phase_ms(lambda: mapping.scan_logodds_update(
+            st.grid, st.mcl.mode_pose, scan0, scanner_offset=mcfg.scanner_offset,
+            step=slam_cfg.raycast.step, max_dist=slam_cfg.raycast.max_dist,
+            l_occ=mm.l_occ, l_free=mm.l_free, l_min=mm.l_min, l_max=mm.l_max)),
+        "resample": phase_ms(lambda: resample_mod.resample(p, mcfg.resample,
+                                                           generator=st.mcl.generator)),
+    }
+    # Profile and host enqueue over consecutive steps (20 steps hold 5
+    # resamples, as in the timed blocks).
+    def advance():
+        nonlocal st, n_steps
+        st = engine.step(st, slam_odom, slam_scans[n_steps % 2])
+        n_steps += 1
+
+    prof = kernel_profile(advance, iters=iters, warmup=4)
+    slam_dev_ms = sum(r[0] for r in prof.values())
+    slam_kernels = sum(r[1] for r in prof.values())
+    top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:12]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        advance()
+    slam_enqueue_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+
+    # K1 at the SLAM path's shape: N = 1M on the SLAM cloud after warm-up.
+    pp = st.mcl.particles.pose
+    k1_err = max(k1_err, moment_gap(
+        pp, sampler(slam_odom, pp, slam_cfg.motion.alphas, generator=g),
+        motion.sample_motion_model_odometry(slam_odom, pp, slam_cfg.motion.alphas,
+                                            generator=g),
+        "SLAM cloud, N=1M"))
+    seed1m = seed(2)
+    k1_1m_ms, _ = device_ms(lambda: motion_cuda.launch(seed1m, slam_odom, pp,
+                                                       slam_cfg.motion.alphas))
+    k1_1m_plain_ms, _ = device_ms(lambda: motion.sample_motion_model_odometry(
+        slam_odom, pp, slam_cfg.motion.alphas, generator=g))
+    say("slam", json.dumps({
+        "metric": f"slam_production_step_ms_{SLAM_PARTICLES // 1000}k",
+        "ms_per_step": {"median": slam_med, "min": min(slam_ms), "max": max(slam_ms),
+                        "repeats": blocks, "iters": iters},
+        "slam_production_particle_updates_per_s": SLAM_PARTICLES / (slam_med / 1e3),
+        "phases_ms": slam_phases,
+        "device_ms_per_step": slam_dev_ms,
+        "kernels_per_step": slam_kernels,
+        "host_enqueue_ms_per_step": slam_enqueue_ms,
+        "device_busy_share": slam_dev_ms / slam_med,
+        # Per call, each phase alone (CUDA events, host pace included);
+        # resample runs on every 4th step.
+        "resample_every": mcfg.resample_every,
+        "launches": slam_launches,
+        "steps": slam_steps,
+        "k1_1m_ms": k1_1m_ms,
+        "k1_1m_plain_ms": k1_1m_plain_ms,
+        "device": name,
+        "power_limit": smi.split(",")[-1].strip(),
+    }))
+    for kname, (kms, kn) in top:
+        say("slam", f"profile: {kms:.4f} ms/step in {kn:.2f} launches/step: {kname[:110]}")
+
+    # 10. edt: the card against the CPU, and the incremental cache ---------
+    rmask = torch.rand(slam_cfg.map.shape, generator=g, device=dev) < 0.02
+    for label, mask in (("warm-up grid", blocked_st), ("random 2%", rmask)):
+        on_card = edtlib.edt_capped(mask, cap)
+        on_cpu = edtlib.edt_capped(mask.cpu(), cap)
+        check(torch.equal(on_card.cpu().view(torch.int32), on_cpu.view(torch.int32)),
+              f"edt_capped on the card != on the CPU ({label})")
+    say("edt", f"edt_capped {tuple(blocked_st.shape)} cap {cap}: card == CPU bit for bit on "
+        "the warm-up grid's mask and a random 2% mask")
+    box_engine = slam_mod.GridSLAM(slam_config(edt_box=512), seed=0, device=dev)
+    sb = box_engine.init(Pose.create(400.0, 400.0, math.pi, device=dev))
+    reach = edtlib.edt_capped_reach(cap)
+    outcomes = {"window": 0, "full": 0, "skip": 0}
+    for k in range(20):
+        old = gridlib.blocked_from_logodds(sb.grid)
+        sb = box_engine.step(sb, slam_odom, slam_scans[k % 2])
+        new = gridlib.blocked_from_logodds(sb.grid)
+        any_diff, fits, _, _ = edtlib._refresh_plan(old, new, reach=reach, box=512)
+        outcomes["skip" if not bool(any_diff) else "window" if bool(fits) else "full"] += 1
+        check(torch.equal(sb.edt, edtlib.edt_capped(new, cap)),
+              f"edt_box cache != full rebuild after step {k}")
+    check(outcomes["window"] >= 1, f"no window refresh in 20 steps: {outcomes}")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for k in range(iters):
+        sb = box_engine.step(sb, slam_odom, slam_scans[k % 2])
+    stop.record()
+    stop.synchronize()
+    box_ms = start.elapsed_time(stop) / iters
+    pose_cpu = st.mcl.mode_pose.to("cpu")
+    map_kw = dict(scanner_offset=mcfg.scanner_offset, step=slam_cfg.raycast.step,
+                  max_dist=slam_cfg.raycast.max_dist, l_occ=mm.l_occ, l_free=mm.l_free,
+                  l_min=mm.l_min, l_max=mm.l_max)
+    map_card = mapping.scan_logodds_update(st.grid, st.mcl.mode_pose, scan0, **map_kw).cpu()
+    map_cpu = mapping.scan_logodds_update(st.grid.cpu(), pose_cpu, scan0.to("cpu"), **map_kw)
+    map_err = float((map_card - map_cpu).abs().max())
+    map_flips = int((gridlib.blocked_from_logodds(map_card)
+                     != gridlib.blocked_from_logodds(map_cpu)).sum())
+    say("edt", f"edt_box=512, 20 alternating-scan steps at {SLAM_PARTICLES} particles: cache "
+        "== full rebuild bit for "
+        f"bit after every step; outcomes {outcomes}; step {box_ms:.3f} ms (CUDA events, "
+        f"{iters} steps) vs {slam_med:.3f} ms median with the per-step rebuild (phase 9). "
+        f"Map update card vs CPU: max |diff| {map_err:.3e}, {map_flips} blocked cells flip")
+
+    # 11. slam-track: closed loop on the floor plan ---------------------------
+    err, wall_share, n_mapped = slam_track(dev, blocked, seed=1)
+    check(err <= SLAM_TRACK_BOUND_PX,
+          f"slam-track est_pose error {err} px > {SLAM_TRACK_BOUND_PX}")
+    check(wall_share >= SLAM_WALL_SHARE,
+          f"slam-track: {wall_share:.3f} of mapped walls within 2 px of a true wall "
+          f"< {SLAM_WALL_SHARE}")
+    say("slam-track", f"{SLAM_TRACK_STEPS} steps, {SLAM_PARTICLES} particles, seed 1: final "
+        f"est_pose error {err:.3f} px (bound {SLAM_TRACK_BOUND_PX}); {wall_share:.4f} of "
+        f"{n_mapped} mapped blocked cells within 2 px of a true wall (bound "
+        f"{SLAM_WALL_SHARE})")
+
     print(json.dumps({"kernels": [
         {"name": "motion_odometry", "route": "cuda",
          "source": "slam_tpu_torch/csrc/motion_odometry.cu",
          "replaces": "slam_tpu/ops/motion_pallas.py:76",
-         "launches": launches["motion_odometry"],
+         # Launches of the MCL (phase 7) and SLAM (phase 9) main paths.
+         "launches": launches["motion_odometry"] + slam_launches["motion_odometry"],
          # Largest moment gap (mean, std of the x, y, theta displacement)
-         # vs the plain version, at N=65536 and on the two 100k clouds of
-         # phase 6: the kernel's noise stream is its own.
+         # vs the plain version, at N=65536, on the two 100k clouds of
+         # phase 6 and the 1M SLAM cloud: the kernel's noise stream is its
+         # own. Times at N = 100k (phase 4); at 1M in the phase 9 line.
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
         {"name": "gather_rows", "route": "cuda",
          "source": "slam_tpu_torch/csrc/gather_rows.cu",
          "replaces": "slam_tpu/ops/pano_pallas.py:69",
-         "launches": launches["gather_rows"],
+         "launches": launches["gather_rows"] + slam_launches["gather_rows"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

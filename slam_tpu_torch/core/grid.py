@@ -1,10 +1,15 @@
-"""Occupancy-grid coordinate conventions (port of `slam_tpu/core/grid.py`).
+"""Occupancy-grid coordinate conventions and log-odds algebra (port of
+`slam_tpu/core/grid.py`).
 
 World coordinates are y-up with the origin at the bottom-left of the map;
 image (array) coordinates are (row i, col j) with row 0 at the top:
 
     i = floor(H - y - 1)        j = floor(x)
     x = j                       y = H - i        (cell -> world)
+
+The SLAM map is one shared f32[H, W] grid of the log-odds of occupancy:
+p_occ = sigmoid(l), and a cell is blocked iff l > 0 (strict: unknown, 0,
+is traversable).
 """
 
 from __future__ import annotations
@@ -39,3 +44,23 @@ def clamp_cell(shape, i, j):
     """Clamp cell indices into range (for safe gathers; pair with in_bounds)."""
     h, w = shape[0], shape[1]
     return torch.clamp(i, 0, h - 1), torch.clamp(j, 0, w - 1)
+
+
+def log_odds(p):
+    """p -> log odds (`slam/util.h:72`)."""
+    return torch.log(p / (1.0 - p))
+
+
+def log_odds_inv(l):
+    """log odds -> p (`slam/util.h:73`); equals sigmoid(l)."""
+    return torch.sigmoid(l)
+
+
+def blocked_from_logodds(grid_logodds: torch.Tensor) -> torch.Tensor:
+    """bool[H, W]: cell is blocked iff log-odds(occ) > 0."""
+    return grid_logodds > 0.0
+
+
+def uniform_logodds(shape, dtype=torch.float32, device=None) -> torch.Tensor:
+    """A fresh unknown map: log-odds 0 (p = 0.5) everywhere."""
+    return torch.zeros(shape, dtype=dtype, device=device)

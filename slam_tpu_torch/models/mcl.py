@@ -14,9 +14,11 @@ the data-dependent choices (uninformative-measurement fallback, ESS gate)
 are `torch.where` selections, and the every-k resample gate counts
 updates on the host.
 
-Not ported yet: adaptive injection, the likelihood-field measurements,
-`ray_sharding`, `resample_fn` and `measurement_fn` (ROADMAP.md Queue 1
-items 9, 11 and 14); they raise NotImplementedError.
+Measurements: "beam" (raycast or fused LUT route), "likelihood_field"
+(direct) and "likelihood_field_table" (boxed correlative table). Not
+ported yet: adaptive injection, "likelihood_field_auto", `ray_sharding`,
+`resample_fn` and `measurement_fn` (ROADMAP.md Queue 1 items 11 and 14);
+they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from slam_tpu_torch.core import stats
 from slam_tpu_torch.core.config import MCLConfig, RaycastConfig
 from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan
+from slam_tpu_torch.ops import edt as edtlib
 from slam_tpu_torch.ops import measurement, rayfield, resample
 from slam_tpu_torch.ops.motion_cuda import sample_motion_model_odometry_fused
 
@@ -95,6 +98,35 @@ def _select(cond, a: Pose, b: Pose) -> Pose:
     )
 
 
+def estimate(pp: Pose, log_weight, lw, mode_tau: float):
+    """(best_pose, mode_pose) of particles `pp` with accumulated log weights
+    `log_weight` after a measurement that scored them `lw`: the best
+    particle (the FIRST maximum, as jnp.argmax) and the softmax(tau *
+    log_w)-weighted circular mean. Under an uninformative measurement (the
+    top score is a majority tie, within a tolerance RELATIVE to |max|) the
+    argmax is arbitrary, so best_pose falls back to the sharpened mean
+    (slam_tpu/models/mcl.py:289-312 has the why)."""
+    k = torch.argmax(log_weight).view(1)
+    best_pose = Pose(
+        x=pp.x.index_select(0, k)[0],
+        y=pp.y.index_select(0, k)[0],
+        theta=pp.theta.index_select(0, k)[0],
+    )
+    wm = torch.softmax(log_weight * mode_tau, dim=0)
+    mode_pose = Pose(
+        x=torch.sum(wm * pp.x),
+        y=torch.sum(wm * pp.y),
+        theta=torch.atan2(
+            torch.sum(wm * torch.sin(pp.theta)), torch.sum(wm * torch.cos(pp.theta))
+        ),
+    )
+    max_lw = torch.max(lw)
+    tie_tol = torch.clamp(1e-6 * torch.abs(max_lw), min=1e-6)
+    top_tie_frac = torch.mean(((max_lw - lw) < tie_tol).to(torch.float32))
+    informative = top_tie_frac < 0.5
+    return _select(informative, best_pose, mode_pose), mode_pose
+
+
 def update(
     state: MCLState,
     scan: Scan,
@@ -120,43 +152,42 @@ def update(
             raise NotImplementedError(
                 f"{name} is not ported to slam_tpu_torch yet (ROADMAP.md Queue 1)"
             )
-    if cfg.measurement != "beam":
-        raise NotImplementedError(
-            f"measurement={cfg.measurement!r} is not ported to slam_tpu_torch "
-            "yet (ROADMAP.md Queue 1 item 9)"
-        )
-    field = rayfield.as_ray_field(field, rc)
     pp = state.particles.pose
-    lw = measurement.particle_log_weights(
-        field, pp, scan,
-        rc=rc, scanner_offset=cfg.scanner_offset, stddev=cfg.meas_stddev,
-        eps=cfg.meas_epsilon, lut_beam_stride=cfg.lut_beam_stride,
-    )
+    if cfg.measurement == "likelihood_field_auto":
+        raise NotImplementedError(
+            "measurement='likelihood_field_auto' is not ported to "
+            "slam_tpu_torch yet (ROADMAP.md Queue 1 item 11)"
+        )
+    if cfg.measurement in ("likelihood_field", "likelihood_field_table"):
+        if not isinstance(field, rayfield.RayField):
+            # A raw mask (SLAM mode): the capped transform the LF pdf
+            # resolves, ~5 sigma of distance.
+            blocked = torch.as_tensor(field, dtype=torch.bool)
+            field = rayfield.RayField(
+                blocked=blocked,
+                edt=edtlib.edt_capped(blocked, 5.0 * cfg.meas_stddev + 2.0),
+            )
+        lf = dict(
+            rc=rc, scanner_offset=cfg.scanner_offset, stddev=cfg.meas_stddev,
+            z_hit=cfg.lf_z_hit, z_rand=cfg.lf_z_rand,
+        )
+        if cfg.measurement == "likelihood_field_table":
+            lw = measurement.particle_log_weights_lf_table(
+                field, pp, scan, table_bins=cfg.lf_table_bins,
+                spread_mult=cfg.lf_table_spread,
+                min_halfwidth=cfg.lf_table_min_halfwidth,
+                table_dtype=cfg.lf_table_dtype, box_size=cfg.lf_table_box, **lf,
+            )
+        else:
+            lw = measurement.particle_log_weights_likelihood_field(field, pp, scan, **lf)
+    else:
+        lw = measurement.particle_log_weights(
+            field, pp, scan,
+            rc=rc, scanner_offset=cfg.scanner_offset, stddev=cfg.meas_stddev,
+            eps=cfg.meas_epsilon, lut_beam_stride=cfg.lut_beam_stride,
+        )
     log_weight = state.particles.log_weight + lw
-
-    # Best particle: the FIRST maximum, as jnp.argmax.
-    k = torch.argmax(log_weight).view(1)
-    best_pose = Pose(
-        x=pp.x.index_select(0, k)[0],
-        y=pp.y.index_select(0, k)[0],
-        theta=pp.theta.index_select(0, k)[0],
-    )
-    wm = torch.softmax(log_weight * cfg.mode_tau, dim=0)
-    mode_pose = Pose(
-        x=torch.sum(wm * pp.x),
-        y=torch.sum(wm * pp.y),
-        theta=torch.atan2(
-            torch.sum(wm * torch.sin(pp.theta)), torch.sum(wm * torch.cos(pp.theta))
-        ),
-    )
-    # Uninformative measurement (the top score is a majority tie, within a
-    # tolerance RELATIVE to |max|): the argmax is arbitrary, so fall back
-    # to the sharpened mean (slam_tpu/models/mcl.py:289-312 has the why).
-    max_lw = torch.max(lw)
-    tie_tol = torch.clamp(1e-6 * torch.abs(max_lw), min=1e-6)
-    top_tie_frac = torch.mean(((max_lw - lw) < tie_tol).to(torch.float32))
-    informative = top_tie_frac < 0.5
-    best_pose = _select(informative, best_pose, mode_pose)
+    best_pose, mode_pose = estimate(pp, log_weight, lw, cfg.mode_tau)
     particles = state.particles.replace(log_weight=log_weight)
 
     # Resample when ESS <= ess_threshold * N (1.0 == every update, the

@@ -1,0 +1,206 @@
+"""Full grid SLAM: MCL localization + one shared log-odds occupancy grid
+(port of `slam_tpu/models/slam.py`).
+
+One SLAM step = predict(odometry) -> [capped EDT of the frozen grid] ->
+weight(scan) -> estimate -> map update from the estimate -> resample. All
+particles weight against the same frozen grid, then the grid updates once
+(the JAX package's docstring has the design against the reference's
+per-particle maps).
+
+Functions of an explicit `SLAMState` on one device; `GridSLAM` wraps them.
+The every-k gates (resample, map update) count on the host. With
+`SLAMConfig.edt_box` unset (the production setting) the step makes no host
+sync; with it set, the incremental EDT refresh reads two flags a step
+(`ops/edt.py:edt_refresh`).
+
+Not ported yet: `SLAMConfig.scanmatch`, ``likelihood_field_auto`` with its
+`AutoTierDispatcher` (ROADMAP.md Queue 1 item 11), `ray_sharding` and
+`resample_fn` (item 14); they raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from slam_tpu_torch.core import grid as gridlib
+from slam_tpu_torch.core.config import SLAMConfig
+from slam_tpu_torch.core.types import Odometry, Pose, Scan
+from slam_tpu_torch.models import mcl as mcl_mod
+from slam_tpu_torch.ops import edt as edtlib
+from slam_tpu_torch.ops import mapping, rayfield
+
+_LF_MEASUREMENTS = ("likelihood_field", "likelihood_field_table", "likelihood_field_auto")
+
+
+@dataclasses.dataclass
+class SLAMState:
+    mcl: mcl_mod.MCLState
+    grid: torch.Tensor  # f32[H, W] log-odds of occupancy
+    # The engine's output pose estimate after the latest update (the best
+    # particle; the scan-matched pose once scanmatch is ported).
+    est_pose: Pose
+    # Derived cache (`SLAMConfig.edt_box`): the capped EDT of
+    # blocked_from_logodds(grid), refreshed incrementally each step. None
+    # when edt_box is unset. After an out-of-band grid edit re-derive it
+    # with `rebuild_edt`.
+    edt: Optional[torch.Tensor] = None
+
+    def replace(self, **changes) -> "SLAMState":
+        return dataclasses.replace(self, **changes)
+
+
+def _lf_cap(cfg: SLAMConfig) -> float:
+    """EDT cap: the LF pdf only resolves ~5 sigma of distance."""
+    return 5.0 * cfg.mcl.meas_stddev + 2.0
+
+
+def _needs_field(cfg: SLAMConfig) -> bool:
+    return cfg.mcl.measurement in _LF_MEASUREMENTS or cfg.scanmatch is not None
+
+
+def _not_ported(name: str, item: int):
+    return NotImplementedError(
+        f"{name} is not ported to slam_tpu_torch yet (ROADMAP.md Queue 1 item {item})"
+    )
+
+
+def rebuild_edt(state: SLAMState, cfg: SLAMConfig) -> SLAMState:
+    """(Re)derive the cached EDT from the grid (init, or after any
+    out-of-band grid edit)."""
+    if cfg.edt_box is None or not _needs_field(cfg):
+        return state.replace(edt=None)
+    blocked = gridlib.blocked_from_logodds(state.grid)
+    return state.replace(edt=edtlib.edt_capped(blocked, _lf_cap(cfg)))
+
+
+def init(generator, cfg: SLAMConfig, pose: Optional[Pose] = None, device=None) -> SLAMState:
+    """A fresh state: all particles at `pose` (default: the canvas center)
+    and an unknown grid, on `device` (default: the pose's). `generator` is
+    a torch.Generator on that device, or an int seed."""
+    h, w = cfg.map.shape
+    if pose is None:
+        pose = mcl_mod.starting_pose(h, w, device)
+    elif device is not None:
+        pose = pose.to(device)
+    state = SLAMState(
+        mcl=mcl_mod.init(generator, cfg.mcl.n_particles, pose),
+        grid=gridlib.uniform_logodds((h, w), device=pose.x.device),
+        est_pose=pose,
+    )
+    return rebuild_edt(state, cfg)
+
+
+def resolve_map_pose(cfg: SLAMConfig) -> str:
+    """``SLAMConfig.map_pose`` as a concrete estimator: ``"auto"`` is
+    "best" below 10k particles, "mode" with ``resample_every > 1``, "mean"
+    otherwise (the JAX package's docstring has the measurements behind
+    the rule)."""
+    if cfg.map_pose != "auto":
+        return cfg.map_pose
+    if cfg.mcl.n_particles < 10_000:
+        return "best"
+    if cfg.mcl.resample_every > 1:
+        return "mode"
+    return "mean"
+
+
+def step(
+    state: SLAMState,
+    odom: Odometry,
+    scan: Scan,
+    cfg: SLAMConfig,
+    ray_sharding=None,
+    resample_fn=None,
+    noise=None,
+    u0=None,
+) -> SLAMState:
+    """One full SLAM step (predict + update + map + resample). `noise` and
+    `u0` (CPU only) inject the motion draws and the resampler's uniform."""
+    if cfg.scanmatch is not None:
+        raise _not_ported("SLAMConfig.scanmatch", 11)
+    st = mcl_mod.predict(state.mcl, odom, cfg.motion.alphas, noise=noise)
+    blocked = gridlib.blocked_from_logodds(state.grid)
+
+    # The likelihood-field measurements read one capped EDT: the state's
+    # incremental cache with `edt_box`, else a rebuild of the frozen grid.
+    lf_field = None
+    if cfg.mcl.measurement in _LF_MEASUREMENTS:
+        if cfg.edt_box is not None:
+            if state.edt is None:
+                raise ValueError(
+                    "SLAMConfig.edt_box is set but the state carries no EDT "
+                    "cache — initialize with slam.init(cfg) or call "
+                    "slam.rebuild_edt(state, cfg) after out-of-band grid edits"
+                )
+            edt = state.edt
+        else:
+            edt = edtlib.edt_capped(blocked, _lf_cap(cfg))
+        lf_field = rayfield.RayField(blocked=blocked, edt=edt)
+
+    st = mcl_mod.update(
+        st, scan, blocked if lf_field is None else lf_field, cfg.mcl, cfg.raycast,
+        ray_sharding=ray_sharding, resample_fn=resample_fn, u0=u0,
+    )
+
+    # The map follows `map_pose`'s estimator; the output estimate stays the
+    # best particle (the reference keeps the best particle's map).
+    mp = resolve_map_pose(cfg)
+    if mp == "mean":
+        map_pose = mcl_mod.mean_pose(st)
+    elif mp == "mode":
+        map_pose = st.mode_pose
+    else:
+        map_pose = st.best_pose
+
+    # `st.updates` is post-increment here, so the first scan (the
+    # bootstrap against the empty grid) always maps. A skipped map update
+    # leaves the grid, and so the EDT cache, as they were.
+    new_grid, new_edt = state.grid, state.edt
+    if (st.updates - 1) % cfg.map_every == 0:
+        new_grid = mapping.scan_logodds_update(
+            state.grid, map_pose, scan,
+            scanner_offset=cfg.mcl.scanner_offset, step=cfg.raycast.step,
+            max_dist=cfg.raycast.max_dist, l_occ=cfg.map.l_occ,
+            l_free=cfg.map.l_free, l_min=cfg.map.l_min, l_max=cfg.map.l_max,
+        )
+        if cfg.edt_box is not None and lf_field is not None:
+            new_edt = edtlib.edt_refresh(
+                state.edt, blocked, gridlib.blocked_from_logodds(new_grid),
+                max_dist=_lf_cap(cfg), box=cfg.edt_box,
+            )
+    return SLAMState(mcl=st, grid=new_grid, est_pose=st.best_pose, edt=new_edt)
+
+
+def predict_only(state: SLAMState, odom: Odometry, cfg: SLAMConfig) -> SLAMState:
+    """Motion-only step for frames without a scan."""
+    return state.replace(mcl=mcl_mod.predict(state.mcl, odom, cfg.motion.alphas))
+
+
+class GridSLAM:
+    """The SLAM engine on an explicit `device`; cfg held fixed."""
+
+    def __init__(self, cfg: SLAMConfig, seed: int = 0, device=None):
+        if cfg.mcl.measurement == "likelihood_field_auto":
+            raise _not_ported("likelihood_field_auto (AutoTierDispatcher)", 11)
+        self.cfg = cfg
+        self._seed = seed
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+
+    def init(self, pose: Optional[Pose] = None) -> SLAMState:
+        return init(
+            mcl_mod.make_generator(self._seed, self.device), self.cfg, pose,
+            device=self.device,
+        )
+
+    def step(self, state: SLAMState, odom: Odometry, scan: Scan) -> SLAMState:
+        return step(state, odom, scan, self.cfg)
+
+    def predict(self, state: SLAMState, odom: Odometry) -> SLAMState:
+        return predict_only(state, odom, self.cfg)
+
+    def prob_map(self, state: SLAMState) -> torch.Tensor:
+        """P(occupied) in [0, 1] from the log-odds grid."""
+        return gridlib.log_odds_inv(state.grid)

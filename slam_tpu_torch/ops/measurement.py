@@ -1,9 +1,10 @@
-"""Beam-endpoint measurement model (port of the beam half of
-`slam_tpu/ops/measurement.py`).
+"""Measurement models (port of `slam_tpu/ops/measurement.py`): the beam
+model (raycast or fused LUT panorama route) and the likelihood field,
+direct or through the boxed correlative score table of the SLAM step.
 
-The likelihood-field measurements (`particle_log_weights_likelihood_field`,
-the correlative table) wait for the full-SLAM slice (ROADMAP.md Queue 1
-item 9).
+Not ported: the sharded table build (`bin_sharding`, `ray_sharding`,
+`lpad=`; ROADMAP.md Queue 1 item 14), `lf_auto_converged` (item 11) and
+`beam_weights_probabilistic` (item 11).
 """
 
 from __future__ import annotations
@@ -12,8 +13,9 @@ import math
 
 import torch
 
+from slam_tpu_torch.core import grid as gridlib
 from slam_tpu_torch.core.config import RaycastConfig
-from slam_tpu_torch.core.stats import log_pdf_normal_clamp_eps
+from slam_tpu_torch.core.stats import log_pdf_normal_clamp_eps, pdf_normal
 from slam_tpu_torch.core.types import Pose, Scan
 from slam_tpu_torch.ops import lut as lutlib
 from slam_tpu_torch.ops.rayfield import as_ray_field, raycast_field
@@ -168,3 +170,319 @@ def particle_log_weights(
         stddev=stddev, max_dist=rc.max_dist, eps=eps,
     )
     return torch.sum(lw, dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Likelihood field (Thrun et al. table 6.3), direct and through the boxed
+# correlative score table.
+# --------------------------------------------------------------------------
+
+_SHARDING = "is not ported to slam_tpu_torch yet (ROADMAP.md Queue 1 item 14)"
+
+# Elements of one gathered [T, beams, si, sj] window stack in the table
+# build (256 MiB in f32): beams are taken in chunks of at most this size.
+_TABLE_CHUNK_ELEMS = 1 << 26
+
+
+def _needs_edt(field, measurement: str):
+    if field.edt is None:
+        raise ValueError(
+            f"{measurement} needs field.edt (build the RayField with an EDT, "
+            "e.g. ops/edt.py:edt_capped)"
+        )
+
+
+def particle_log_weights_likelihood_field(
+    field,
+    poses: Pose,
+    scan: Scan,
+    *,
+    rc: RaycastConfig = RaycastConfig(),
+    scanner_offset=(0.0, 0.0, 0.0),
+    stddev: float = 5.0,
+    z_hit: float = 0.95,
+    z_rand: float = 0.05,
+    ray_sharding=None,
+):
+    """Likelihood-field log weights f32[N]: each beam endpoint scores
+    log(z_hit * N(edt at its cell; sigma) + z_rand / z_max); max-range
+    beams score 0 (no endpoint information) and out-of-map endpoints the
+    z_rand floor. One EDT gather per (particle, beam)."""
+    if ray_sharding is not None:
+        raise NotImplementedError(f"ray_sharding {_SHARDING}")
+    field = as_ray_field(field, rc)
+    _needs_edt(field, "likelihood_field")
+    h, w = field.edt.shape
+    sp = sensor_pose(poses, scanner_offset)
+    angles = sp.theta[:, None] + scan.angles[None, :]  # [N, B]
+    z = scan.dists[None, :]
+    ex = sp.x[:, None] + z * torch.cos(angles)
+    ey = sp.y[:, None] + z * torch.sin(angles)
+    i, j = gridlib.world_to_cell((h, w), ex, ey)
+    inb = gridlib.in_bounds((h, w), i, j)
+    ic, jc = gridlib.clamp_cell((h, w), i, j)
+    d = field.edt.reshape(-1)[ic.long() * w + jc]
+    p_hit = torch.where(inb, pdf_normal(stddev, d), 0.0)
+    p = z_hit * p_hit + z_rand / rc.max_dist
+    lw = torch.log(torch.clamp(p, min=1e-30))
+    lw = torch.where(z >= rc.max_dist, 0.0, lw)
+    return torch.sum(lw, dim=-1)
+
+
+def lf_log_score_field(edt, *, stddev, z_hit, z_rand, max_dist):
+    """Per-cell beam-endpoint log score over the EDT:
+    log(z_hit * N(edt; sigma) + z_rand / z_max)."""
+    return torch.log(
+        torch.clamp(z_hit * pdf_normal(stddev, edt) + z_rand / max_dist, min=1e-30)
+    )
+
+
+def lf_cell_offsets(scan: Scan, headings, *, max_dist: float):
+    """(oi, oj) int32[T, B]: the cell offset of beam b's endpoint at
+    heading ``headings[t]``, in rows (i grows downward = -y) and columns,
+    plus the field's pad ceil(max_dist) + 1: the window start of the (bin,
+    beam) term in `lf_score_table`."""
+    pad = int(math.ceil(max_dist)) + 1
+    ang = headings[:, None] + scan.angles[None, :]  # [T, B]
+    dx = scan.dists[None, :] * torch.cos(ang)
+    dy = scan.dists[None, :] * torch.sin(ang)
+    oi = torch.floor(0.5 - dy).to(torch.int32) + pad
+    oj = torch.floor(0.5 + dx).to(torch.int32) + pad
+    return oi, oj
+
+
+def lf_score_table(
+    edt,
+    scan: Scan,
+    headings,
+    *,
+    rc,
+    stddev,
+    z_hit,
+    z_rand,
+    dtype="f32",
+    bin_sharding=None,
+    origin=None,
+    out_shape=None,
+    lpad=None,
+):
+    """Correlative likelihood-field score table over heading bins, f32[T,
+    si, sj]: S[t, a, b] = sum over valid beams of the per-cell log score
+    (`lf_log_score_field`) at the endpoint of the beam fired from cell
+    (i0 + a, j0 + b) at heading ``headings[t]``. Max-range beams are
+    excluded; endpoints off the map read the log(z_rand / z_max) floor.
+
+    Offsets use the snapped-sensor arithmetic floor(0.5 + dx) /
+    floor(0.5 - dy), as the JAX package does. Dense build (``origin``
+    None): the whole map, from the map padded by ceil(max_dist) + 1 floor
+    cells. Boxed build: ``origin`` = (i0, j0), tensors that stay on the
+    device, ``out_shape`` = static (si, sj); the padded window around the
+    box is assembled from clipped row / column `index_select`s and a floor
+    mask, bit for bit the padded field's values.
+
+    Each (bin, beam) term is a window of that padded field. The windows
+    are rows of an `unfold` view of it, so one advanced-indexing op
+    gathers the windows of all bins and a chunk of beams; beams are
+    valid-masked and summed in f32 (``dtype="bf16"`` stores the score
+    field in bf16, accumulation stays f32)."""
+    if bin_sharding is not None or lpad is not None:
+        raise NotImplementedError(f"bin_sharding / lpad {_SHARDING}")
+    h, w = edt.shape
+    dev = edt.device
+    si, sj = (h, w) if out_shape is None else out_shape
+    pad = int(math.ceil(rc.max_dist)) + 1
+    floor_val = float(math.log(max(z_rand / rc.max_dist, 1e-30)))
+    store = torch.bfloat16 if dtype == "bf16" else torch.float32
+    score = lf_log_score_field(
+        edt, stddev=stddev, z_hit=z_hit, z_rand=z_rand, max_dist=rc.max_dist
+    ).to(store)
+    if origin is None:
+        lpad = torch.nn.functional.pad(score, (pad, pad, pad, pad), value=floor_val)
+    else:
+        i0, j0 = (torch.as_tensor(o, device=dev) for o in origin)
+        rows = i0 - pad + torch.arange(si + 2 * pad, device=dev)
+        cols = j0 - pad + torch.arange(sj + 2 * pad, device=dev)
+        in_i = (rows >= 0) & (rows < h)
+        in_j = (cols >= 0) & (cols < w)
+        core = score.index_select(0, rows.clamp(0, h - 1)).index_select(
+            1, cols.clamp(0, w - 1)
+        )
+        lpad = torch.where(in_i[:, None] & in_j[None, :], core, floor_val)
+
+    valid = (scan.dists < rc.max_dist).to(torch.float32)  # [B]
+    # Window starts, clamped as a dynamic slice clamps its start.
+    oi, oj = (o.clamp(0, 2 * pad).long()
+              for o in lf_cell_offsets(scan, headings, max_dist=rc.max_dist))
+    wins = lpad.unfold(0, si, 1).unfold(1, sj, 1)  # [., ., si, sj] view
+    t, b = oi.shape
+    chunk = max(1, _TABLE_CHUNK_ELEMS // (t * si * sj))
+    acc = torch.zeros((t, si, sj), dtype=torch.float32, device=dev)
+    for c0 in range(0, b, chunk):
+        win = wins[oi[:, c0 : c0 + chunk], oj[:, c0 : c0 + chunk]]  # [T, c, si, sj]
+        v = valid[c0 : c0 + chunk][None, :, None, None]
+        acc += torch.sum(win.to(torch.float32) * v, dim=1)
+    return acc
+
+
+def lf_table_window(
+    poses: Pose,
+    *,
+    grid_shape,
+    scanner_offset=(0.0, 0.0, 0.0),
+    table_bins: int = 32,
+    spread_mult: float = 4.0,
+    min_halfwidth: float = 0.02,
+    box_size=None,
+):
+    """Particle-count-independent window statistics of the correlative
+    table: the heading-bin window from the cloud's circular spread and the
+    box origin from its mean sensor cell. Returns ``(mu, binw, halfwidth,
+    headings[t], i0, j0, si, sj)``: tensors on the poses' device (no host
+    read), except the static box dims ``si, sj`` (the map's without a
+    ``box_size``)."""
+    t = int(table_bins)
+    if t < 2:
+        raise ValueError(f"table_bins must be >= 2, got {t}")
+    h, w = grid_shape
+    sp = sensor_pose(poses, scanner_offset)
+    dev = sp.theta.device
+    c = torch.mean(torch.cos(sp.theta))
+    s = torch.mean(torch.sin(sp.theta))
+    mu = torch.atan2(s, c)
+    rbar = torch.clamp(torch.sqrt(c * c + s * s), 1e-7, 1.0 - 1e-7)
+    cstd = torch.sqrt(-2.0 * torch.log(rbar))
+    halfwidth = torch.clamp(spread_mult * cstd + min_halfwidth, min_halfwidth, math.pi)
+    binw = 2.0 * halfwidth / (t - 1)
+    headings = mu + (torch.arange(t, dtype=torch.float32, device=dev) - (t - 1) / 2.0) * binw
+
+    if box_size is None:
+        si, sj = h, w
+        i0 = j0 = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        si = min(int(box_size), h)
+        sj = min(int(box_size), w)
+        mi, mj = gridlib.world_to_cell((h, w), torch.mean(sp.x), torch.mean(sp.y))
+        i0 = torch.clamp(mi - si // 2, 0, h - si).to(torch.int32)
+        j0 = torch.clamp(mj - sj // 2, 0, w - sj).to(torch.int32)
+    return mu, binw, halfwidth, headings, i0, j0, si, sj
+
+
+def lf_table_prepare(
+    field,
+    poses: Pose,
+    scan: Scan,
+    *,
+    rc: RaycastConfig = RaycastConfig(),
+    scanner_offset=(0.0, 0.0, 0.0),
+    stddev: float = 5.0,
+    z_hit: float = 0.95,
+    z_rand: float = 0.05,
+    table_bins: int = 32,
+    spread_mult: float = 4.0,
+    min_halfwidth: float = 0.02,
+    table_dtype: str = "f32",
+    box_size=None,
+    ray_sharding=None,
+):
+    """Particle-count-independent half of `particle_log_weights_lf_table`:
+    heading window, box origin and score-table build. Returns ``(tbl[si,
+    sj, T] bins-last, mu, binw, halfwidth, i0, j0)`` for `lf_table_lookup`."""
+    if ray_sharding is not None:
+        raise NotImplementedError(f"ray_sharding {_SHARDING}")
+    field = as_ray_field(field, rc)
+    _needs_edt(field, "likelihood_field_table")
+    h, w = field.edt.shape
+    mu, binw, halfwidth, headings, i0, j0, si, sj = lf_table_window(
+        poses, grid_shape=(h, w), scanner_offset=scanner_offset,
+        table_bins=table_bins, spread_mult=spread_mult,
+        min_halfwidth=min_halfwidth, box_size=box_size,
+    )
+    boxed = box_size is not None
+    table = lf_score_table(
+        field.edt, scan, headings, rc=rc, stddev=stddev, z_hit=z_hit,
+        z_rand=z_rand, dtype=table_dtype,
+        origin=(i0, j0) if boxed else None, out_shape=(si, sj) if boxed else None,
+    )
+    tbl = table.permute(1, 2, 0).contiguous()  # [si, sj, T]
+    return (tbl, mu, binw, halfwidth, i0, j0)
+
+
+def lf_table_lookup(
+    prep,
+    poses: Pose,
+    scan: Scan,
+    *,
+    rc: RaycastConfig,
+    scanner_offset=(0.0, 0.0, 0.0),
+    z_rand: float = 0.05,
+    grid_shape=None,
+):
+    """Per-particle half of `particle_log_weights_lf_table`: the sensor
+    cell's score, linearly interpolated between the two heading bins
+    around the particle's heading. The bins-last table puts the (t0, t0+1)
+    pair side by side, so one int64 flat index per particle reads both
+    through a 2-wide `unfold` view: one gather. Particles heading more than
+    half a bin past the window's edge, or whose cell lies outside the box,
+    score the z_rand floor n_valid_beams * log(z_rand / z_max)."""
+    tbl, mu, binw, halfwidth, i0, j0 = prep
+    si, sj, t = tbl.shape
+    h, w = grid_shape
+    sp = sensor_pose(poses, scanner_offset)
+    # An all-zeros prep would make d / binw NaN at d = 0; the floor below
+    # discards those lanes either way.
+    binw = torch.where(binw > 0, binw, 1.0)
+    i, j = gridlib.world_to_cell((h, w), sp.x, sp.y)
+    ic, jc = gridlib.clamp_cell((h, w), i, j)
+    il = ic - i0
+    jl = jc - j0
+    in_box = (il >= 0) & (il < si) & (jl >= 0) & (jl < sj)
+    ilc = torch.clamp(il, 0, si - 1)
+    jlc = torch.clamp(jl, 0, sj - 1)
+    d = torch.atan2(torch.sin(sp.theta - mu), torch.cos(sp.theta - mu))
+    u = torch.clamp(d / binw + (t - 1) / 2.0, 0.0, float(t - 1))
+    t0 = torch.clamp(torch.floor(u).to(torch.int32), 0, t - 2)
+    frac = u - t0.to(u.dtype)
+    flat = (ilc.long() * sj + jlc) * t + t0
+    pair = tbl.reshape(-1).unfold(0, 2, 1)[flat]  # [N, 2]
+    score = (1.0 - frac) * pair[:, 0] + frac * pair[:, 1]
+    n_valid = torch.sum(scan.dists < rc.max_dist).to(torch.float32)
+    floor_lw = n_valid * float(math.log(max(z_rand / rc.max_dist, 1e-30)))
+    out = (torch.abs(d) > halfwidth + 0.5 * binw) | ~in_box
+    return torch.where(out, floor_lw, score)
+
+
+def particle_log_weights_lf_table(
+    field,
+    poses: Pose,
+    scan: Scan,
+    *,
+    rc: RaycastConfig = RaycastConfig(),
+    scanner_offset=(0.0, 0.0, 0.0),
+    stddev: float = 5.0,
+    z_hit: float = 0.95,
+    z_rand: float = 0.05,
+    table_bins: int = 32,
+    spread_mult: float = 4.0,
+    min_halfwidth: float = 0.02,
+    table_dtype: str = "f32",
+    box_size=None,
+    ray_sharding=None,
+):
+    """Likelihood-field weights f32[N] through the correlative score table:
+    `lf_table_prepare` (build cost independent of the particle count) over
+    `table_bins` heading bins spanning the cloud's circular spread, within
+    a `box_size` box around its mean sensor cell when set, then
+    `lf_table_lookup` (one pair gather per particle). The large-N tracking
+    and SLAM fast path; the JAX package's docstring has the accuracy
+    argument."""
+    field = as_ray_field(field, rc)
+    prep = lf_table_prepare(
+        field, poses, scan, rc=rc, scanner_offset=scanner_offset,
+        stddev=stddev, z_hit=z_hit, z_rand=z_rand, table_bins=table_bins,
+        spread_mult=spread_mult, min_halfwidth=min_halfwidth,
+        table_dtype=table_dtype, box_size=box_size, ray_sharding=ray_sharding,
+    )
+    return lf_table_lookup(
+        prep, poses, scan, rc=rc, scanner_offset=scanner_offset, z_rand=z_rand,
+        grid_shape=field.edt.shape,
+    )

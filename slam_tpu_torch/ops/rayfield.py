@@ -1,8 +1,9 @@
 """Raycast backend dispatch (port of `slam_tpu/ops/rayfield.py`).
 
 The port has the ``march`` (exact fixed-step DDA) and ``lut`` (dense
-directional table) backends. ``sdf`` and ``cddt`` wait for the full-SLAM
-slice and the remaining-features item of ROADMAP.md Queue 1.
+directional table) backends. ``sdf`` and ``cddt`` wait for ROADMAP.md
+Queue 1 items 10 and 11. A `RayField` built with an EDT serves the
+likelihood-field measurements whatever the backend.
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ def _not_ported(backend: str):
 @dataclasses.dataclass
 class RayField:
     blocked: torch.Tensor  # bool[H, W]
+    # f32[H, W] distance transform: the likelihood-field measurements read
+    # it (the SLAM step builds it with `ops/edt.py:edt_capped`).
+    edt: Optional[torch.Tensor] = None
     # [H, W, P] bins-last table; P >= lut_bins is the storage width.
     lut: Optional[torch.Tensor] = None
     # Semantic angular bin count.

@@ -15,6 +15,7 @@ import torch
 
 from slam_tpu_torch.core.types import Particles, Pose, Scan
 from slam_tpu_torch.models.mcl import MCLState, init
+from slam_tpu_torch.models.slam import SLAMState
 from slam_tpu_torch.ops.rayfield import RayField
 
 
@@ -67,10 +68,28 @@ def lut_tensor(lut, device=None) -> torch.Tensor:
     return tensor(lut, device)
 
 
-def ray_field(blocked, lut=None, lut_bins=None, device=None) -> RayField:
-    """A RayField from a blocked mask and an optional LUT (see lut_tensor)."""
+def ray_field(blocked, lut=None, lut_bins=None, device=None, edt=None) -> RayField:
+    """A RayField from a blocked mask, an optional LUT (see lut_tensor) and
+    an optional f32 EDT."""
     return RayField(
         blocked=tensor(blocked, device, torch.bool),
+        edt=None if edt is None else tensor(edt, device, torch.float32),
         lut=None if lut is None else lut_tensor(lut, device),
         lut_bins=lut_bins,
+    )
+
+
+def slam_state(grid, edt, p: Particles, best: Pose, mode: Pose, est: Pose,
+               step: int, updates: int, seed: int) -> SLAMState:
+    """A SLAMState from the JAX state's parts: the f32 log-odds `grid` and
+    the `edt` cache (or None) as numpy arrays, the particles and poses as
+    port objects (see `particles`, `pose`) on one device, and the counters;
+    `seed` stands in for the JAX key, as in `mcl_state`. The grid and EDT
+    go to the particles' device."""
+    dev = p.pose.x.device
+    return SLAMState(
+        mcl=mcl_state(p, best, mode, step, updates, seed),
+        grid=tensor(grid, dev, torch.float32),
+        est_pose=est,
+        edt=None if edt is None else tensor(edt, dev, torch.float32),
     )

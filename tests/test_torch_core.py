@@ -169,8 +169,9 @@ def test_import_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "sys.modules['slam_tpu'] = None\n"
-        "import slam_tpu_torch.models.mcl\n"
+        "import slam_tpu_torch.models.mcl, slam_tpu_torch.models.slam\n"
         "import slam_tpu_torch.utils.convert, slam_tpu_torch.utils.maps\n"
+        "import slam_tpu_torch.utils.metrics\n"
         "import slam_tpu_torch.ops._build\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
     )

@@ -193,7 +193,7 @@ def test_mcl_wrapper_and_mean_pose():
         step=jnp.int32(0), updates=jnp.int32(0)))
     _assert_pose_close(tmcl.mean_pose(state), jm, 1e-4)
 
-    for bad in (dict(adaptive=tcfg.AdaptiveConfig()), dict(measurement="likelihood_field")):
+    for bad in (dict(adaptive=tcfg.AdaptiveConfig()), dict(measurement="likelihood_field_auto")):
         with pytest.raises(NotImplementedError):
             tmcl.update(state, scan, field, dataclasses.replace(tc, **bad), trc)
     with pytest.raises(NotImplementedError):
