@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of slam_tpu_torch on one NVIDIA GPU: the 100k-particle
-MCL step through both hand-written CUDA kernels, and the 1M-particle full
-SLAM step.
+MCL step through both hand-written CUDA kernels, the 1M-particle full SLAM
+step, and the planners of `benchmarks/suite.py` (lattice and continuous
+Hybrid A*, RRT*, the spatial queries) with the sdf ray backend.
 
     python3 chip_smoke.py
 
@@ -33,6 +34,21 @@ raises, so the exit code is nonzero):
               CPU
  11. slam-track closed-loop SLAM at 1M particles on the floor plan: final
               pose error and the share of mapped walls near true walls
+ 12. sdf        edt_jfa and edt_exact of the floor plan on the card == on
+              the CPU bit for bit; the planners' sphere trace against the
+              march on 100k rays from free cells (hit agreement, |ddist| <=
+              step + margin); both timed
+ 13. plan-lattice  the suite's lattice HA* on the floor plan inflated by 7:
+              reset, 5 x (reset_query + solve), query init and path walk
+              timed; rounds, launches, flag reads, profile; the path free
+              and no shorter than the straight line less tol; the same
+              search by the port on the CPU equal bit for bit
+ 14. plan-rrt / plan-continuous / spatial  the suite's RRT* over seeds
+              1234-1238 (success count; every path edge ends in a free cell
+              of the map inflated by 7 and crosses no blocked stretch of a
+              ray step along it; the edges the fixed-step march flags are
+              printed), continuous HA* with the lut edge field, and the
+              spatial workload at 1M points (card == CPU)
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device; without one it
@@ -41,6 +57,7 @@ raises and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -66,6 +83,32 @@ SLAM_TRACK_STEPS = 50
 # true wall 0.888-1.0.
 SLAM_TRACK_BOUND_PX = 4.5
 SLAM_WALL_SHARE = 0.8
+# Planner phases (12-14): the suite's configurations on the synthetic
+# floor plan inflated by 7 (`benchmarks/suite.py:155`). The suite's goal,
+# image cell (450, 750), lies inside the plan's horizontal wall at rows
+# 450-453, so no robot reaches it; the checks keep the suite's start and
+# use the nearest reachable goal, (440, 750).
+PLAN_INFLATE = 7
+PLAN_START_IJ = (150, 450)
+PLAN_GOAL_IJ = (440, 750)
+SDF_RAYS = 100_000
+# The sphere trace against the march on phase 12's 100k rays (seeded, so
+# the same in every run): hits agreed on 0.99995 and |ddist| <= step +
+# margin held on 0.99955 of the rays in every H100 run.
+SDF_HIT_AGREE = 0.999
+SDF_CLOSE = 0.998
+RRT_SEEDS = tuple(range(1234, 1239))
+RRT_ROUNDS = 400
+# Seeds 1234-1237 reach the goal and 1238 spends its 8192 nodes first, in
+# every H100 run; the search is deterministic for a seed.
+RRT_MIN_SUCCESS = 4
+# Points per RRT* path edge for the blocked-stretch check (<= 0.013 px
+# apart on the 50 px edges the rewire radius allows).
+EDGE_SAMPLES = 4096
+LATTICE_QUERIES = 5
+SPATIAL_POINTS = 1_000_000
+SPATIAL_BOXES = 1000
+SPATIAL_QUERIES = 1024
 
 
 def check(cond, msg: str) -> None:
@@ -202,6 +245,313 @@ def slam_track(dev, blocked, seed: int):
     return err, float(near.float().mean()), int(mapped.sum())
 
 
+def event_ms(fn) -> float:
+    """ms of one call of `fn` between two CUDA events (host pace included)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop)
+
+
+def spread(values) -> dict:
+    return {"median": statistics.median(values), "min": min(values), "max": max(values),
+            "repeats": len(values)}
+
+
+def ij_to_world(h: int, i: int, j: int):
+    """`benchmarks/suite.py:141`'s image cell -> world (x, y)."""
+    return float(j), float(h - i)
+
+
+def plan_config():
+    """The suite's lattice HA* (`suite.py:158-191`, lattice defaults)."""
+    from slam_tpu_torch.core.config import HybridAStarConfig
+
+    vel, steer = 10.0, 40 * math.pi / 180
+    return HybridAStarConfig(
+        velocity=vel, max_steering=steer,
+        length=vel * math.tan(steer) / (10 * math.pi / 180),
+        theta_res=36, branching_factor=3, tol=5.0, batch=512, mode="lattice",
+        lattice_reps=1, heuristic_weight=1.3,
+    )
+
+
+def planner_profile(fn) -> dict:
+    """Device ms, launches and the 8 largest kernels of one call of `fn`."""
+    rows = kernel_profile(fn, iters=1, warmup=0)
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"device_ms_per_solve": sum(r[0] for r in rows.values()),
+            "launches_per_solve": sum(r[1] for r in rows.values()),
+            "top": [[k[:90], round(v[0], 4), round(v[1], 1)] for k, v in top]}
+
+
+def plan_poses(h: int):
+    """World (x, y) of the planner start and goal on a map of height h."""
+    return ij_to_world(h, *PLAN_START_IJ), ij_to_world(h, *PLAN_GOAL_IJ)
+
+
+def sdf_phase(dev, blocked_np) -> dict:
+    """Phase 12: the sdf backend. edt_jfa / edt_exact on `dev` == the CPU
+    bit for bit; the sphere trace of the planners' ray config against the
+    fixed-step march on SDF_RAYS rays from free cells."""
+    from slam_tpu_torch.core.config import RaycastConfig
+    from slam_tpu_torch.ops import edt as edtlib
+    from slam_tpu_torch.ops import rayfield
+    from slam_tpu_torch.ops.raycast import raycast_march
+
+    blocked = torch.from_numpy(blocked_np).to(dev)
+    h, w = blocked_np.shape
+    out = {}
+    for name in ("edt_jfa", "edt_exact"):
+        fn = getattr(edtlib, name)
+        card = fn(blocked)
+        cpu = fn(torch.from_numpy(blocked_np))
+        check(torch.equal(card.cpu().view(torch.int32), cpu.view(torch.int32)),
+              f"{name} on {dev} != on the CPU")
+        out[f"{name}_ms"] = statistics.median(event_ms(lambda: fn(blocked)) for _ in range(5))
+    rc = RaycastConfig(backend="sdf", step=1.0, max_dist=500.0)
+    field = rayfield.make_ray_field(blocked, rc)
+    rng = np.random.default_rng(12)
+    free = np.argwhere(~blocked_np)
+    pick = free[rng.integers(0, len(free), SDF_RAYS)]
+    x = torch.tensor(pick[:, 1] + rng.uniform(0, 1, SDF_RAYS), dtype=torch.float32, device=dev)
+    y = torch.tensor(h - pick[:, 0] - rng.uniform(0, 1, SDF_RAYS), dtype=torch.float32,
+                     device=dev)
+    th = torch.tensor(rng.uniform(-math.pi, math.pi, SDF_RAYS), dtype=torch.float32, device=dev)
+    ds, hs = rayfield.raycast_field(field, x, y, th, rc)
+    dm, hm = raycast_march(blocked, x, y, th, step=rc.step, max_dist=rc.max_dist)
+    agree = float((hs == hm).float().mean())
+    close = float(((ds - dm).abs() <= rc.step + rc.sdf_margin).float().mean())
+    check(agree >= SDF_HIT_AGREE, f"sdf vs march hit agreement {agree} < {SDF_HIT_AGREE}")
+    check(close >= SDF_CLOSE, f"sdf vs march |ddist| <= step + margin on {close} < {SDF_CLOSE}")
+    out.update(rays=SDF_RAYS, hit_agreement=agree, close_share=close,
+               hit_share=float(hs.float().mean()),
+               sdf_ms=statistics.median(event_ms(lambda: rayfield.raycast_field(
+                   field, x, y, th, rc)) for _ in range(5)),
+               march_ms=statistics.median(event_ms(lambda: raycast_march(
+                   blocked, x, y, th, step=rc.step, max_dist=rc.max_dist)) for _ in range(5)))
+    return out
+
+
+def lattice_phase(dev, free_np) -> dict:
+    """Phase 13: the suite's lattice HA* on `free_np`: one reset (the
+    tables), then LATTICE_QUERIES x (reset_query + solve); the path checked
+    on the map; the same search by the port on the CPU equal bit for bit."""
+    from slam_tpu_torch.core.types import Pose
+    from slam_tpu_torch.planners import HybridAStar
+
+    h, w = free_np.shape
+    cfg = plan_config()
+    (ax, ay), (bx, by) = plan_poses(h)
+    a, b = Pose.create(ax, ay, 0.0), Pose.create(bx, by, 0.0)
+    free = torch.from_numpy(free_np).to(dev)
+    p = None
+
+    def reset():
+        nonlocal p
+        p = HybridAStar(free, a, b, cfg)
+
+    reset_ms = [event_ms(reset) for _ in range(2)]
+    check(p.solve(), "lattice HA*: no path to the goal")
+
+    def query():
+        p.reset_query(a, b)
+        p.solve()
+
+    init_ms = event_ms(lambda: (p.reset_query(a, b), p._ensure_query_state()))
+    solve_ms = [event_ms(query) for _ in range(LATTICE_QUERIES)]
+    path = []
+    walk_ms = event_ms(lambda: path.extend(p.recover_path()))
+    check(p.success and len(path) >= 2, "lattice HA*: no path")
+    check(all(free_np[i, j] for i, j in path), "lattice HA*: a path cell is blocked")
+    cost = p.path_cost()
+    line = math.hypot(bx - ax, by - ay)
+    check(cost >= line - cfg.tol, f"lattice HA* cost {cost} < straight line {line} - tol")
+    out = {"map": [h, w], "states": h * w * cfg.theta_res, "ring": p._ring_capacity(),
+           "reset_ms": reset_ms, "solve_ms": spread(solve_ms), "query_init_ms": init_ms,
+           "path_walk_ms": walk_ms, "rounds": p.rounds, "iterations_launched": p.launched,
+           "host_reads": p.host_reads, "cost": cost, "n_expanded": int(p.state.n_expanded),
+           "n_lost": int(p.state.n_lost), "path_cells": len(path),
+           "profile": planner_profile(query),
+           "query_init_profile": planner_profile(
+               lambda: (p.reset_query(a, b), p._ensure_query_state()))}
+    query()
+    t0 = time.perf_counter()
+    q = HybridAStar(torch.from_numpy(free_np), a, b, cfg)
+    q.solve()
+    out["cpu_s"] = time.perf_counter() - t0
+    for f in ("goal_idx", "goal_cost", "n_expanded", "n_lost", "wp", "gp"):
+        check(torch.equal(getattr(q.state, f), getattr(p.state, f).cpu()),
+              f"lattice HA* {f}: {dev} != CPU")
+    check(q.recover_path() == path, f"lattice HA* path: {dev} != CPU")
+    out["cpu_equal"] = True
+    return out
+
+
+def path_edges(blocked, path):
+    """The edges of an RRT* path (world points, goal first) on the bool map
+    `blocked`, each from its tree parent as the planner checked it: (x0,
+    y0, x1, y1) f32[E, 4]; march faults bool[E] (the fixed-step march from
+    the parent meets a blocked cell before the child, or the child's cell
+    is blocked); the longest blocked stretch along each edge, px f32[E],
+    from EDGE_SAMPLES points; whether each child's cell is free, bool[E]."""
+    from slam_tpu_torch.core import grid as gridlib
+    from slam_tpu_torch.ops.raycast import raycast_march
+
+    shape = tuple(blocked.shape)
+    dev = blocked.device
+    pts = torch.tensor(path, dtype=torch.float32, device=dev)
+    x0, y0, x1, y1 = pts[1:, 0], pts[1:, 1], pts[:-1, 0], pts[:-1, 1]
+    d = torch.sqrt((x1 - x0) ** 2 + (y1 - y0) ** 2)
+
+    def blocked_at(x, y):
+        i, j = gridlib.world_to_cell(shape, x, y)
+        ic, jc = gridlib.clamp_cell(shape, i, j)
+        return ~gridlib.in_bounds(shape, i, j) | blocked[ic.long(), jc.long()]
+
+    dist, hit = raycast_march(blocked, x0, y0, torch.atan2(y1 - y0, x1 - x0), step=1.0,
+                              max_dist=float(d.max()) + 2.0)
+    end_free = ~blocked_at(x1, y1)
+    fault = (hit & (dist < d)) | ~end_free
+    t = torch.linspace(0.0, 1.0, EDGE_SAMPLES, device=dev)
+    on = blocked_at(x0[:, None] + t * (x1 - x0)[:, None], y0[:, None] + t * (y1 - y0)[:, None])
+    k = torch.arange(EDGE_SAMPLES, device=dev)
+    last_free = torch.cummax(torch.where(on, -1, k), dim=1).values
+    run = (k - last_free).amax(dim=1).to(torch.float32) * d / (EDGE_SAMPLES - 1)
+    return torch.stack([x0, y0, x1, y1], 1), fault, run, end_free
+
+
+def rrt_phase(dev, free_np) -> dict:
+    """Phase 14a: `suite.py:229`'s RRT* (sdf default) over RRT_SEEDS. Every
+    path edge ends in a free cell of `free_np` (the map inflated by 7) and
+    crosses no blocked stretch of a ray step or more along it. The
+    planner's sphere trace tests a ray at points a step or more apart, as
+    the march does but at other points, so either may pass over a blocked
+    corner that an edge clips by less than a step."""
+    from slam_tpu_torch.core.config import RRTStarConfig
+    from slam_tpu_torch.planners import RRTStar
+
+    h, w = free_np.shape
+    a, b = plan_poses(h)
+    free = torch.from_numpy(free_np).to(dev)
+    cfg = RRTStarConfig(reach=20.0, radius=50.0, max_nodes=8192, batch=256)
+    p = RRTStar(free, a, b, cfg, seed=999)
+    p.solve(max_rounds=RRT_ROUNDS)
+    ms, wins, rounds, costs, faults, max_run = [], 0, [], [], [], 0.0
+    for seed in RRT_SEEDS:
+        ms.append(event_ms(lambda: (p.reset_query(a, b, seed), p.solve(max_rounds=RRT_ROUNDS))))
+        rounds.append(p.rounds)
+        if not p.success:
+            continue
+        wins += 1
+        costs.append(p.path_cost())
+        edges, fault, run, end_free = path_edges(~free, p.recover_path())
+        check(bool(end_free.all()), f"RRT* seed {seed}: a path node lies in a blocked cell")
+        check(float(run.max()) < p.rc.step,
+              f"RRT* seed {seed}: a path edge crosses {float(run.max())} px of blocked cells "
+              f"(>= a step, {p.rc.step})")
+        max_run = max(max_run, float(run.max()))
+        for e in fault.nonzero()[:, 0].tolist():
+            faults.append({"seed": seed, "x0_y0_x1_y1": edges[e].tolist(),
+                           "blocked_run_px": float(run[e])})
+    check(wins >= RRT_MIN_SUCCESS,
+          f"RRT* {wins} of {len(RRT_SEEDS)} found a path < {RRT_MIN_SUCCESS}")
+    out = {"solve_ms": spread(ms), "success": wins, "seeds": list(RRT_SEEDS), "rounds": rounds,
+           "costs": costs, "nodes": p.size, "max_blocked_run_px": max_run,
+           "march_faults": faults}
+    out["profile_seed_1234"] = planner_profile(
+        lambda: (p.reset_query(a, b, RRT_SEEDS[0]), p.solve(max_rounds=RRT_ROUNDS)))
+    return out
+
+
+def continuous_phase(dev, free_np) -> dict:
+    """Phase 14b: continuous HA* with the suite's lut edge field
+    (`suite.py:195`), theta_res 5."""
+    from slam_tpu_torch.core.config import RaycastConfig
+    from slam_tpu_torch.core.types import Pose
+    from slam_tpu_torch.planners import HybridAStar
+
+    h, w = free_np.shape
+    cfg = dataclasses.replace(plan_config(), mode="continuous", theta_res=5,
+                              heuristic_weight=1.0)
+    rc = RaycastConfig(backend="lut", step=1.0, lut_bins=180)
+    (ax, ay), (bx, by) = plan_poses(h)
+    a, b = Pose.create(ax, ay, 0.0), Pose.create(bx, by, 0.0)
+    p = None
+
+    def reset():
+        nonlocal p
+        p = HybridAStar(torch.from_numpy(free_np).to(dev), a, b, cfg, rc)
+
+    reset_ms = event_ms(reset)
+    ms = [event_ms(lambda: (p.reset_query(a, b), p.solve())) for _ in range(2)]
+    check(p.success, "continuous HA*: no path")
+    path = p.recover_path()
+    check(len(path) >= 2 and all(free_np[i, j] for i, j in path),
+          "continuous HA*: a path cell is blocked")
+    return {"reset_ms": reset_ms, "solve_ms": spread(ms), "rounds": p.rounds,
+            "host_reads": p.host_reads, "cost": p.path_cost(),
+            "n_expanded": int(p.state.n_expanded), "states": h * w * cfg.theta_res,
+            "profile": planner_profile(lambda: (p.reset_query(a, b), p.solve()))}
+
+
+def spatial_phase(dev) -> dict:
+    """Phase 14c: `suite.py:253-359`'s spatial workload: the bucketed
+    build, box counts and blocked NN queries on SPATIAL_POINTS points; the
+    card's results == the CPU's (NN on the first 256 queries)."""
+    from slam_tpu_torch.ops import spatial
+
+    n, n_boxes, n_queries = SPATIAL_POINTS, SPATIAL_BOXES, SPATIAL_QUERIES
+    max_val, grid_cells = 10_000, 256
+    cell = max_val / grid_cells
+    rng = np.random.default_rng(0)
+    px = rng.integers(0, max_val, n).astype(np.float32)
+    py = rng.integers(0, max_val, n).astype(np.float32)
+    lo = rng.integers(0, max_val, (n_boxes, 2)).astype(np.float32)
+    ext = rng.integers(1, max_val // 10, (n_boxes, 2)).astype(np.float32)
+    boxes = np.concatenate([lo, lo + ext], axis=1)
+    qx = rng.integers(0, max_val, n_queries).astype(np.float32)
+    qy = rng.integers(0, max_val, n_queries).astype(np.float32)
+
+    def on(d):
+        return [torch.from_numpy(v).to(d) for v in (px, py, boxes, qx, qy)]
+
+    def build(px_, py_):
+        ci = (torch.floor(py_ / cell).to(torch.int32) * grid_cells
+              + torch.floor(px_ / cell).to(torch.int32))
+        order = torch.argsort(ci, stable=True)
+        return ci[order], order
+
+    def counts(px_, py_, boxes_, chunk=100):
+        valid = torch.ones_like(px_, dtype=torch.bool)
+        return torch.cat([spatial.range_query_boxes(px_, py_, valid, boxes_[k:k + chunk]).sum(1)
+                          for k in range(0, boxes_.shape[0], chunk)])
+
+    def nn(px_, py_, qx_, qy_):
+        return spatial.nearest_neighbor_blocked(px_, py_, torch.ones_like(px_, dtype=torch.bool),
+                                                qx_, qy_)
+
+    dpx, dpy, dbox, dqx, dqy = on(dev)
+    cpx, cpy, cbox, cqx, cqy = on("cpu")
+    for got, want, what in ((build(dpx, dpy), build(cpx, cpy), "bucketed build"),
+                            ((counts(dpx, dpy, dbox),), (counts(cpx, cpy, cbox),), "box counts"),
+                            (nn(dpx, dpy, dqx[:256], dqy[:256]), nn(cpx, cpy, cqx[:256], cqy[:256]),
+                             "NN")):
+        for g_, w_ in zip(got, want):
+            check(torch.equal(g_.cpu(), w_), f"spatial {what}: {dev} != CPU")
+    total = int(counts(dpx, dpy, dbox).sum())
+    build_ms = statistics.median(event_ms(lambda: build(dpx, dpy)) for _ in range(5))
+    count_ms = statistics.median(event_ms(lambda: counts(dpx, dpy, dbox)) for _ in range(5))
+    nn_ms = statistics.median(event_ms(lambda: nn(dpx, dpy, dqx, dqy)) for _ in range(5))
+    return {"points": n, "box_hits_total": total, "build_ms": build_ms,
+            "bucketed_build_pts_per_s": n / (build_ms / 1e3), "box_count_ms": count_ms,
+            "range_queries_per_s": n_boxes / (count_ms / 1e3), "nn_ms": nn_ms,
+            "nn_queries_per_s": n_queries / (nn_ms / 1e3)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -222,6 +572,7 @@ def main() -> None:
     from slam_tpu_torch.ops.raycast import raycast_march
     from slam_tpu_torch.utils.maps import synthetic_floor_plan
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     gather = pano_cuda.gather_rows
     sampler = motion_cuda.sample_motion_model_odometry_fused
@@ -741,6 +1092,23 @@ def main() -> None:
         f"est_pose error {err:.3f} px (bound {SLAM_TRACK_BOUND_PX}); {wall_share:.4f} of "
         f"{n_mapped} mapped blocked cells within 2 px of a true wall (bound "
         f"{SLAM_WALL_SHARE})")
+
+    # 12-14. planners on the floor plan -------------------------------------
+    power = smi.split(",")[-1].strip()
+    from slam_tpu_torch.utils.maps import inflate
+
+    plan_free = ~inflate(blocked_np, PLAN_INFLATE)  # `suite.py:155`
+    sdf = sdf_phase(dev, blocked_np)
+    say("sdf", json.dumps({**sdf, "device": name, "power_limit": power}))
+    lat = lattice_phase(dev, plan_free)
+    say("plan-lattice", json.dumps({**lat, "device": name, "power_limit": power}))
+    rrt = rrt_phase(dev, plan_free)
+    say("plan-rrt", json.dumps({**rrt, "device": name, "power_limit": power}))
+    cont = continuous_phase(dev, plan_free)
+    say("plan-continuous", json.dumps({**cont, "device": name, "power_limit": power}))
+    spat = spatial_phase(dev)
+    say("spatial", json.dumps({**spat, "device": name, "power_limit": power}))
+    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}")
 
     print(json.dumps({"kernels": [
         {"name": "motion_odometry", "route": "cuda",

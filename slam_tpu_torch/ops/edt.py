@@ -12,11 +12,14 @@ and exact transforms of `slam_tpu/ops/edt.py`).
     localized map edit (window re-run, full rebuild or skip), bit for bit
     equal to a full rebuild.
   * `edt_exact` -- the exact (uncapped) transform, O(H W^2 / block): the
-    oracle.
+    oracle, and the sdf ray field's static transform.
+  * `edt_jfa` -- jump flooding (JFA+1), the uncapped per-step transform of
+    the sdf backend (`rayfield.dynamic_ray_field`). Seeds pack as
+    (row << 16) | col, every pass reads only the previous pass's field,
+    and candidates are exact integers in f32, so it too is bit for bit
+    the JAX package's.
 
-The uncapped jump-flooding transform (`edt_jfa`) waits for ROADMAP.md
-Queue 1 item 10. Distances are between cell centers in pixels; blocked
-cells are 0.
+Distances are between cell centers in pixels; blocked cells are 0.
 """
 
 from __future__ import annotations
@@ -63,6 +66,83 @@ def edt_exact(blocked: torch.Tensor, block: int = 64) -> torch.Tensor:
         outs.append(torch.amin(d2, dim=-1))
     e2 = torch.cat(outs, dim=1)[:, :w]
     return _sqrt(torch.clamp(e2, max=big * big))
+
+
+def _jfa_steps(max_dim: int, max_dist: float | None) -> list:
+    """The JFA+1 pass step sizes: powers of two down to 1, then one more
+    pass of 1."""
+    if max_dist is None:
+        s = 1 << max(0, math.ceil(math.log2(max_dim)) - 1)
+    else:
+        rng = max(1, min(max_dim, int(math.ceil(max_dist))))
+        s = 1 << math.ceil(math.log2(rng))
+    steps = []
+    while s >= 1:
+        steps.append(s)
+        s //= 2
+    steps.append(1)  # the "+1" refinement pass
+    return steps
+
+
+def jfa_reach(max_dist: float) -> int:
+    """L-infinity propagation reach of the capped JFA: the sum of all pass
+    step sizes (no seed farther than that can be adopted)."""
+    return sum(_jfa_steps(1 << 30, max_dist))
+
+
+# The 8 JFA directions in the JAX package's order; with a strict `<` the
+# earliest of equal candidates wins, which fixes how ties resolve.
+_JFA_DIRS = [(di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1) if (di, dj) != (0, 0)]
+
+
+def edt_jfa(
+    blocked: torch.Tensor,
+    max_dist: float | None = None,
+    sentinel: float | None = None,
+) -> torch.Tensor:
+    """Jump-flooding EDT (JFA+1), f32[H, W] pixels.
+
+    Each cell carries its nearest seed packed as (row << 16) | col (-1 =
+    none) and that seed's squared distance. A pass of step s offers every
+    cell the seeds of its 8 neighbours at (+-s, +-s), read from the
+    previous pass's field (ping-pong), and keeps the nearest. `max_dist`
+    starts the steps at 2^ceil(log2(max_dist)) instead of half the map
+    (farther cells saturate to the sentinel); `sentinel` (default h + w)
+    caps the result.
+
+    The JAX package rolls the field and masks the wrapped entries; here
+    the field is padded by s with -1 (no seed, distance 1e9: the masked
+    value) and the 8 shifted views are stacked behind the current field.
+    The JAX loop keeps a candidate only where it is strictly nearer, so
+    its result is the FIRST minimum of [current, dir 1, ..., dir 8]: one
+    `argmin` over the stack (first index on ties) picks the same seed."""
+    h, w = blocked.shape
+    if h >= (1 << 15) or w >= (1 << 16):
+        raise ValueError(f"map {h}x{w} exceeds the 32768x65536 JFA limit")
+    dev = blocked.device
+    big = float(h + w if sentinel is None else sentinel)
+    ii = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(h, w)
+    jj = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(h, w)
+    iif, jjf = ii.to(torch.float32), jj.to(torch.float32)
+    idx = torch.where(blocked, (ii << 16) | jj, -1)
+
+    def d2_of(idx_):
+        si = (idx_ >> 16).to(torch.float32)
+        sj = (idx_ & 0xFFFF).to(torch.float32)
+        d2 = (iif - si) ** 2 + (jjf - sj) ** 2
+        return torch.where(idx_ < 0, 1e9, d2)
+
+    for s in _jfa_steps(max(h, w), max_dist):
+        pad = torch.nn.functional.pad(idx, (s, s, s, s), value=-1)
+        # roll by (di, dj) reads [i - di, j - dj]: the padded view at
+        # offset s - d.
+        cand = torch.stack(
+            [idx] + [pad[s - di * s: s - di * s + h, s - dj * s: s - dj * s + w]
+                     for di, dj in _JFA_DIRS]
+        )
+        best = torch.argmin(d2_of(cand), dim=0, keepdim=True)
+        idx = torch.gather(cand, 0, best)[0]
+    return _sqrt(torch.clamp(d2_of(idx), max=big * big))
 
 
 def edt_capped_reach(max_dist: float) -> int:

@@ -1,4 +1,5 @@
-"""Fixed-step DDA raycasting (port of `slam_tpu/ops/raycast.py:raycast_march`).
+"""Raycasting over occupancy grids (port of `slam_tpu/ops/raycast.py`):
+the fixed-step DDA march and the sphere trace over a distance transform.
 
 Semantics match the reference (`slam/raycast.cpp:8-141`): step positions
 p_k = origin + k * step * dir for k = 1..K; the origin's own cell is never
@@ -6,6 +7,10 @@ tested; at each step, distance exhausted (d >= max_dist) or out of bounds
 resolves the ray as a MISS (dist == max_dist, hit False), else a blocked
 cell resolves it as a HIT at distance k * step. Rays march together in
 chunks of `chunk` steps; the loop stops once every ray has resolved.
+
+The JAX package's `while_loop`s become host loops. Both bodies leave a
+resolved ray untouched, so the host reads `all(resolved)` only once per
+chunk of steps (march) or iterations (sphere trace).
 """
 
 from __future__ import annotations
@@ -15,6 +20,9 @@ import math
 import torch
 
 from slam_tpu_torch.core import grid as gridlib
+
+# Sphere-trace iterations between two host reads of `all(resolved)`.
+_SDF_CHUNK = 8
 
 
 def raycast_march(
@@ -79,3 +87,70 @@ def raycast_march(
         dist = torch.where(newly & hit_first, d_first, dist)
         k0 += chunk
     return dist.reshape(batch_shape), hit.reshape(batch_shape)
+
+
+def raycast_sdf(
+    edt: torch.Tensor,
+    x,
+    y,
+    theta,
+    *,
+    step: float = 0.5,
+    max_dist: float = 500.0,
+    margin: float = 1.0,
+    max_iters: int | None = None,
+):
+    """Sphere-trace rays over the f32[H, W] distance transform `edt`.
+
+    Each iteration reads the EDT at the current position and advances by
+    max(step, edt - margin): free stretches are crossed in one jump and
+    near surfaces the advance falls to `step`. A cell is blocked iff its
+    EDT is 0 (HIT at the marched distance, never the origin's cell);
+    out of bounds or t >= max_dist is a MISS (dist == max_dist). `margin`
+    guards against EDT overestimation (>= 1.5 with `edt_jfa`, 1.0 with
+    `edt_exact`). Returns (dist f32[batch], hit bool[batch])."""
+    dev = edt.device
+    h, w = edt.shape
+    x, y, theta = torch.broadcast_tensors(
+        *(torch.as_tensor(v, dtype=torch.float32, device=dev) for v in (x, y, theta))
+    )
+    batch_shape = x.shape
+    x, y, theta = x.reshape(-1), y.reshape(-1), theta.reshape(-1)
+    m = x.shape[0]
+    if max_iters is None:
+        max_iters = int(math.ceil(max_dist / step)) + 4
+
+    dx = torch.cos(theta)
+    dy = torch.sin(theta)
+    i0, j0 = gridlib.world_to_cell((h, w), x, y)
+    cell0 = i0 * w + j0
+    flat = edt.reshape(-1)
+
+    t = torch.full((m,), step, dtype=torch.float32, device=dev)
+    resolved = torch.zeros((m,), dtype=torch.bool, device=dev)
+    hit = torch.zeros((m,), dtype=torch.bool, device=dev)
+    dist = torch.full((m,), max_dist, dtype=torch.float32, device=dev)
+    k = 0
+    while k < max_iters and not bool(resolved.all()):
+        for _ in range(min(_SDF_CHUNK, max_iters - k)):
+            i, j = gridlib.world_to_cell((h, w), x + t * dx, y + t * dy)
+            ic, jc = gridlib.clamp_cell((h, w), i, j)
+            cell = ic * w + jc  # == i * w + j wherever the ray is in bounds
+            d_cell = flat[cell]
+            # Still marching: in bounds (clamping moved nothing), t < max.
+            on = (t < max_dist) & (ic == i) & (jc == j)
+            hit_now = (d_cell <= 0.0) & (cell != cell0) & on & ~resolved
+            dist = torch.where(hit_now, t, dist)
+            hit = hit | hit_now
+            resolved = resolved | hit_now | ~on
+            t = torch.where(resolved, t, t + torch.clamp(d_cell - margin, min=step))
+            k += 1
+    return dist.reshape(batch_shape), hit.reshape(batch_shape)
+
+
+def raycast_hit_points(x, y, theta, dist, hit):
+    """Continuous hit coordinates (origin + dist * dir) of hitting rays,
+    -1 elsewhere."""
+    hx = torch.where(hit, x + dist * torch.cos(theta), -1.0)
+    hy = torch.where(hit, y + dist * torch.sin(theta), -1.0)
+    return hx, hy

@@ -1,9 +1,11 @@
 """Raycast backend dispatch (port of `slam_tpu/ops/rayfield.py`).
 
-The port has the ``march`` (exact fixed-step DDA) and ``lut`` (dense
-directional table) backends. ``sdf`` and ``cddt`` wait for ROADMAP.md
-Queue 1 items 10 and 11. A `RayField` built with an EDT serves the
-likelihood-field measurements whatever the backend.
+The port has the ``march`` (exact fixed-step DDA), ``sdf`` (sphere trace
+over a Euclidean distance transform: `edt_exact` for a static map,
+`edt_jfa` for the per-step rebuild) and ``lut`` (dense directional table)
+backends. ``cddt`` waits for ROADMAP.md Queue 1 item 11. A `RayField`
+built with an EDT serves the likelihood-field measurements whatever the
+backend.
 """
 
 from __future__ import annotations
@@ -17,13 +19,11 @@ import numpy as np
 import torch
 
 from slam_tpu_torch.core.config import RaycastConfig
+from slam_tpu_torch.ops import edt as edtlib
 from slam_tpu_torch.ops import lut as lutlib
-from slam_tpu_torch.ops.raycast import raycast_march
+from slam_tpu_torch.ops.raycast import raycast_march, raycast_sdf
 
-_NOT_PORTED = {
-    "sdf": "ROADMAP.md Queue 1 item 10 (raycast_sdf, edt_jfa)",
-    "cddt": "ROADMAP.md Queue 1 item 11 (ops/cddt.py)",
-}
+_NOT_PORTED = {"cddt": "ROADMAP.md Queue 1 item 11 (ops/cddt.py)"}
 
 
 def _not_ported(backend: str):
@@ -36,8 +36,9 @@ def _not_ported(backend: str):
 @dataclasses.dataclass
 class RayField:
     blocked: torch.Tensor  # bool[H, W]
-    # f32[H, W] distance transform: the likelihood-field measurements read
-    # it (the SLAM step builds it with `ops/edt.py:edt_capped`).
+    # f32[H, W] distance transform: the sdf backend sphere-traces it, and
+    # the likelihood-field measurements read it (the SLAM step builds it
+    # with `ops/edt.py:edt_capped`).
     edt: Optional[torch.Tensor] = None
     # [H, W, P] bins-last table; P >= lut_bins is the storage width.
     lut: Optional[torch.Tensor] = None
@@ -66,6 +67,8 @@ def make_ray_field(
     blocked = torch.as_tensor(blocked, dtype=torch.bool, device=device)
     if rc.backend == "march":
         return RayField(blocked=blocked)
+    if rc.backend == "sdf":
+        return RayField(blocked=blocked, edt=edtlib.edt_exact(blocked))
     if rc.backend in _NOT_PORTED:
         raise _not_ported(rc.backend)
     if rc.backend != "lut":
@@ -98,12 +101,34 @@ def make_ray_field(
     return RayField(blocked=blocked, lut=lut, lut_bins=rc.lut_bins)
 
 
+def dynamic_ray_field(blocked, rc: RaycastConfig) -> RayField:
+    """The rebuild for maps that change every step (SLAM mode): the sdf
+    backend takes the jump-flooding transform; lut and cddt are rejected
+    (their build only pays over a static map)."""
+    blocked = torch.as_tensor(blocked, dtype=torch.bool)
+    if rc.backend == "march":
+        return RayField(blocked=blocked)
+    if rc.backend == "sdf":
+        return RayField(blocked=blocked, edt=edtlib.edt_jfa(blocked))
+    raise ValueError(
+        f"backend {rc.backend!r} cannot be rebuilt per-step; use 'sdf' or "
+        "'march' for SLAM mode"
+    )
+
+
 def raycast_field(field: RayField, x, y, theta, rc: RaycastConfig):
     """(dist, hit) for a ray batch via the configured backend."""
     if rc.backend == "march":
         return raycast_march(
             field.blocked, x, y, theta,
             step=rc.step, max_dist=rc.max_dist, chunk=rc.chunk,
+        )
+    if rc.backend == "sdf":
+        if field.edt is None:
+            raise ValueError("sdf backend needs field.edt")
+        return raycast_sdf(
+            field.edt, x, y, theta,
+            step=rc.step, max_dist=rc.max_dist, margin=rc.sdf_margin,
         )
     if rc.backend == "lut":
         if field.lut is None:
@@ -117,16 +142,8 @@ def raycast_field(field: RayField, x, y, theta, rc: RaycastConfig):
 
 
 def as_ray_field(field_or_blocked, rc: RaycastConfig) -> RayField:
-    """Accept either a prebuilt RayField or a raw blocked mask (wrapped for
-    the march backend; the JAX package's per-step sdf rebuild is not
-    ported yet)."""
+    """Accept either a prebuilt RayField or a raw blocked mask (rebuilt by
+    `dynamic_ray_field`)."""
     if isinstance(field_or_blocked, RayField):
         return field_or_blocked
-    if rc.backend == "march":
-        return RayField(blocked=torch.as_tensor(field_or_blocked, dtype=torch.bool))
-    if rc.backend in _NOT_PORTED:
-        raise _not_ported(rc.backend)
-    raise ValueError(
-        f"backend {rc.backend!r} cannot be rebuilt per-step; use 'sdf' or "
-        "'march' for SLAM mode"
-    )
+    return dynamic_ray_field(field_or_blocked, rc)

@@ -17,6 +17,8 @@ from slam_tpu_torch.core.types import Particles, Pose, Scan
 from slam_tpu_torch.models.mcl import MCLState, init
 from slam_tpu_torch.models.slam import SLAMState
 from slam_tpu_torch.ops.rayfield import RayField
+from slam_tpu_torch.planners.hastar import HAState, LatticeState
+from slam_tpu_torch.planners.rrtstar import RRTState
 
 
 def tensor(a, device=None, dtype=None) -> torch.Tensor:
@@ -93,3 +95,38 @@ def slam_state(grid, edt, p: Particles, best: Pose, mode: Pose, est: Pose,
         est_pose=est,
         edt=None if edt is None else tensor(edt, dev, torch.float32),
     )
+
+
+def _planner_state(cls, dtypes: dict, arrays: dict, device):
+    return cls(**{k: tensor(v, device, dtypes[k]) for k, v in arrays.items()})
+
+
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+
+
+def lattice_state(device=None, **arrays) -> LatticeState:
+    """A lattice HA* state from the JAX `LatticeState`'s fields as numpy
+    arrays (gp, o_idx, o_f, wp, goal_idx, goal_cost, n_expanded, n_lost,
+    start_idx), with or without a leading query axis."""
+    return _planner_state(LatticeState, dict(
+        gp=_I32, o_idx=_I32, o_f=_F32, wp=_I32, goal_idx=_I32, goal_cost=_F32,
+        n_expanded=_I32, n_lost=_I32, start_idx=_I32), arrays, device)
+
+
+def ha_state(device=None, **arrays) -> HAState:
+    """A continuous HA* state from the JAX `HAState`'s fields (g, parent,
+    px, py, pth, open_f, goal_idx, goal_cost, n_expanded, start_idx)."""
+    return _planner_state(HAState, dict(
+        g=_F32, parent=_I32, px=_F32, py=_F32, pth=_F32, open_f=_F32, goal_idx=_I32,
+        goal_cost=_F32, n_expanded=_I32, start_idx=_I32), arrays, device)
+
+
+def rrt_state(device=None, **arrays) -> RRTState:
+    """An RRT* state from the JAX `RRTState`'s fields (x, y, cost, parent,
+    valid, size, best_goal_node, best_goal_cost); the JAX key has no
+    counterpart (the port takes its samples injected or from a
+    generator)."""
+    arrays.pop("key", None)
+    return _planner_state(RRTState, dict(
+        x=_F32, y=_F32, cost=_F32, parent=_I32, valid=_BOOL, size=_I32,
+        best_goal_node=_I32, best_goal_cost=_F32), arrays, device)

@@ -1,4 +1,5 @@
-"""Maps the port runs on without any asset file."""
+"""Maps the port runs on without any asset file, and the planners' map
+preamble (disc erosion, vehicle inflation)."""
 
 from __future__ import annotations
 
@@ -21,3 +22,29 @@ def synthetic_floor_plan() -> np.ndarray:
         blocked[y : y + 4, w // 3 - 40 : w // 3 + 40] = False
         blocked[y : y + 4, 2 * w // 3 - 40 : 2 * w // 3 + 40] = False
     return blocked
+
+
+def erode(binary: np.ndarray, radius: int) -> np.ndarray:
+    """Binary erosion by a disc of `radius` (a copy of
+    `slam_tpu/utils/maps.py:erode`): the AND of the shifted copies over
+    the disc's offsets, False outside the map."""
+    if radius <= 0:
+        return binary.copy()
+    out = binary.astype(bool)
+    h, w = out.shape
+    acc = np.ones_like(out)
+    yy, xx = np.mgrid[-radius : radius + 1, -radius : radius + 1]
+    disc = (yy * yy + xx * xx) <= radius * radius
+    padded = np.pad(out, radius, constant_values=False)
+    for dy, dx in zip(*np.nonzero(disc)):
+        acc &= padded[dy : dy + h, dx : dx + w]
+    return acc.astype(binary.dtype)
+
+
+def inflate(blocked: np.ndarray, radius: int) -> np.ndarray:
+    """Vehicle inflation: erode free space by a disc of `radius` (the
+    numpy path of `slam_tpu/apps/common.py:inflate`, the planners' map
+    preamble)."""
+    if radius <= 0:
+        return blocked
+    return ~erode((~blocked).astype(np.uint8), radius).astype(bool)

@@ -162,8 +162,8 @@ def test_port_sources_import_no_jax():
 
 
 def test_import_without_jax():
-    """With jax (and the JAX package) unimportable, the port's main path
-    still imports."""
+    """With jax (and the JAX package) unimportable, the port's main paths
+    (MCL, SLAM, the planners) still import."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -171,7 +171,10 @@ def test_import_without_jax():
         "sys.modules['slam_tpu'] = None\n"
         "import slam_tpu_torch.models.mcl, slam_tpu_torch.models.slam\n"
         "import slam_tpu_torch.utils.convert, slam_tpu_torch.utils.maps\n"
-        "import slam_tpu_torch.utils.metrics\n"
+        "import slam_tpu_torch.utils.metrics, slam_tpu_torch.utils.logging\n"
+        "import slam_tpu_torch.planners.astar, slam_tpu_torch.planners.hastar\n"
+        "import slam_tpu_torch.planners.rrtstar, slam_tpu_torch.ops.spatial\n"
+        "from slam_tpu_torch.planners import AStar, HybridAStar, RRTStar\n"
         "import slam_tpu_torch.ops._build\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
     )
