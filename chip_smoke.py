@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of slam_tpu_torch on one NVIDIA GPU: the 100k-particle
-MCL step through both hand-written CUDA kernels, the 1M-particle full SLAM
-step, and the planners of `benchmarks/suite.py` (lattice and continuous
-Hybrid A*, RRT*, the spatial queries) with the sdf ray backend.
+MCL step through the fused predict -> weigh kernel, the hand-written CUDA
+kernels each against its plain version, the 1M-particle full SLAM step,
+and the planners of `benchmarks/suite.py` (lattice and continuous Hybrid
+A*, RRT*, the spatial queries) with the sdf ray backend.
 
     python3 chip_smoke.py
 
@@ -10,19 +11,28 @@ Phases (each prints its lines before the next starts; a failed check
 raises, so the exit code is nonzero):
 
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
-  2. build    nvcc builds csrc/*.cu for sm_90a (timed)
+  2. build    nvcc builds csrc/*.cu for sm_90a, one process a source (timed)
   3. K2       row gather == rows[idx] exactly (f32/bf16/u8, edge indices)
   4. K1       motion sampler: moments, seed reproducibility, ragged N
   5. LUT      360-bin bf16 table of the synthetic floor plan on the card;
               raycast_lut vs raycast_march; K2 on the real table rows
   6. weights  K1 through predict's wrapper vs the plain sampler by moments,
-              and fused LUT weights through K2 == the same function
-              through plain indexing, bit for bit, on the bench cloud after
-              3 warm-up steps and on 100k poses spread over free space
-  7. main     bench.py's configuration end to end (init, 3 warm-up steps,
-              5 blocks of 20 predict -> update steps), CUDA-event timed,
-              with per-phase times and the kernel launch counts
+              and LUT weights through K2's rows == through plain indexing,
+              bit for bit, on the bench cloud after 3 warm-up steps and on
+              100k poses spread over free space; the fused kernel
+              (lut_weights) on those clouds and on 100,003 poses a third
+              off the map, bf16 and u8 tables: its poses == K1's for the
+              same seed bit for bit, its weights vs the plain composition
+              (share within a relative 1e-5, first argmax), timed
+  7. main     bench.py's configuration end to end through mcl.step (init,
+              3 warm-up steps, 5 blocks of 20 steps, CUDA-event timed,
+              under set_sync_debug_mode("error")), with per-phase times
+              and the kernel launch counts; in the same call the
+              predict -> update path and the earlier route (K1, K2's
+              panorama rows, pano_log_weights), each with ms/step, device
+              ms/step, launches/step and the busy share
   8. track    40 steps of tracking a moving pose with 100k particles
+              through mcl.step
   9. slam       `benchmarks/suite.py slam`'s configuration end to end
               through GridSLAM at 1M particles (init, 4 warm-up steps, 5
               blocks of 20 steps, CUDA-event timed, under
@@ -69,6 +79,26 @@ import numpy as np
 import torch
 
 N_PARTICLES = 100_000
+# Phase 6: the fused kernel's weights against the plain composition. The
+# beam sum runs in another order (<= 90 terms of one sign: a relative
+# 5.4e-6 at most), and a bin or cell on a rounding tie can flip, which
+# changes a particle's weight whole.
+LW_RTOL = 1e-5
+LW_SHARE = 0.999
+RAGGED_N = 100_003
+# Least-time bounds (H100 SXM datasheet: 3.35 TB/s HBM,
+# 67 TFLOP/s FP32 outside the tensor cores, at 700 W). Operations per
+# particle and per beam are counted from the kernels' arithmetic, integer
+# and float alike, at the FP32 rate: K1's sampler (Philox4x32-10's 10
+# rounds of 2 wide and 2 low multiplies, 4 xors and 2 key adds; Box-Muller;
+# the integration and wrap) ~130; locating the sensor cell and bin ~20; one
+# beam (bin index, decode, hit test, error, the clamped pdf's 3 multiplies,
+# exp, log, the sum) ~12.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+OPS_SAMPLE = 130
+OPS_LOCATE = 20
+OPS_BEAM = 12
 # Tracking bound (phase 8), px: the final best pose must be this close.
 # Over 16 H100 runs (12 filter seeds, seed 1 five times) the error ranged
 # 0.31-1.33 px: the step is not bitwise run-to-run deterministic (CUDA's
@@ -245,6 +275,14 @@ def slam_track(dev, blocked, seed: int):
     return err, float(near.float().mean()), int(mapped.sum())
 
 
+def bound(n_bytes: float, n_ops: float):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the card's memory rate and the operations over its FP32 rate."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
 def event_ms(fn) -> float:
     """ms of one call of `fn` between two CUDA events (host pace included)."""
     start = torch.cuda.Event(enable_timing=True)
@@ -380,7 +418,7 @@ def lattice_phase(dev, free_np) -> dict:
                lambda: (p.reset_query(a, b), p._ensure_query_state()))}
     query()
     t0 = time.perf_counter()
-    q = HybridAStar(torch.from_numpy(free_np), a, b, cfg)
+    q = HybridAStar(torch.from_numpy(free_np), a, b, cfg, device="cpu")
     q.solve()
     out["cpu_s"] = time.perf_counter() - t0
     for f in ("goal_idx", "goal_cost", "n_expanded", "n_lost", "wp", "gp"):
@@ -565,7 +603,7 @@ def main() -> None:
     from slam_tpu_torch.core.types import Odometry, Pose
     from slam_tpu_torch.models import fake_lidar
     from slam_tpu_torch.models import mcl as mcl_mod
-    from slam_tpu_torch.ops import _build, measurement, motion, motion_cuda
+    from slam_tpu_torch.ops import _build, lut_weights_cuda, measurement, motion, motion_cuda
     from slam_tpu_torch.ops import lut as lutlib
     from slam_tpu_torch.ops import pano_cuda, rayfield
     from slam_tpu_torch.ops import resample as resample_mod
@@ -576,6 +614,14 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     gather = pano_cuda.gather_rows
     sampler = motion_cuda.sample_motion_model_odometry_fused
+    fused = lut_weights_cuda.launch
+
+    def reset_counts():
+        gather.launches = sampler.launches = fused.launches = 0
+
+    def read_counts():
+        return {"gather_rows": gather.launches, "motion_odometry": sampler.launches,
+                "lut_weights": fused.launches}
 
     # 1. device -------------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -720,7 +766,7 @@ def main() -> None:
     say("K2", f"LUT rows [{h * w}, 360] bf16, {N_PARTICLES} uniform-random indices: exact; "
         f"device time kernel {k2_rand_ms:.4f} ms, plain {k2_rand_plain_ms:.4f} ms")
 
-    # 6. fused weights: K2 vs plain indexing, bit for bit ---------------------
+    # 6. weights: K1 by moments, K2 bit for bit, the fused kernel -------------
     cfg = MCLConfig(
         n_particles=N_PARTICLES, meas_stddev=5.0, scanner_offset=(0.0, 30.0, 0.0),
         lut_beam_stride=beam_bin_stride(lidar, rc),
@@ -729,16 +775,31 @@ def main() -> None:
     pose0 = Pose.create(400.0, 400.0, math.pi, device=dev)
     sensor = mcl_mod.MCL.sensor_position(pose0, cfg.scanner_offset)
     scan = fake_lidar.scan(blocked, sensor, lidar, RaycastConfig(max_dist=500.0))
+    n_beams = scan.angles.shape[0]
     state = mcl_mod.init(mcl_mod.make_generator(0, dev), N_PARTICLES, pose0)
 
     def step(st):
         st = mcl_mod.predict(st, bench_odom, bench_alphas)
         return mcl_mod.update(st, scan, field, cfg, rc)
 
+    def pano_weights(lut_, poses, rows_fn):
+        """(panorama rows, cell indices, weights) of `poses` through the plain
+        route: sensor_pose, panorama_index, rows_fn(rows, idx) and
+        pano_log_weights."""
+        sp = measurement.sensor_pose(poses, cfg.scanner_offset)
+        pidx, inb = lutlib.panorama_index((h, w), sp.x, sp.y)
+        pano = rows_fn(lut_.reshape(h * w, 360), pidx)
+        return pano, pidx, measurement.pano_log_weights(
+            pano, inb, sp.theta, scan, n_bins=360, beam_stride=2, lut_dtype=lut_.dtype,
+            max_dist=rc.max_dist, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon)
+
+    def plain_rows(rows_, idx_):
+        return rows_[idx_.long()]
+
     for _ in range(3):
         state = step(state)
     pick = free[rng.integers(0, len(free), N_PARTICLES)]
-    spread = Pose(
+    spread_pose = Pose(
         x=torch.tensor(pick[:, 1] + rng.uniform(0, 1, N_PARTICLES), dtype=torch.float32,
                        device=dev),
         y=torch.tensor(h - pick[:, 0] - rng.uniform(0, 1, N_PARTICLES),
@@ -746,117 +807,210 @@ def main() -> None:
         theta=torch.tensor(rng.uniform(-math.pi, math.pi, N_PARTICLES),
                            dtype=torch.float32, device=dev),
     )
-    clouds = (("bench cloud", state.particles.pose), ("free-space", spread))
+    clouds = (("bench cloud", state.particles.pose), ("free-space", spread_pose))
     # K1 at the main path's shape and arguments, through the wrapper that
     # predict calls (seed drawn on the device from the generator).
     for label, poses in clouds:
-        fused = sampler(bench_odom, poses, bench_alphas, generator=g)
+        k1_out = sampler(bench_odom, poses, bench_alphas, generator=g)
         plain = motion.sample_motion_model_odometry(bench_odom, poses, bench_alphas,
                                                     generator=g)
-        gap = moment_gap(poses, fused, plain, label)
+        gap = moment_gap(poses, k1_out, plain, label)
         k1_err = max(k1_err, gap)
-        check(all(bool(torch.isfinite(v).all()) for v in (fused.x, fused.y, fused.theta)),
+        check(all(bool(torch.isfinite(v).all()) for v in (k1_out.x, k1_out.y, k1_out.theta)),
               f"K1 non-finite poses ({label})")
-        check(float(fused.theta.abs().max()) <= math.pi, f"K1 theta not wrapped ({label})")
+        check(float(k1_out.theta.abs().max()) <= math.pi, f"K1 theta not wrapped ({label})")
         say("K1", f"{label}, N={N_PARTICLES}, bench odometry and alphas, through the "
             f"wrapper: displacement moments match the plain version (max gap {gap:.3e})")
 
     k2_err = 0.0
     for label, poses in clouds:
-        lw_k = measurement.particle_log_weights_lut_fused(
-            field, poses, scan, rc=rc, beam_stride=2,
-            scanner_offset=cfg.scanner_offset, stddev=cfg.meas_stddev,
-            eps=cfg.meas_epsilon,
-        )
-        sp = measurement.sensor_pose(poses, cfg.scanner_offset)
-        pidx, inb = lutlib.panorama_index((h, w), sp.x, sp.y)
-        pano_k = gather(rows, pidx)
-        pano_p = rows[pidx.long()]
+        pano_k, _, lw_k = pano_weights(lut, poses, gather)
+        pano_p, _, lw_p = pano_weights(lut, poses, plain_rows)
         k2_err = max(k2_err, float((pano_k.float() - pano_p.float()).abs().max()))
-        lw_p = measurement.pano_log_weights(
-            pano_p, inb, sp.theta, scan, n_bins=360, beam_stride=2,
-            lut_dtype=lut.dtype, max_dist=rc.max_dist, stddev=cfg.meas_stddev,
-            eps=cfg.meas_epsilon,
-        )
         check(torch.equal(pano_k, pano_p), f"K2 panorama rows ({label})")
-        check(torch.equal(lw_k, lw_p), f"fused weights through K2 != plain ({label})")
+        check(torch.equal(lw_k, lw_p), f"LUT weights through K2 != plain ({label})")
         check(bool(torch.isfinite(lw_k).all()), f"non-finite weights ({label})")
-        say("weights", f"{label}: {N_PARTICLES} fused LUT weights through K2 equal the "
+        say("weights", f"{label}: {N_PARTICLES} LUT weights through K2's rows equal the "
             f"plain-indexing weights bit for bit (range {float(lw_k.min()):.2f} .. "
             f"{float(lw_k.max()):.2f})")
     cloud = measurement.sensor_pose(state.particles.pose, cfg.scanner_offset)
     cloud_idx, _ = lutlib.panorama_index((h, w), cloud.x, cloud.y)
     k2_ms, _ = device_ms(lambda: gather(rows, cloud_idx))
     k2_plain_ms, _ = device_ms(lambda: rows[cloud_idx])
+    k2_library_ms, _ = device_ms(lambda: torch.index_select(rows, 0, cloud_idx))
+    k2_bound = bound(N_PARTICLES * (720 + 4) + int(torch.unique(cloud_idx).numel()) * 720, 0)
     say("K2", f"bench cloud ({N_PARTICLES} rows of 720 B): device time kernel {k2_ms:.4f} ms, "
-        f"plain {k2_plain_ms:.4f} ms; per call incl. host "
+        f"plain {k2_plain_ms:.4f} ms, index_select {k2_library_ms:.4f} ms, bound "
+        f"{k2_bound[0]:.4f} ms ({k2_bound[1]}); per call incl. host "
         f"{cuda_ms(lambda: gather(rows, cloud_idx)):.4f} ms vs "
         f"{cuda_ms(lambda: rows[cloud_idx]):.4f} ms")
 
-    # 7. main path: bench.py's configuration ---------------------------------
-    gather.launches = 0
-    sampler.launches = 0
-    state = mcl_mod.init(mcl_mod.make_generator(0, dev), N_PARTICLES, pose0)
-    for _ in range(3):
-        state = step(state)
+    # The fused kernel: K1's sampler, then the weights, in one launch.
+    t0 = time.perf_counter()
+    field_u8 = rayfield.make_ray_field(blocked, dataclasses.replace(rc, lut_dtype="u8"))
     torch.cuda.synchronize()
+    say("LUT", f"{h}x{w}x360 u8 ({field_u8.lut.numel() / 2**20:.1f} MiB) built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    rr = np.random.default_rng(5)
+    off_map = Pose(*(torch.tensor(v, dtype=torch.float32, device=dev) for v in (
+        rr.uniform(-w / 2, 1.5 * w, RAGGED_N), rr.uniform(-h / 2, 1.5 * h, RAGGED_N),
+        rr.uniform(-math.pi, math.pi, RAGGED_N))))
+    wkw = dict(beam_stride=2, displacement=measurement.scanner_displacement(cfg.scanner_offset),
+               max_dist=rc.max_dist, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon)
+    lw_err = 0.0
+    for tname, lut_ in (("bf16", lut), ("u8", field_u8.lut)):
+        for label, poses in (*clouds, (f"N={RAGGED_N}, a third off the map", off_map)):
+            sd = seed(11)
+            pk, lwk = fused(lut_, 360, poses, scan, motion=(sd, bench_odom, bench_alphas), **wkw)
+            p1 = motion_cuda.launch(sd, bench_odom, poses, bench_alphas)
+            for f in ("x", "y", "theta"):
+                check(torch.equal(getattr(pk, f).view(torch.int32),
+                                  getattr(p1, f).view(torch.int32)),
+                      f"lut_weights poses != K1's for the same seed ({f}; {tname}, {label})")
+            _, lw_only = fused(lut_, 360, p1, scan, **wkw)
+            check(torch.equal(lw_only, lwk), f"lut_weights with / without predict ({label})")
+            _, pidx, lwp = pano_weights(lut_, p1, plain_rows)
+            check(bool(torch.isfinite(lwk).all()), f"lut_weights non-finite ({tname}, {label})")
+            diff = (lwk - lwp).abs()
+            close = diff <= LW_RTOL * lwp.abs()
+            share = float(close.float().mean())
+            n_far = int((~close).sum())
+            arg_k, arg_p = int(torch.argmax(lwk)), int(torch.argmax(lwp))
+            lw_err = max(lw_err, float(diff.max()))
+            sp1 = measurement.sensor_pose(p1, cfg.scanner_offset)
+            off = int((~lutlib.panorama_index((h, w), sp1.x, sp1.y)[1]).sum())
+            check(share >= LW_SHARE, f"lut_weights: {share} of weights within a relative "
+                  f"{LW_RTOL} < {LW_SHARE} ({tname}, {label})")
+            check(arg_k == arg_p, f"lut_weights best particle {arg_k} != plain {arg_p} "
+                  f"({tname}, {label})")
+            say("lut_weights", f"{tname}, {label}: poses == K1's bit for bit (seed 11); "
+                f"{poses.x.numel() - n_far} of {poses.x.numel()} weights within a relative "
+                f"{LW_RTOL} of the plain composition ({n_far} outside), max |diff| "
+                f"{float(diff.max()):.3e}, within {float(diff[close].max()):.3e}; best "
+                f"particle {arg_k} in both; {off} sensors off the map; weigh-only launch "
+                "equal bit for bit")
+
+    def plain_predict_weigh(poses):
+        p_ = motion.sample_motion_model_odometry(bench_odom, poses, bench_alphas, generator=g)
+        return pano_weights(lut, p_, plain_rows)
+
+    sd = seed(12)
+    lw_times = {}
+    for label, poses in clouds:
+        _, pidx, _ = plain_predict_weigh(poses)
+        cells = int(torch.unique(pidx).numel())
+        lw_bound = bound(N_PARTICLES * (12 + 12 + 4) + cells * n_beams * 2 + n_beams * 8 + 8,
+                         N_PARTICLES * (OPS_SAMPLE + OPS_LOCATE + n_beams * OPS_BEAM))
+        lw_times[label] = {
+            "ms": device_ms(lambda: fused(lut, 360, poses, scan,
+                                          motion=(sd, bench_odom, bench_alphas), **wkw))[0],
+            "weigh_only_ms": device_ms(lambda: fused(lut, 360, poses, scan, **wkw))[0],
+            "plain_ms": device_ms(lambda: plain_predict_weigh(poses))[0],
+            "bound_ms": lw_bound[0], "bound_by": lw_bound[1], "distinct_cells": cells}
+        say("lut_weights", f"{label}, bf16, N={N_PARTICLES}: device time {json.dumps(lw_times[label])}")
+
+    # 7. main path: bench.py's configuration through mcl.step -----------------
     iters, blocks = 20, 5
-    block_ms = []
-    for _ in range(blocks):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
+
+    def fused_step(st):
+        return mcl_mod.step(st, bench_odom, bench_alphas, scan, field, cfg, rc)
+
+    def k2_route_step(st):
+        st = mcl_mod.predict(st, bench_odom, bench_alphas)
+        return mcl_mod._finish(st, pano_weights(lut, st.particles.pose, gather)[2], cfg)
+
+    def run_path(fn):
+        """init, 3 warm-up steps, `blocks` x `iters` steps under the sync
+        check; the launch counts of those steps, ms/step, device ms and
+        launches per step, host enqueue, busy share, the largest kernels."""
+        reset_counts()
+        st = mcl_mod.init(mcl_mod.make_generator(0, dev), N_PARTICLES, pose0)
+        for _ in range(3):
+            st = fn(st)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(blocks):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.cuda.set_sync_debug_mode("error")  # a host sync in the step raises
+            try:
+                for _ in range(iters):
+                    st = fn(st)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            stop.record()
+            stop.synchronize()
+            ms.append(start.elapsed_time(stop) / iters)
+        counts = read_counts()
+        p_ = st.particles
+        for v in (p_.pose.x, p_.pose.y, p_.pose.theta, p_.log_weight, st.best_pose.x,
+                  st.best_pose.y, st.best_pose.theta):
+            check(bool(torch.isfinite(v).all()), "main path produced non-finite values")
+        box = [st]
+
+        def advance():
+            box[0] = fn(box[0])
+
+        prof = kernel_profile(advance, iters=iters)
+        dev_ms, kernels = sum(r[0] for r in prof.values()), sum(r[1] for r in prof.values())
+        top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:8]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for _ in range(iters):
-            state = step(state)
-        stop.record()
-        stop.synchronize()
-        block_ms.append(start.elapsed_time(stop))
-    launches = {"gather_rows": gather.launches, "motion_odometry": sampler.launches}
+            advance()
+        enqueue = (time.perf_counter() - t0) * 1e3 / iters
+        torch.cuda.synchronize()
+        med = statistics.median(ms)
+        return box[0], counts, {
+            "ms_per_step": {"median": med, "min": min(ms), "max": max(ms), "repeats": blocks,
+                            "iters": iters},
+            "device_ms_per_step": dev_ms, "launches_per_step": kernels,
+            "host_enqueue_ms_per_step": enqueue, "device_busy_share": dev_ms / med,
+            "top": [[k[:90], round(v[0], 4), round(v[1], 2)] for k, v in top]}
+
     steps = 3 + iters * blocks
-    check(launches["motion_odometry"] == steps, f"K1 launches {launches} != {steps} steps")
-    check(launches["gather_rows"] == steps, f"K2 launches {launches} != {steps} steps")
-    p = state.particles
-    for v in (p.pose.x, p.pose.y, p.pose.theta, p.log_weight, state.best_pose.x,
-              state.best_pose.y, state.best_pose.theta):
-        check(bool(torch.isfinite(v).all()), "main path produced non-finite values")
-    ms_step = [b / iters for b in block_ms]
-    med = statistics.median(ms_step)
-    rate = N_PARTICLES / (med / 1e3)
+    state, launches, main = run_path(fused_step)
+    check(launches["lut_weights"] == steps, f"lut_weights launches {launches} != {steps} steps")
+    check(launches["motion_odometry"] == 0, f"K1 launched on the mcl.step path: {launches}")
+    check(launches["gather_rows"] == 0, f"K2 launched on the mcl.step path: {launches}")
+    # The same call's other paths, in turns: predict -> update (K1, then the
+    # weigh-only kernel) and the earlier route (K1, K2's rows, plain weights).
+    others = {}
+    for path, fn in (("predict_update", step), ("k2_route", k2_route_step),
+                     ("k2_route_again", k2_route_step), ("predict_update_again", step)):
+        _, counts, others[path] = run_path(fn)
+        others[path]["launches"] = counts
+    _, _, main_again = run_path(fused_step)
+    med = main["ms_per_step"]["median"]
 
     def phase_ms(fn):
         return statistics.median(cuda_ms(fn) for _ in range(blocks))
 
+    pp = state.particles.pose
     predict_ms = phase_ms(lambda: mcl_mod.predict(state, bench_odom, bench_alphas))
     meas_ms = phase_ms(lambda: measurement.particle_log_weights(
-        field, state.particles.pose, scan, rc=rc, scanner_offset=cfg.scanner_offset,
+        field, pp, scan, rc=rc, scanner_offset=cfg.scanner_offset,
         stddev=cfg.meas_stddev, eps=cfg.meas_epsilon, lut_beam_stride=cfg.lut_beam_stride))
     resample_ms = phase_ms(lambda: resample_mod.resample(
         state.particles, cfg.resample, generator=state.generator))
-    step_dev_ms, step_kernels = device_ms(lambda: step(state), iters=iters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        state = step(state)
-    enqueue_ms = (time.perf_counter() - t0) * 1e3 / iters
-    torch.cuda.synchronize()
     say("main", json.dumps({
         "metric": "mcl_particle_updates_per_s_100k",
-        "value": rate,
+        "value": N_PARTICLES / (med / 1e3),
         "unit": "particle-updates/s",
-        "ms_per_step": {"median": med, "min": min(ms_step), "max": max(ms_step),
-                        "repeats": blocks, "iters": iters},
+        "path": "mcl.step",
+        **main,
+        "ms_per_step_again": main_again["ms_per_step"],
         "phases_ms": {"predict": predict_ms, "measurement": meas_ms,
                       "resample": resample_ms},
-        "device_ms_per_step": step_dev_ms,
-        "kernels_per_step": step_kernels,
-        "host_enqueue_ms_per_step": enqueue_ms,
-        "device_busy_share": step_dev_ms / med,
         "launches": launches,
         "device": name,
         "power_limit": smi.split(",")[-1].strip(),
     }))
+    for path, res in others.items():
+        say("main", json.dumps({"path": path, **res}))
 
-    # 8. tracking ---------------------------------------------------------------
+    # 8. tracking through mcl.step -----------------------------------------------
     track_odom = (0.01, 2.0, 0.01)
     truth = [640.0, 190.0, 0.0]
     state = mcl_mod.init(mcl_mod.make_generator(1, dev), N_PARTICLES,
@@ -870,13 +1024,12 @@ def main() -> None:
         sensor = mcl_mod.MCL.sensor_position(Pose.create(*truth, device=dev),
                                              cfg.scanner_offset)
         sc = fake_lidar.scan(blocked, sensor, lidar, RaycastConfig(max_dist=500.0))
-        state = mcl_mod.predict(state, odom_t, bench_alphas)
-        state = mcl_mod.update(state, sc, field, cfg, rc)
+        state = mcl_mod.step(state, odom_t, bench_alphas, sc, field, cfg, rc)
     bp = state.best_pose
     pos_err = math.hypot(float(bp.x) - truth[0], float(bp.y) - truth[1])
     th_err = abs((float(bp.theta) - truth[2] + math.pi) % (2 * math.pi) - math.pi)
     check(pos_err <= TRACK_BOUND_PX, f"tracking error {pos_err} px > {TRACK_BOUND_PX}")
-    say("track", f"40 steps, {N_PARTICLES} particles: final best pose "
+    say("track", f"40 steps through mcl.step, {N_PARTICLES} particles: final best pose "
         f"({float(bp.x):.3f}, {float(bp.y):.3f}, {float(bp.theta):.4f}) vs truth "
         f"({truth[0]:.3f}, {truth[1]:.3f}, {truth[2]:.4f}): {pos_err:.3f} px, "
         f"{th_err:.4f} rad (bound {TRACK_BOUND_PX} px)")
@@ -900,8 +1053,7 @@ def main() -> None:
                   Pose.create(403.0, 403.0, math.pi + 0.05, device=dev))
     ]
     engine = slam_mod.GridSLAM(slam_cfg, seed=0, device=dev)
-    gather.launches = 0
-    sampler.launches = 0
+    reset_counts()
     st = engine.init(Pose.create(400.0, 400.0, math.pi, device=dev))
     n_steps = 0
     for _ in range(4):
@@ -923,7 +1075,7 @@ def main() -> None:
         stop.record()
         stop.synchronize()
         block_ms.append(start.elapsed_time(stop))
-    slam_launches = {"gather_rows": gather.launches, "motion_odometry": sampler.launches}
+    slam_launches = read_counts()
     slam_steps = n_steps
     check(slam_launches["motion_odometry"] == slam_steps,
           f"K1 launches {slam_launches} != {slam_steps} SLAM steps")
@@ -1110,22 +1262,41 @@ def main() -> None:
     say("spatial", json.dumps({**spat, "device": name, "power_limit": power}))
     say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}")
 
+    # Launches: the counts of the main paths' runs (phase 7's mcl.step,
+    # phase 9's SLAM step). K2 left the MCL step with this kernel line's
+    # third entry; phases 3, 5 and 6 still hold it to rows[idx].
+    main_launches = {k: launches[k] + slam_launches[k] for k in launches}
+    k1_bound = bound(N_PARTICLES * 24, N_PARTICLES * OPS_SAMPLE)
+    lw_bench = lw_times["bench cloud"]
     print(json.dumps({"kernels": [
         {"name": "motion_odometry", "route": "cuda",
          "source": "slam_tpu_torch/csrc/motion_odometry.cu",
          "replaces": "slam_tpu/ops/motion_pallas.py:76",
-         # Launches of the MCL (phase 7) and SLAM (phase 9) main paths.
-         "launches": launches["motion_odometry"] + slam_launches["motion_odometry"],
+         "launches": main_launches["motion_odometry"],
          # Largest moment gap (mean, std of the x, y, theta displacement)
          # vs the plain version, at N=65536, on the two 100k clouds of
          # phase 6 and the 1M SLAM cloud: the kernel's noise stream is its
          # own. Times at N = 100k (phase 4); at 1M in the phase 9 line.
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "gather_rows", "route": "cuda",
          "source": "slam_tpu_torch/csrc/gather_rows.cu",
          "replaces": "slam_tpu/ops/pano_pallas.py:69",
-         "launches": launches["gather_rows"] + slam_launches["gather_rows"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "launches": main_launches["gather_rows"],
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": k2_library_ms},
+        {"name": "lut_weights", "route": "cuda",
+         "source": "slam_tpu_torch/csrc/lut_weights.cu",
+         "replaces": "slam_tpu/ops/motion_pallas.py:76 (K1, fused as the prologue) + "
+                     "slam_tpu/ops/measurement.py:669 (particle_log_weights_lut_fused)",
+         "launches": main_launches["lut_weights"],
+         # Largest |weight - plain| over both tables and the three clouds
+         # of phase 6 (a bin or cell on a rounding tie flips a particle's
+         # weight whole; the share within LW_RTOL is checked there); the
+         # poses equal K1's bit for bit. Times on the bench cloud, bf16.
+         "max_abs_err": lw_err, "ms": lw_bench["ms"], "plain_ms": lw_bench["plain_ms"],
+         "bound_ms": lw_bench["bound_ms"], "bound_by": lw_bench["bound_by"],
+         "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,15 @@
 """Monte-Carlo localization: the particle filter core (port of
 `slam_tpu/models/mcl.py`, beam measurement).
 
-    predict  -> the fused odometry motion kernel (`ops/motion_cuda.py`) on
+    predict  -> the odometry motion kernel (`ops/motion_cuda.py`) on
                 CUDA, its plain PyTorch version on the CPU;
-    update   -> beam log weights (the fused LUT panorama route runs the
-                CUDA row gather `ops/pano_cuda.py`), the best / sharpened
-                mode estimates, then gated systematic resampling.
+    update   -> beam log weights (on CUDA the fused LUT panorama route
+                runs the kernel `ops/lut_weights_cuda.py`), the best /
+                sharpened mode estimates, then gated systematic resampling;
+    step     -> update(predict(...)); on CUDA with the beam measurement on
+                the LUT route, predict and the weights are ONE launch of
+                that kernel (bench.py's jitted step), then the rest of
+                update.
 
 Functions of an explicit `MCLState`; randomness comes from the state's
 `torch.Generator` (on the particles' device), or is injected (`noise=`,
@@ -30,10 +34,11 @@ import torch
 
 from slam_tpu_torch.core import stats
 from slam_tpu_torch.core.config import MCLConfig, RaycastConfig
+from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan
 from slam_tpu_torch.ops import edt as edtlib
-from slam_tpu_torch.ops import measurement, rayfield, resample
-from slam_tpu_torch.ops.motion_cuda import sample_motion_model_odometry_fused
+from slam_tpu_torch.ops import lut_weights_cuda, measurement, rayfield, resample
+from slam_tpu_torch.ops.motion_cuda import draw_seed, sample_motion_model_odometry_fused
 
 
 @dataclasses.dataclass
@@ -127,37 +132,21 @@ def estimate(pp: Pose, log_weight, lw, mode_tau: float):
     return _select(informative, best_pose, mode_pose), mode_pose
 
 
-def update(
-    state: MCLState,
-    scan: Scan,
-    field,
-    cfg: MCLConfig,
-    rc: RaycastConfig,
-    ray_sharding=None,
-    resample_fn=None,
-    measurement_fn=None,
-    u0=None,
-) -> MCLState:
-    """Weight against one scan, then (conditionally) resample.
-
-    `field` is a prebuilt `RayField` (static map) or a raw bool[H, W] mask.
-    `u0` injects the systematic resampler's uniform draw."""
-    for name, v in (
-        ("ray_sharding", ray_sharding),
-        ("resample_fn", resample_fn),
-        ("measurement_fn", measurement_fn),
-        ("cfg.adaptive", cfg.adaptive),
-    ):
+def _check_ported(cfg: MCLConfig, **options) -> None:
+    for name, v in (*options.items(), ("cfg.adaptive", cfg.adaptive)):
         if v is not None:
             raise NotImplementedError(
                 f"{name} is not ported to slam_tpu_torch yet (ROADMAP.md Queue 1)"
             )
-    pp = state.particles.pose
     if cfg.measurement == "likelihood_field_auto":
         raise NotImplementedError(
             "measurement='likelihood_field_auto' is not ported to "
             "slam_tpu_torch yet (ROADMAP.md Queue 1 item 11)"
         )
+
+
+def _weigh(pp: Pose, scan: Scan, field, cfg: MCLConfig, rc: RaycastConfig):
+    """Measurement log weights f32[N] of poses `pp` (update's first half)."""
     if cfg.measurement in ("likelihood_field", "likelihood_field_table"):
         if not isinstance(field, rayfield.RayField):
             # A raw mask (SLAM mode): the capped transform the LF pdf
@@ -172,20 +161,24 @@ def update(
             z_hit=cfg.lf_z_hit, z_rand=cfg.lf_z_rand,
         )
         if cfg.measurement == "likelihood_field_table":
-            lw = measurement.particle_log_weights_lf_table(
+            return measurement.particle_log_weights_lf_table(
                 field, pp, scan, table_bins=cfg.lf_table_bins,
                 spread_mult=cfg.lf_table_spread,
                 min_halfwidth=cfg.lf_table_min_halfwidth,
                 table_dtype=cfg.lf_table_dtype, box_size=cfg.lf_table_box, **lf,
             )
-        else:
-            lw = measurement.particle_log_weights_likelihood_field(field, pp, scan, **lf)
-    else:
-        lw = measurement.particle_log_weights(
-            field, pp, scan,
-            rc=rc, scanner_offset=cfg.scanner_offset, stddev=cfg.meas_stddev,
-            eps=cfg.meas_epsilon, lut_beam_stride=cfg.lut_beam_stride,
-        )
+        return measurement.particle_log_weights_likelihood_field(field, pp, scan, **lf)
+    return measurement.particle_log_weights(
+        field, pp, scan,
+        rc=rc, scanner_offset=cfg.scanner_offset, stddev=cfg.meas_stddev,
+        eps=cfg.meas_epsilon, lut_beam_stride=cfg.lut_beam_stride,
+    )
+
+
+def _finish(state: MCLState, lw, cfg: MCLConfig, u0=None) -> MCLState:
+    """Update's second half: add the measurement's log weights `lw` to the
+    particles', estimate, then (conditionally) resample."""
+    pp = state.particles.pose
     log_weight = state.particles.log_weight + lw
     best_pose, mode_pose = estimate(pp, log_weight, lw, cfg.mode_tau)
     particles = state.particles.replace(log_weight=log_weight)
@@ -213,6 +206,75 @@ def update(
     )
 
 
+def update(
+    state: MCLState,
+    scan: Scan,
+    field,
+    cfg: MCLConfig,
+    rc: RaycastConfig,
+    ray_sharding=None,
+    resample_fn=None,
+    measurement_fn=None,
+    u0=None,
+) -> MCLState:
+    """Weight against one scan, then (conditionally) resample.
+
+    `field` is a prebuilt `RayField` (static map) or a raw bool[H, W] mask.
+    `u0` injects the systematic resampler's uniform draw."""
+    _check_ported(cfg, ray_sharding=ray_sharding, resample_fn=resample_fn,
+                  measurement_fn=measurement_fn)
+    return _finish(state, _weigh(state.particles.pose, scan, field, cfg, rc), cfg, u0)
+
+
+def _fused_route(pose: Pose, field, cfg: MCLConfig, rc: RaycastConfig) -> bool:
+    """Whether `step` predicts and weighs in one kernel launch: particles
+    on a CUDA device and the beam measurement on the LUT panorama route
+    (the dispatch of `measurement.particle_log_weights`)."""
+    return (pose.x.is_cuda and cfg.measurement == "beam"
+            and cfg.lut_beam_stride is not None and rc.backend == "lut"
+            and isinstance(field, rayfield.RayField) and field.lut is not None)
+
+
+def step(
+    state: MCLState,
+    odom: Odometry,
+    alphas,
+    scan: Scan,
+    field,
+    cfg: MCLConfig,
+    rc: RaycastConfig,
+    u0=None,
+    noise=None,
+) -> MCLState:
+    """predict -> update in one call (`bench.py:111-114`'s jitted step).
+
+    On CUDA with the beam measurement on the LUT route, the motion sample
+    and the log weights are one launch of `csrc/lut_weights.cu`, seeded
+    from the state's generator on the device exactly as `predict` seeds
+    K1 (same generator state, same poses); then the rest of `update`.
+    Elsewhere it is exactly `update(predict(...))`. `noise` (CPU only)
+    and `u0` inject the draws, as in `predict` and `update`."""
+    if not _fused_route(state.particles.pose, field, cfg, rc):
+        return update(predict(state, odom, alphas, noise=noise), scan, field, cfg, rc, u0=u0)
+    _check_ported(cfg)
+    if noise is not None:
+        raise ValueError(
+            "injected noise is a CPU-path argument; the CUDA kernel draws its own"
+        )
+    pose = state.particles.pose
+    new_pose, lw = lut_weights_cuda.launch(
+        field.lut, field.lut_bins or field.lut.shape[-1], pose, scan,
+        beam_stride=cfg.lut_beam_stride,
+        displacement=measurement.scanner_displacement(cfg.scanner_offset),
+        max_dist=rc.max_dist, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon,
+        motion=(draw_seed(state.generator, pose.x.device), odom, alphas),
+    )
+    state = state.replace(
+        particles=state.particles.replace(pose=new_pose), step=state.step + 1
+    )
+    return _finish(state, lw, cfg, u0)
+
+
 def mean_pose(state: MCLState) -> Pose:
     """Unweighted circular-mean pose over particles (`slam/util.cpp:66-85`)."""
     pp = state.particles.pose
@@ -222,7 +284,8 @@ def mean_pose(state: MCLState) -> Pose:
 
 class MCL:
     """Wrapper mirroring the reference's class API (`slam/mcl.h:12-46`)
-    with explicit state on `device`."""
+    with explicit state on `device`: the CUDA card unless the caller asks
+    for another (`device="cpu"`)."""
 
     def __init__(
         self,
@@ -234,7 +297,7 @@ class MCL:
         self.cfg = cfg
         self.rc = rc
         self._seed = seed
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = entry_device(device)
 
     def init(self, h: int, w: int) -> MCLState:
         return init(

@@ -27,6 +27,7 @@ import torch
 
 from slam_tpu_torch.core import grid as gridlib
 from slam_tpu_torch.core.config import SLAMConfig
+from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch.core.types import Odometry, Pose, Scan
 from slam_tpu_torch.models import mcl as mcl_mod
 from slam_tpu_torch.ops import edt as edtlib
@@ -180,14 +181,15 @@ def predict_only(state: SLAMState, odom: Odometry, cfg: SLAMConfig) -> SLAMState
 
 
 class GridSLAM:
-    """The SLAM engine on an explicit `device`; cfg held fixed."""
+    """The SLAM engine on an explicit `device` (the CUDA card unless the
+    caller asks for another, `device="cpu"`); cfg held fixed."""
 
     def __init__(self, cfg: SLAMConfig, seed: int = 0, device=None):
         if cfg.mcl.measurement == "likelihood_field_auto":
             raise _not_ported("likelihood_field_auto (AutoTierDispatcher)", 11)
         self.cfg = cfg
         self._seed = seed
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = entry_device(device)
 
     def init(self, pose: Optional[Pose] = None) -> SLAMState:
         return init(

@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels under `slam_tpu_torch/csrc/`.
 
-All `csrc/*.cu` files compile with `nvcc` for `sm_90a` into ONE shared
-library with a plain C interface (`extern "C"` launchers), loaded with
-`ctypes`. The library lands in `slam_tpu_torch/_build/` under a name
-derived from the hash of the sources and flags, so an edited source
-rebuilds on its next use and an unchanged one loads at once. Nothing here
-runs at import time: the first kernel launch builds.
+Each `csrc/*.cu` file compiles with its own `nvcc` for `sm_90a`, all
+started at once, and the objects link into ONE shared library with a
+plain C interface (`extern "C"` launchers), loaded with `ctypes`. The
+library lands in `slam_tpu_torch/_build/` under a name derived from the
+hash of the sources, the headers they share (`csrc/*.cuh`) and the flags,
+so an edited source or header rebuilds on its next use and an unchanged
+tree loads at once. Nothing here runs at import time: the first kernel
+launch builds.
 
 Every launcher returns its `cudaGetLastError()` code; `check` turns a
 nonzero code into an exception. A failed build raises too: there is no
@@ -30,7 +32,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -44,6 +46,15 @@ _SIGNATURES = {
     # (rows*, idx*, out*, n, row_bytes, vec_bytes, stream)
     "gather_rows_launch": (
         [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P]
+    ),
+    # (predict, table_u8, seed*, r1, t, r2, std_r1, std_t, std_r2, x*, y*,
+    #  th*, ox*, oy*, oth*, lut*, row_stride, h, w, n_bins, g, angles*,
+    #  dists*, n_beams, sensor_d, sensor_th, sensor_rot, binw, max_dist,
+    #  inv_stddev, clamp, inv_norm, eps, quant, lw*, n, stream)
+    "lut_weights_launch": (
+        [ctypes.c_int] * 2 + [_P] + [ctypes.c_float] * 6 + [_P] * 7
+        + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P] * 2 + [ctypes.c_int]
+        + [ctypes.c_float] * 10 + [_P, ctypes.c_longlong, _P]
     ),
 }
 
@@ -62,12 +73,38 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _digest(srcs) -> str:
+def _digest(files) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in files:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _compile(srcs, so: Path) -> str:
+    """nvcc each source to an object, all at once, then link `so`.
+    Returns the compilers' output (the `-Xptxas -v` report)."""
+    nvcc = _nvcc()
+    objs = [so.with_name(f"{so.name}.{p.stem}.o") for p in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(p)]
+            for p, o in zip(srcs, objs)]
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        runs = list(zip(cmds, (p.returncode for p in procs), outs))
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(so), *map(str, objs)]
+        if all(rc == 0 for _, rc, _ in runs):
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+            runs.append((link, proc.returncode, proc.stdout))
+        for cmd, rc, out in runs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return "".join(outs)
 
 
 @functools.cache
@@ -78,23 +115,20 @@ def library():
     this call built it, the build seconds and the compiler's `-Xptxas -v`
     report (registers, shared memory, spills per kernel)."""
     srcs = sorted(CSRC.glob("*.cu"))
-    so = BUILD_DIR / f"libslam_tpu_torch_{_digest(srcs)}.so"
+    so = BUILD_DIR / f"libslam_tpu_torch_{_digest(srcs + sorted(CSRC.glob('*.cuh')))}.so"
     log = so.with_suffix(".log")
     built, secs = False, 0.0
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
+        try:
+            report = _compile(srcs, tmp)
+        except BaseException:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        log.write_text(proc.stdout + proc.stderr)
+            raise
+        secs = time.perf_counter() - t0
+        log.write_text(report)
         os.replace(tmp, so)
         built = True
     lib = ctypes.CDLL(str(so))

@@ -3,9 +3,11 @@
 
 ``lut[i, j, b]`` is the distance from the center of cell (i, j) to the
 first blocked cell along angular bin b (bins-LAST: all bins of one cell
-are one contiguous row). A ray query is one gather; the MCL measurement
-reads one whole row per particle (`panorama_rows`, through the CUDA row
-gather `ops/pano_cuda.py` on the card).
+are one contiguous row). A ray query is one gather; the plain MCL
+measurement reads one whole row per particle (`panorama_rows`, through
+the CUDA row gather `ops/pano_cuda.py` for a table on the card), and the
+card's fused kernel (`ops/lut_weights_cuda.py`) reads each beam's bin of
+that row in place.
 
 Build: per bin, the 2x2-dilated map is resampled into a rotated canvas
 whose +column is the bin direction; the run to the next blocked cell is a

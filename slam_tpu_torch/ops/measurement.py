@@ -18,6 +18,7 @@ from slam_tpu_torch.core.config import RaycastConfig
 from slam_tpu_torch.core.stats import log_pdf_normal_clamp_eps, pdf_normal
 from slam_tpu_torch.core.types import Pose, Scan
 from slam_tpu_torch.ops import lut as lutlib
+from slam_tpu_torch.ops import lut_weights_cuda
 from slam_tpu_torch.ops.rayfield import as_ray_field, raycast_field
 
 
@@ -111,7 +112,10 @@ def particle_log_weights_lut_fused(
     """Fused beam-model weights via LUT panorama rows: ONE row gather per
     particle (all bins of its sensor cell; every beam of a particle starts
     there, `slam/mcl.cpp:60-75`), then the bin->beam alignment and the
-    clamped-Gaussian log-pdf reduce of `pano_log_weights`.
+    clamped-Gaussian log-pdf reduce of `pano_log_weights`. A table on a
+    CUDA device goes to the kernel `csrc/lut_weights.cu`, which reads each
+    beam's bin from the table row and writes no panorama; a table on the
+    CPU to the composition above, its plain version.
 
     `beam_stride` g is the static promise that beam angles are evenly
     spaced by exactly g bins (`config.beam_bin_stride`)."""
@@ -129,6 +133,12 @@ def particle_log_weights_lut_fused(
         raise ValueError(
             f"{b_beams} beams at stride {g} exceed {m} distinct positions"
         )
+    if lut.is_cuda:
+        return lut_weights_cuda.launch(
+            lut, n_bins, poses, scan, beam_stride=g,
+            displacement=scanner_displacement(scanner_offset), max_dist=rc.max_dist,
+            stddev=stddev, eps=eps,
+        )[1]
     sp = sensor_pose(poses, scanner_offset)
     pano, inb = lutlib.panorama_rows(lut, sp.x, sp.y, n_bins)  # [N, n_bins]
     return pano_log_weights(

@@ -36,20 +36,37 @@ def host_params(odom: Odometry, alphas):
     )
 
 
-def launch(seed: torch.Tensor, odom: Odometry, pose: Pose, alphas) -> Pose:
-    """Run the CUDA kernel: poses f32[N] on one CUDA device, `seed` an
-    int64[1] on that device. Returns the sampled poses, theta wrapped."""
-    x, y, th = pose.x, pose.y, pose.theta
-    dev = x.device
-    for name, v in (("x", x), ("y", y), ("theta", th)):
+def draw_seed(generator, device) -> torch.Tensor:
+    """The kernel's seed, int64[1], drawn from `generator` on the device:
+    no host sync in the step. `mcl.step` draws the fused kernel's seed the
+    same way, so one generator state gives the same poses on both paths."""
+    return torch.randint(0, 2**62, (1,), generator=generator, device=device,
+                         dtype=torch.int64)
+
+
+def kernel_inputs(pose: Pose, seed, dev):
+    """(x, y, theta) of `pose` after checking what the kernels take: f32[N]
+    contiguous fields of one shape on `dev`, and a `seed` (unless None)
+    int64[1] there."""
+    fields = (pose.x, pose.y, pose.theta)
+    for name, v in zip(("x", "y", "theta"), fields):
         if v.device != dev or v.dtype != torch.float32 or v.dim() != 1:
             raise ValueError(f"pose.{name} must be f32[N] on {dev}")
         if not v.is_contiguous():
             raise ValueError(f"pose.{name} must be contiguous")
-    if x.shape != y.shape or x.shape != th.shape:
+    if not pose.x.shape == pose.y.shape == pose.theta.shape:
         raise ValueError("pose fields must share one shape")
-    if seed.device != dev or seed.dtype != torch.int64 or seed.numel() != 1:
+    if seed is not None and (seed.device != dev or seed.dtype != torch.int64
+                             or seed.numel() != 1):
         raise ValueError(f"seed must be int64[1] on {dev}")
+    return fields
+
+
+def launch(seed: torch.Tensor, odom: Odometry, pose: Pose, alphas) -> Pose:
+    """Run the CUDA kernel: poses f32[N] on one CUDA device, `seed` an
+    int64[1] on that device. Returns the sampled poses, theta wrapped."""
+    dev = pose.x.device
+    x, y, th = kernel_inputs(pose, seed, dev)
     params = [float(p) for p in host_params(odom, alphas)]
     ox, oy, oth = (torch.empty_like(x) for _ in range(3))
     if x.numel() == 0:
@@ -82,12 +99,7 @@ def sample_motion_model_odometry_fused(
                 "injected noise is a CPU-path argument; the CUDA kernel draws "
                 "its own from the generator"
             )
-        # The seed is drawn on the device: no host sync in the step.
-        seed = torch.randint(
-            0, 2**62, (1,), generator=generator, device=pose.x.device,
-            dtype=torch.int64,
-        )
-        return launch(seed, odom, pose, alphas)
+        return launch(draw_seed(generator, pose.x.device), odom, pose, alphas)
     return sample_motion_model_odometry(
         odom, pose, alphas, noise=noise, generator=generator
     )

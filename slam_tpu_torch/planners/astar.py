@@ -25,6 +25,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from slam_tpu_torch.core.device import entry_device
+
 INF = 1e30
 SQRT2 = float(np.sqrt(2.0))
 
@@ -122,11 +124,11 @@ class AStar:
     """Planner facade of the reference's incremental API (`slam/astar.h:
     10-48`): construct with (map, A, B), call `pathfind()` until it
     returns True (or `solve()`), then `recover_path()`. A and B are image
-    coordinates (i, j); the map is a bool tensor of free cells, and the
-    search runs on its device."""
+    coordinates (i, j); the map is bool free cells, moved to `device`: the
+    CUDA card unless the caller asks for another (`device="cpu"`)."""
 
     def __init__(self, free, a: Tuple[int, int], b: Tuple[int, int], device=None):
-        self.free = torch.as_tensor(free, dtype=torch.bool, device=device)
+        self.free = torch.as_tensor(free, dtype=torch.bool, device=entry_device(device))
         self.a = tuple(int(v) for v in a)
         self.b = tuple(int(v) for v in b)
         self.dist = _init_dist(self.free, self.a)

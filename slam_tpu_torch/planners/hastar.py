@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from slam_tpu_torch.core.config import HybridAStarConfig, RaycastConfig
+from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch.core.types import Pose
 from slam_tpu_torch.ops.edt import _sqrt
 from slam_tpu_torch.ops.rayfield import RayField, make_ray_field, raycast_field
@@ -780,8 +781,9 @@ def _pose_xyt(p: Pose, dev) -> torch.Tensor:
 
 class HybridAStar:
     """Facade of `slam/hastar.h:14-119` (reset / pathfind / recover_path)
-    with a batched round. The search runs on the map's device (or
-    `device`)."""
+    with a batched round. The map moves to `device`, where the search
+    runs: the CUDA card unless the caller asks for another
+    (`device="cpu"`)."""
 
     def __init__(
         self,
@@ -795,7 +797,7 @@ class HybridAStar:
         self.cfg = cfg
         # Collision rays only need to cover one steering arc (length = v).
         self.rc = dataclasses.replace(rc, max_dist=min(rc.max_dist, cfg.velocity + 2.0))
-        self.device = device
+        self.device = entry_device(device)
         self.reset(free, a, b)
 
     def _pose_to_cuboid(self, x, y, theta):
@@ -805,7 +807,6 @@ class HybridAStar:
         """New map + new query (`slam/hastar.cpp:30-81`). For a new query
         on the same map use `reset_query`, which keeps the map's tables."""
         free = torch.as_tensor(free, dtype=torch.bool, device=self.device)
-        self.device = free.device
         self.shape = tuple(free.shape)
         self._free = free
         if self.cfg.mode == "lattice":

@@ -34,6 +34,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from slam_tpu_torch.core.config import RaycastConfig, RRTStarConfig
+from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch.ops import spatial
 from slam_tpu_torch.ops.edt import _sqrt
 from slam_tpu_torch.ops.rayfield import RayField, make_ray_field, raycast_field
@@ -224,7 +225,8 @@ def _rrt_solve(st, field, goal, max_rounds, min_nodes, cfg, rc, neighbor_cap, dr
 class RRTStar:
     """Facade of `slam/rrtstar.h:12-64`: `pathfind()` per round or
     `solve()`, then `recover_path()`. Coordinates are world (x, y); the
-    search runs on the map's device (or `device`)."""
+    map moves to `device`, where the search runs: the CUDA card unless the
+    caller asks for another (`device="cpu"`)."""
 
     def __init__(
         self,
@@ -244,7 +246,7 @@ class RRTStar:
         # every sphere trace to a handful of iterations.
         self.rc = dataclasses.replace(rc, max_dist=min(rc.max_dist, cfg.radius + 2.0))
         self.neighbor_cap = neighbor_cap
-        free = torch.as_tensor(free, dtype=torch.bool, device=device)
+        free = torch.as_tensor(free, dtype=torch.bool, device=entry_device(device))
         self.device = free.device
         self.shape = tuple(free.shape)
         self.field = make_ray_field(~free, self.rc)

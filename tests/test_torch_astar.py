@@ -53,7 +53,7 @@ def test_relax_round_bitwise():
 def test_recover_path_and_facade():
     free = wall_map()
     jp = jastar.AStar(jnp.asarray(free), (10, 10), (10, 40))
-    tp = tastar.AStar(free, (10, 10), (10, 40))
+    tp = tastar.AStar(free, (10, 10), (10, 40), device="cpu")
     assert jp.solve() and tp.solve()
     assert tp.recover_path() == jp.recover_path()
     assert tp.path_cost() == jp.path_cost()
@@ -66,14 +66,14 @@ def test_recover_path_and_facade():
 def test_unreachable_and_incremental():
     free = np.ones((32, 32), bool)
     free[:, 16] = False
-    p = tastar.AStar(free, (5, 5), (5, 25))
+    p = tastar.AStar(free, (5, 5), (5, 25), device="cpu")
     assert not p.solve()
     assert p.recover_path() == []
     assert tastar.recover_path(np_(p.dist), (5, 5), (5, 25)) == []
 
     free = wall_map()
     jp = jastar.AStar(jnp.asarray(free), (10, 10), (10, 40))
-    tp = tastar.AStar(free, (10, 10), (10, 40))
+    tp = tastar.AStar(free, (10, 10), (10, 40), device="cpu")
     n = 0
     while not tp.pathfind(rounds=8):
         assert not jp.pathfind(rounds=8)

@@ -20,7 +20,12 @@ from slam_tpu.ops import lut as jlut
 from slam_tpu_torch.core import config as tcfg
 from slam_tpu_torch.core import grid as tgrid
 from slam_tpu_torch.core import stats as tstats
+from slam_tpu_torch.core.device import entry_device
+from slam_tpu_torch.core.types import Pose
+from slam_tpu_torch.models.mcl import MCL
+from slam_tpu_torch.models.slam import GridSLAM
 from slam_tpu_torch.ops import lut as tlut
+from slam_tpu_torch.planners import AStar, HybridAStar, RRTStar
 from torch_port import np_
 
 REPO = Path(__file__).resolve().parent.parent
@@ -181,3 +186,26 @@ def test_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+ENTRY_POINTS = {
+    "MCL": lambda **kw: MCL(tcfg.MCLConfig(), **kw),
+    "GridSLAM": lambda **kw: GridSLAM(tcfg.SLAMConfig(), **kw),
+    "AStar": lambda **kw: AStar(np.ones((16, 16), bool), (1, 1), (9, 9), **kw),
+    "RRTStar": lambda **kw: RRTStar(np.ones((16, 16), bool), (1.0, 1.0), (9.0, 9.0), **kw),
+    "HybridAStar": lambda **kw: HybridAStar(
+        np.ones((16, 16), bool), Pose.create(2.0, 2.0, 0.0), Pose.create(9.0, 9.0, 0.0),
+        tcfg.HybridAStarConfig(mode="continuous"), **kw),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, name):
+    """With no `device`, an entry point runs on the CUDA card; on a
+    machine without one it raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ENTRY_POINTS[name]()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ENTRY_POINTS[name](device="cuda")
+    assert entry_device("cpu") == torch.device("cpu")

@@ -42,11 +42,12 @@ def _pair(free, a, b, rc=None, **over):
     jc, tc = JCfg(**{**BASE, **over}), HybridAStarConfig(**{**BASE, **over})
     if rc is None:
         jp = jh.HybridAStar(jnp.asarray(free), JPose.create(*a), JPose.create(*b), jc)
-        tp = HybridAStar(free, Pose.create(*a), Pose.create(*b), tc)
+        tp = HybridAStar(free, Pose.create(*a), Pose.create(*b), tc, device="cpu")
     else:
         jp = jh.HybridAStar(jnp.asarray(free), JPose.create(*a), JPose.create(*b), jc,
                             JRaycast(**rc))
-        tp = HybridAStar(free, Pose.create(*a), Pose.create(*b), tc, RaycastConfig(**rc))
+        tp = HybridAStar(free, Pose.create(*a), Pose.create(*b), tc, RaycastConfig(**rc),
+                          device="cpu")
     return jp, tp
 
 
@@ -161,7 +162,7 @@ def test_rejects_too_coarse_theta_res():
     free = np.ones((32, 32), bool)
     with pytest.raises(ValueError, match="lattice") as t_err:
         HybridAStar(free, Pose.create(5.0, 5.0, 0.0), Pose.create(25.0, 25.0, 0.0),
-                    HybridAStarConfig(**{**BASE, "theta_res": 4}))
+                    HybridAStarConfig(**{**BASE, "theta_res": 4}), device="cpu")
     with pytest.raises(ValueError) as j_err:
         jh.HybridAStar(jnp.asarray(free), JPose.create(5.0, 5.0, 0.0),
                        JPose.create(25.0, 25.0, 0.0), JCfg(**{**BASE, "theta_res": 4}))

@@ -66,9 +66,10 @@ def _carry(jstate):
         int(jstate.step), int(jstate.updates), seed=0)
 
 
-def _run_both(steps=3, sync=False, **over):
+def _run_both(call, steps=3, sync=False, **over):
     """`steps` predict -> update steps of both filters from the same start,
-    the torch side fed the draws JAX takes from its key. With `sync`, each
+    the torch side fed the draws JAX takes from its key, through
+    `predict` then `update` or through `step` (`call`). With `sync`, each
     torch step starts from the JAX state carried across. Returns the
     state pairs after each step."""
     lidar, jrc, trc, jcfg, tc = _configs(**over)
@@ -90,12 +91,17 @@ def _run_both(steps=3, sync=False, **over):
         _, sub = jax.random.split(jstate.key)
         noise = jax_noise(sub, (N,))
         jstate = jmcl.predict(jstate, JOdometry.create(*ODOM), jnp.asarray(ALPHAS))
-        tstate = tmcl.predict(tstate, Odometry.create(*ODOM), ALPHAS, noise=noise)
-
         _, k_rs, _ = jax.random.split(jstate.key, 3)
         u0 = convert.tensor(jax.random.uniform(k_rs, ()))
         jstate = jmcl.update(jstate, scan, jfield, jcfg, jrc)
-        tstate = tmcl.update(tstate, t_scan(scan), tfield, tc, trc, u0=u0)
+
+        odom = Odometry.create(*ODOM)
+        if call == "step":
+            tstate = tmcl.step(tstate, odom, ALPHAS, t_scan(scan), tfield, tc, trc,
+                               u0=u0, noise=noise)
+        else:
+            tstate = tmcl.predict(tstate, odom, ALPHAS, noise=noise)
+            tstate = tmcl.update(tstate, t_scan(scan), tfield, tc, trc, u0=u0)
         out.append((jstate, tstate))
     return out
 
@@ -114,10 +120,13 @@ def _moments(p):
 
 OVERRIDES = [{}, {"resample_every": 2}, {"ess_threshold": 0.3}, {"lut_beam_stride": None}]
 IDS = ["every_update", "every_2nd", "ess_gate", "general_route"]
+# The port's two ways through a step: predict then update, or mcl.step.
+CALLS = ["predict_update", "step"]
 
 
+@pytest.mark.parametrize("call", CALLS)
 @pytest.mark.parametrize("over", OVERRIDES, ids=IDS)
-def test_mcl_step_matches_jax_from_shared_state(over):
+def test_mcl_step_matches_jax_from_shared_state(over, call):
     """Each step from the same (carried-over) state: best_pose and
     mode_pose to 1e-3 px/rad; particle poses to 1e-3 px on >= 99.5% of
     particles, their log weights to rtol 1e-5, atol 1e-3. The rest is the
@@ -125,7 +134,7 @@ def test_mcl_step_matches_jax_from_shared_state(over):
     the two cumulative sums round differently, and on the peaked weights
     the ESS gate lets accumulate, draws on a bin edge land one slot over
     (measured: at most 5 of 2048 in a step, 0.24%)."""
-    for jstate, tstate in _run_both(sync=True, **over):
+    for jstate, tstate in _run_both(call, sync=True, **over):
         _assert_pose_close(tstate.best_pose, jstate.best_pose, 1e-3)
         _assert_pose_close(tstate.mode_pose, jstate.mode_pose, 1e-3)
         jp, tp = jstate.particles, tstate.particles
@@ -137,14 +146,15 @@ def test_mcl_step_matches_jax_from_shared_state(over):
         assert tstate.updates == int(jstate.updates) and tstate.step == int(jstate.step)
 
 
+@pytest.mark.parametrize("call", CALLS)
 @pytest.mark.parametrize("over", OVERRIDES, ids=IDS)
-def test_mcl_chained_steps_match_jax(over):
+def test_mcl_chained_steps_match_jax(over, call):
     """Three chained steps. An index the resampler sets one slot over
     picks a neighbour with other noise, and later resamples spread that,
     so particle sets are compared by their moments (1e-2 px/rad; measured
     <= 6e-3). best_pose to 1e-3 (measured: equal) and mode_pose to 5e-2
     (measured <= 3e-2) px/rad."""
-    for jstate, tstate in _run_both(**over):
+    for jstate, tstate in _run_both(call, **over):
         _assert_pose_close(tstate.best_pose, jstate.best_pose, 1e-3)
         _assert_pose_close(tstate.mode_pose, jstate.mode_pose, 5e-2)
         np.testing.assert_allclose(_moments(tstate.particles), _moments(jstate.particles),
@@ -173,7 +183,7 @@ def test_mcl_wrapper_and_mean_pose():
     the JAX circular mean; unported options raise."""
     lidar, jrc, trc, jcfg, tc = _configs(n_particles=512)
     blocked = room(H, W)
-    m = tmcl.MCL(tc, trc, seed=3)
+    m = tmcl.MCL(tc, trc, seed=3, device="cpu")
     state = m.init(H, W)
     j0 = jmcl.starting_pose(H, W)
     _assert_pose_close(state.best_pose, j0, 0.0)

@@ -17,6 +17,8 @@ from slam_tpu.models import fake_lidar as jfake
 from slam_tpu.ops import measurement as jmeas
 from slam_tpu.ops import rayfield as jrf
 from slam_tpu_torch.core.config import RaycastConfig
+from slam_tpu_torch.ops import lut as tlut
+from slam_tpu_torch.ops import lut_weights_cuda
 from slam_tpu_torch.ops import measurement as tmeas
 from slam_tpu_torch.utils import convert
 from torch_port import np_, random_poses, room, t_field, t_scan
@@ -123,3 +125,26 @@ def test_fused_rejects_bad_stride():
         with pytest.raises(ValueError):
             tmeas.particle_log_weights_lut_fused(
                 t_field(jfield), convert.pose(x, y, th), t_scan(scan), rc=rc, beam_stride=g)
+
+
+def test_lut_weights_kernel_wrapper_on_the_cpu():
+    """A CPU table takes the plain composition and counts no launch; the
+    kernel's launcher takes only a table on a CUDA device; its u8 step is
+    the one `lut.dequantize` applies (every code decodes equal)."""
+    _, jfield, scan, stride, (x, y, th) = _setup(90, "u8")
+    field, poses = t_field(jfield), convert.pose(x, y, th)
+    rc = RaycastConfig(step=0.5, max_dist=MAX_DIST, backend="lut", lut_dtype="u8")
+    before = lut_weights_cuda.launch.launches
+    lw = tmeas.particle_log_weights_lut_fused(field, poses, t_scan(scan), rc=rc,
+                                              beam_stride=stride, scanner_offset=OFFSET)
+    assert lut_weights_cuda.launch.launches == before and lw.shape == (N,)
+    with pytest.raises(ValueError, match="CUDA"):
+        lut_weights_cuda.launch(field.lut, 360, poses, t_scan(scan), beam_stride=stride,
+                                displacement=tmeas.scanner_displacement(OFFSET),
+                                max_dist=MAX_DIST, stddev=5.0, eps=0.1)
+    params = lut_weights_cuda.weigh_params(
+        torch.uint8, n_bins=360, displacement=tmeas.scanner_displacement(OFFSET),
+        max_dist=MAX_DIST, stddev=5.0, eps=0.1)
+    codes = torch.arange(256).to(torch.uint8)
+    np.testing.assert_array_equal(((codes.float() + 0.5) * float(params[-1])).numpy(),
+                                  tlut.dequantize(codes, torch.uint8, MAX_DIST).numpy())

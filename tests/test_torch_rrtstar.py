@@ -58,7 +58,7 @@ def test_round_from_carried_state(n_rounds):
     st = jp.state
     sx, sy = jax_draws(st.key, 1, KW["batch"], free.shape)
     jnext = jrrt._rrt_round_jit(st, jp.field, jp._goal, jp.cfg, jp.rc, jp.neighbor_cap)
-    tp = RRTStar(free, a, b, RRTStarConfig(**KW))
+    tp = RRTStar(free, a, b, RRTStarConfig(**KW), device="cpu")
     tnext = trrt._rrt_round(_carry(st), tp.field, tp._goal, tp.cfg, tp.rc, tp.neighbor_cap,
                             torch.from_numpy(sx[0]), torch.from_numpy(sy[0]))
     assert int(tnext.size) == int(jnext.size) > int(st.size)
@@ -84,7 +84,7 @@ def test_solve_with_injected_draws(case):
     j_rounds += 1
     assert jp.success
     sx, sy = jax_draws(jax.random.key(seed), rounds, KW["batch"], free.shape)
-    tp = RRTStar(free, a, b, RRTStarConfig(**KW))
+    tp = RRTStar(free, a, b, RRTStarConfig(**KW), device="cpu")
     assert tp.solve(max_rounds=rounds, samples=(sx, sy))
     assert tp.rounds == j_rounds and tp.size == int(jp.state.size)
     assert abs(tp.path_cost() - jp.path_cost()) <= 1e-4 * jp.path_cost()
@@ -100,7 +100,7 @@ def test_generator_reproduces_and_latches():
     cfg = RRTStarConfig(**KW)
     runs = []
     for _ in range(2):
-        p = RRTStar(free, (12.0, 32.0), (52.0, 32.0), cfg, seed=5)
+        p = RRTStar(free, (12.0, 32.0), (52.0, 32.0), cfg, seed=5, device="cpu")
         assert p.solve(max_rounds=120)
         runs.append((p.rounds, p.size, p.path_cost(), p.recover_path()))
     assert runs[0] == runs[1]
@@ -115,10 +115,12 @@ def test_generator_reproduces_and_latches():
     blocked = np.zeros((32, 32), bool)
     blocked[10:13, 10:13] = True
     q = RRTStar(blocked, (11.0, 20.0), (30.0, 30.0),
-                RRTStarConfig(reach=4.0, radius=8.0, max_nodes=128, batch=32), seed=0)
+                RRTStarConfig(reach=4.0, radius=8.0, max_nodes=128, batch=32), seed=0,
+                device="cpu")
     assert not q.solve(max_rounds=30) and q.recover_path() == []
     with pytest.raises(ValueError, match="radius"):
-        RRTStar(free, (1.0, 1.0), (2.0, 2.0), RRTStarConfig(reach=10.0, radius=5.0))
+        RRTStar(free, (1.0, 1.0), (2.0, 2.0), RRTStarConfig(reach=10.0, radius=5.0),
+                device="cpu")
 
 
 # An edge of the path that `chip_smoke.py` phase 14's RRT* (seed 1235, on an

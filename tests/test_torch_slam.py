@@ -204,12 +204,12 @@ def test_init_rebuild_predict_and_wrapper():
     ts = tslam.rebuild_edt(ts.replace(grid=torch.from_numpy(grid)), tcfg)
     js = jslam.rebuild_edt(js.replace(grid=jnp.asarray(grid)), jcfg)
     np.testing.assert_array_equal(np_(ts.edt), np.asarray(js.edt))
-    np.testing.assert_allclose(np_(tslam.GridSLAM(tcfg).prob_map(ts)),
+    np.testing.assert_allclose(np_(tslam.GridSLAM(tcfg, device="cpu").prob_map(ts)),
                                np.asarray(jslam.GridSLAM(jcfg).prob_map(js)), rtol=1e-6)
     np.testing.assert_allclose(np_(tgrid.log_odds(torch.tensor([0.2, 0.5, 0.9]))),
                                np.log(np.array([0.25, 1.0, 9.0])), rtol=1e-6)
 
-    engine = tslam.GridSLAM(tcfg, seed=1)
+    engine = tslam.GridSLAM(tcfg, seed=1, device="cpu")
     ts = engine.init(convert.pose(*START))
     ts = engine.predict(ts, Odometry.create(*ODOM))
     assert ts.mcl.step == 1 and ts.mcl.updates == 0
@@ -233,7 +233,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 11"):
         tslam.step(ts, odom, scan, _make(tc, scanmatch=tc.ScanMatchConfig()))
     with pytest.raises(NotImplementedError, match="item 11"):
-        tslam.GridSLAM(_make(tc, mcl={"measurement": "likelihood_field_auto"}))
+        tslam.GridSLAM(_make(tc, mcl={"measurement": "likelihood_field_auto"}), device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         tslam.step(ts, odom, scan, _make(tc, mcl={"measurement": "likelihood_field_auto"}))
     with pytest.raises(NotImplementedError):
@@ -267,7 +267,7 @@ def test_slam_closed_loop_boxed_table():
         motion=tc.MotionConfig(alphas=(0.002,) * 4),
         raycast=tc.RaycastConfig(step=1.0, max_dist=60.0, backend="sdf"),
     )
-    engine = tslam.GridSLAM(cfg, seed=3)
+    engine = tslam.GridSLAM(cfg, seed=3, device="cpu")
     gt = Pose.create(40.0, 40.0, 0.3)
     state = engine.init(gt)
     g = tmcl.make_generator(4)
