@@ -102,7 +102,7 @@ class AdaptiveConfig:
 class MCLConfig:
     n_particles: int = 1000
     # "beam" | "likelihood_field" | "likelihood_field_table" |
-    # "likelihood_field_auto". The port runs "beam" only so far.
+    # "likelihood_field_auto".
     measurement: str = "beam"
     meas_stddev: float = 5.0
     meas_epsilon: float = 0.1

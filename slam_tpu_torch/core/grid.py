@@ -61,6 +61,24 @@ def blocked_from_logodds(grid_logodds: torch.Tensor) -> torch.Tensor:
     return grid_logodds > 0.0
 
 
+def blocked_from_prob_free(prob_free: torch.Tensor) -> torch.Tensor:
+    """bool[H, W] from a probability-of-free map (blocked iff p_free < 0.5,
+    `slam/raycast.cpp:43`)."""
+    return prob_free < 0.5
+
+
+def blocked_from_u8(map_u8: torch.Tensor) -> torch.Tensor:
+    """bool[H, W] from a quantized uint8 map (blocked iff value < 128,
+    `slam/raycast.cpp:90`)."""
+    return map_u8 < 128
+
+
+def blocked_from_binary(map_i32: torch.Tensor) -> torch.Tensor:
+    """bool[H, W] from a 0/1 ground-truth map (blocked iff value == 0,
+    `slam/raycast.cpp:136`)."""
+    return map_i32 == 0
+
+
 def uniform_logodds(shape, dtype=torch.float32, device=None) -> torch.Tensor:
     """A fresh unknown map: log-odds 0 (p = 0.5) everywhere."""
     return torch.zeros(shape, dtype=dtype, device=device)

@@ -65,6 +65,18 @@ class Odometry(_TensorDataclass):
 
 
 @dataclasses.dataclass
+class Velocity(_TensorDataclass):
+    """Differential-drive command: linear v, angular w (`slam/pose.h:26-30`)."""
+
+    v: torch.Tensor
+    w: torch.Tensor
+
+    @classmethod
+    def create(cls, v, w, device=None) -> "Velocity":
+        return cls(v=_as_f32(v, device), w=_as_f32(w, device))
+
+
+@dataclasses.dataclass
 class Particles(_TensorDataclass):
     """SoA particle set: poses plus unnormalized log-weights."""
 
@@ -95,7 +107,19 @@ class Scan(_TensorDataclass):
     dists: torch.Tensor  # f32[B]
 
 
-def log_f32(n: int) -> float:
+class Box:
+    """Inclusive image-coordinate box (`slam/pose.h:39-45`), host-side."""
+
+    __slots__ = ("start_i", "start_j", "stop_i", "stop_j")
+
+    def __init__(self, start_i: int, start_j: int, stop_i: int, stop_j: int):
+        self.start_i = start_i
+        self.start_j = start_j
+        self.stop_i = stop_i
+        self.stop_j = stop_j
+
+
+def log_f32(n: float) -> float:
     """log(n) rounded as float32 arithmetic rounds it (the JAX package
     takes `jnp.log(n)` in f32; a float64 log can differ in the last bit)."""
     return float(torch.log(torch.tensor(float(n), dtype=torch.float32)))

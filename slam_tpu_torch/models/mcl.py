@@ -13,16 +13,21 @@
 
 Functions of an explicit `MCLState`; randomness comes from the state's
 `torch.Generator` (on the particles' device), or is injected (`noise=`,
-`u0=`) so tests can feed in JAX's own draws. No step syncs with the host:
-the data-dependent choices (uninformative-measurement fallback, ESS gate)
-are `torch.where` selections, and the every-k resample gate counts
-updates on the host.
+`u0=`, `inject=`) so tests can feed in JAX's own draws. No step syncs with
+the host: the data-dependent choices (uninformative-measurement fallback,
+ESS gate, the auto tier, the injection ratio) are `torch.where`
+selections, and the every-k resample gate counts updates on the host.
 
 Measurements: "beam" (raycast or fused LUT route), "likelihood_field"
-(direct) and "likelihood_field_table" (boxed correlative table). Not
-ported yet: adaptive injection, "likelihood_field_auto", `ray_sharding`,
-`resample_fn` and `measurement_fn` (ROADMAP.md Queue 1 items 11 and 14);
-they raise NotImplementedError.
+(direct), "likelihood_field_table" (boxed correlative table) and
+"likelihood_field_auto", which computes BOTH of the last two and selects
+per update by `measurement.lf_auto_converged` on the device (JAX's
+`lax.cond` has no torch counterpart without a host read; the host-lagged
+alternative is `models/slam.py:AutoTierDispatcher`). `MCLConfig.adaptive`
+adds augmented-MCL injection over free space (`init_uniform` is the
+global-localization start). Not ported: `ray_sharding`, `resample_fn` and
+`measurement_fn` (ROADMAP.md Queue 1 item 14); they raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import torch
 from slam_tpu_torch.core import stats
 from slam_tpu_torch.core.config import MCLConfig, RaycastConfig
 from slam_tpu_torch.core.device import entry_device
-from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan
+from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan, log_f32
 from slam_tpu_torch.ops import edt as edtlib
 from slam_tpu_torch.ops import lut_weights_cuda, measurement, rayfield, resample
 from slam_tpu_torch.ops.motion_cuda import draw_seed, sample_motion_model_odometry_fused
@@ -49,8 +54,11 @@ class MCLState:
     best_pose: Pose
     # softmax(tau * log_w)-weighted circular mean, pre-resample.
     mode_pose: Pose
-    # Predict-frame and update counters (host ints). The adaptive-injection
-    # EMAs of the JAX state come with adaptive injection.
+    # Augmented-MCL likelihood EMAs in log space, f32 0-d tensors on the
+    # particles' device; NaN until the first update (warm start).
+    log_w_slow: torch.Tensor
+    log_w_fast: torch.Tensor
+    # Predict-frame and update counters (host ints).
     step: int
     updates: int
 
@@ -74,14 +82,31 @@ def init(generator, n_particles: int, pose: Pose) -> MCLState:
     `generator` is a torch.Generator on the pose's device, or an int seed."""
     if not isinstance(generator, torch.Generator):
         generator = make_generator(generator, pose.x.device)
+    nan = torch.full((), math.nan, dtype=torch.float32, device=pose.x.device)
     return MCLState(
         particles=Particles.uniform_at(pose, n_particles),
         generator=generator,
         best_pose=pose,
         mode_pose=pose,
+        log_w_slow=nan,
+        log_w_fast=nan.clone(),
         step=0,
         updates=0,
     )
+
+
+def init_uniform(generator, n_particles: int, blocked: torch.Tensor, draws=None) -> MCLState:
+    """Global-localization start: particles uniform over the free cells of
+    `blocked` with uniform headings (the notebook's initialization, cell
+    9), on `blocked`'s device. It injects at ratio 1 into `init`'s
+    canvas-center cloud, so a draw that lands on a blocked cell keeps the
+    center start pose, as in JAX. `draws` injects (u, i, j, theta) (see
+    `resample.injection_draws`)."""
+    h, w = blocked.shape
+    state = init(generator, n_particles, starting_pose(h, w, blocked.device))
+    particles = resample.inject_random_particles(
+        state.particles, blocked, 1.0, draws=draws, generator=state.generator)
+    return state.replace(particles=particles)
 
 
 def predict(state: MCLState, odom: Odometry, alphas, noise=None) -> MCLState:
@@ -132,22 +157,21 @@ def estimate(pp: Pose, log_weight, lw, mode_tau: float):
     return _select(informative, best_pose, mode_pose), mode_pose
 
 
-def _check_ported(cfg: MCLConfig, **options) -> None:
-    for name, v in (*options.items(), ("cfg.adaptive", cfg.adaptive)):
+def _check_ported(**options) -> None:
+    for name, v in options.items():
         if v is not None:
             raise NotImplementedError(
-                f"{name} is not ported to slam_tpu_torch yet (ROADMAP.md Queue 1)"
+                f"{name} is not ported to slam_tpu_torch yet (ROADMAP.md Queue 1 item 14)"
             )
-    if cfg.measurement == "likelihood_field_auto":
-        raise NotImplementedError(
-            "measurement='likelihood_field_auto' is not ported to "
-            "slam_tpu_torch yet (ROADMAP.md Queue 1 item 11)"
-        )
+
+
+LF_MEASUREMENTS = ("likelihood_field", "likelihood_field_table", "likelihood_field_auto")
 
 
 def _weigh(pp: Pose, scan: Scan, field, cfg: MCLConfig, rc: RaycastConfig):
-    """Measurement log weights f32[N] of poses `pp` (update's first half)."""
-    if cfg.measurement in ("likelihood_field", "likelihood_field_table"):
+    """(measurement log weights f32[N] of poses `pp`, the field as a
+    RayField): update's first half."""
+    if cfg.measurement in LF_MEASUREMENTS:
         if not isinstance(field, rayfield.RayField):
             # A raw mask (SLAM mode): the capped transform the LF pdf
             # resolves, ~5 sigma of distance.
@@ -160,24 +184,61 @@ def _weigh(pp: Pose, scan: Scan, field, cfg: MCLConfig, rc: RaycastConfig):
             rc=rc, scanner_offset=cfg.scanner_offset, stddev=cfg.meas_stddev,
             z_hit=cfg.lf_z_hit, z_rand=cfg.lf_z_rand,
         )
-        if cfg.measurement == "likelihood_field_table":
+
+        def table():
             return measurement.particle_log_weights_lf_table(
                 field, pp, scan, table_bins=cfg.lf_table_bins,
                 spread_mult=cfg.lf_table_spread,
                 min_halfwidth=cfg.lf_table_min_halfwidth,
                 table_dtype=cfg.lf_table_dtype, box_size=cfg.lf_table_box, **lf,
             )
-        return measurement.particle_log_weights_likelihood_field(field, pp, scan, **lf)
+
+        def direct():
+            return measurement.particle_log_weights_likelihood_field(field, pp, scan, **lf)
+
+        if cfg.measurement == "likelihood_field_table":
+            return table(), field
+        if cfg.measurement == "likelihood_field":
+            return direct(), field
+        # Auto tier: the boxed table on a converged cloud, the direct field
+        # on a dispersed one. Both are computed and the predicate selects
+        # on the device, so the weights equal the forced tier's exactly.
+        converged = measurement.lf_auto_converged(
+            pp, cfg, field.edt.shape, scanner_offset=cfg.scanner_offset)
+        return torch.where(converged, table(), direct()), field
+    field = rayfield.as_ray_field(field, rc)
     return measurement.particle_log_weights(
         field, pp, scan,
         rc=rc, scanner_offset=cfg.scanner_offset, stddev=cfg.meas_stddev,
         eps=cfg.meas_epsilon, lut_beam_stride=cfg.lut_beam_stride,
-    )
+    ), field
 
 
-def _finish(state: MCLState, lw, cfg: MCLConfig, u0=None) -> MCLState:
+def adaptive_emas(log_w_slow, log_w_fast, lw, adaptive):
+    """The augmented-MCL EMAs of the mean unnormalized likelihood after a
+    measurement `lw` [N], in log space, and the capped injection ratio:
+    (log_w_slow, log_w_fast, ratio), 0-d tensors. WARM START: the first
+    update (NaN EMAs) seeds both with the observed average, so the ratio
+    starts at 0 and answers only to changes (slam_tpu/models/mcl.py:
+    335-343 has the measurement behind it); the ratio is capped at
+    `adaptive.max_ratio`."""
+    log_w_avg = torch.logsumexp(lw, dim=0) - log_f32(lw.shape[0])
+    first = torch.isnan(log_w_slow)
+    out = []
+    for prev, a in ((log_w_slow, adaptive.alpha_slow), (log_w_fast, adaptive.alpha_fast)):
+        keep = float(torch.log1p(torch.tensor(-a, dtype=torch.float32)))
+        out.append(torch.where(first, log_w_avg, torch.logaddexp(
+            keep + prev, log_f32(a) + log_w_avg)))
+    ratio = torch.clamp(1.0 - torch.exp(out[1] - out[0]), 0.0, adaptive.max_ratio)
+    return out[0], out[1], ratio
+
+
+def _finish(state: MCLState, lw, cfg: MCLConfig, u0=None, blocked=None,
+            inject=None) -> MCLState:
     """Update's second half: add the measurement's log weights `lw` to the
-    particles', estimate, then (conditionally) resample."""
+    particles', estimate, then (conditionally) resample and, with
+    `cfg.adaptive`, inject over the free cells of `blocked`. `inject`
+    injects the injection's draws (u, i, j, theta)."""
     pp = state.particles.pose
     log_weight = state.particles.log_weight + lw
     best_pose, mode_pose = estimate(pp, log_weight, lw, cfg.mode_tau)
@@ -198,10 +259,18 @@ def _finish(state: MCLState, lw, cfg: MCLConfig, u0=None) -> MCLState:
             log_weight=torch.where(do_it, new.log_weight, particles.log_weight),
         )
 
+    log_w_slow, log_w_fast = state.log_w_slow, state.log_w_fast
+    if cfg.adaptive is not None:
+        log_w_slow, log_w_fast, ratio = adaptive_emas(log_w_slow, log_w_fast, lw, cfg.adaptive)
+        particles = resample.inject_random_particles(
+            particles, blocked, ratio, draws=inject, generator=state.generator)
+
     return state.replace(
         particles=particles,
         best_pose=best_pose,
         mode_pose=mode_pose,
+        log_w_slow=log_w_slow,
+        log_w_fast=log_w_fast,
         updates=state.updates + 1,
     )
 
@@ -216,14 +285,17 @@ def update(
     resample_fn=None,
     measurement_fn=None,
     u0=None,
+    inject=None,
 ) -> MCLState:
-    """Weight against one scan, then (conditionally) resample.
+    """Weight against one scan, then (conditionally) resample and inject.
 
     `field` is a prebuilt `RayField` (static map) or a raw bool[H, W] mask.
-    `u0` injects the systematic resampler's uniform draw."""
-    _check_ported(cfg, ray_sharding=ray_sharding, resample_fn=resample_fn,
+    `u0` injects the systematic resampler's uniform draw, `inject` the
+    adaptive injection's draws."""
+    _check_ported(ray_sharding=ray_sharding, resample_fn=resample_fn,
                   measurement_fn=measurement_fn)
-    return _finish(state, _weigh(state.particles.pose, scan, field, cfg, rc), cfg, u0)
+    lw, field = _weigh(state.particles.pose, scan, field, cfg, rc)
+    return _finish(state, lw, cfg, u0, field.blocked, inject)
 
 
 def _fused_route(pose: Pose, field, cfg: MCLConfig, rc: RaycastConfig) -> bool:
@@ -245,6 +317,7 @@ def step(
     rc: RaycastConfig,
     u0=None,
     noise=None,
+    inject=None,
 ) -> MCLState:
     """predict -> update in one call (`bench.py:111-114`'s jitted step).
 
@@ -252,11 +325,11 @@ def step(
     and the log weights are one launch of `csrc/lut_weights.cu`, seeded
     from the state's generator on the device exactly as `predict` seeds
     K1 (same generator state, same poses); then the rest of `update`.
-    Elsewhere it is exactly `update(predict(...))`. `noise` (CPU only)
-    and `u0` inject the draws, as in `predict` and `update`."""
+    Elsewhere it is exactly `update(predict(...))`. `noise` (CPU only),
+    `u0` and `inject` inject the draws, as in `predict` and `update`."""
     if not _fused_route(state.particles.pose, field, cfg, rc):
-        return update(predict(state, odom, alphas, noise=noise), scan, field, cfg, rc, u0=u0)
-    _check_ported(cfg)
+        return update(predict(state, odom, alphas, noise=noise), scan, field, cfg, rc,
+                      u0=u0, inject=inject)
     if noise is not None:
         raise ValueError(
             "injected noise is a CPU-path argument; the CUDA kernel draws its own"
@@ -272,7 +345,7 @@ def step(
     state = state.replace(
         particles=state.particles.replace(pose=new_pose), step=state.step + 1
     )
-    return _finish(state, lw, cfg, u0)
+    return _finish(state, lw, cfg, u0, field.blocked, inject)
 
 
 def mean_pose(state: MCLState) -> Pose:

@@ -11,11 +11,13 @@ Functions of an explicit `SLAMState` on one device; `GridSLAM` wraps them.
 The every-k gates (resample, map update) count on the host. With
 `SLAMConfig.edt_box` unset (the production setting) the step makes no host
 sync; with it set, the incremental EDT refresh reads two flags a step
-(`ops/edt.py:edt_refresh`).
+(`ops/edt.py:edt_refresh`). `SLAMConfig.scanmatch` refines the output
+estimate on the device (`ops/scanmatch.py`), and ``likelihood_field_auto``
+runs through `GridSLAM`'s host-lagged `AutoTierDispatcher` (in `step`
+itself, through `mcl.update`'s both-tiers selection).
 
-Not ported yet: `SLAMConfig.scanmatch`, ``likelihood_field_auto`` with its
-`AutoTierDispatcher` (ROADMAP.md Queue 1 item 11), `ray_sharding` and
-`resample_fn` (item 14); they raise NotImplementedError.
+Not ported yet: `ray_sharding` and `resample_fn` (ROADMAP.md Queue 1 item
+14); they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,17 +33,16 @@ from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch.core.types import Odometry, Pose, Scan
 from slam_tpu_torch.models import mcl as mcl_mod
 from slam_tpu_torch.ops import edt as edtlib
-from slam_tpu_torch.ops import mapping, rayfield
-
-_LF_MEASUREMENTS = ("likelihood_field", "likelihood_field_table", "likelihood_field_auto")
+from slam_tpu_torch.ops import mapping, measurement, rayfield, scanmatch
 
 
 @dataclasses.dataclass
 class SLAMState:
     mcl: mcl_mod.MCLState
     grid: torch.Tensor  # f32[H, W] log-odds of occupancy
-    # The engine's output pose estimate after the latest update (the best
-    # particle; the scan-matched pose once scanmatch is ported).
+    # The engine's output pose estimate after the latest update: the
+    # correlative scan-matched pose with `SLAMConfig.scanmatch`, otherwise
+    # the best particle.
     est_pose: Pose
     # Derived cache (`SLAMConfig.edt_box`): the capped EDT of
     # blocked_from_logodds(grid), refreshed incrementally each step. None
@@ -59,13 +60,7 @@ def _lf_cap(cfg: SLAMConfig) -> float:
 
 
 def _needs_field(cfg: SLAMConfig) -> bool:
-    return cfg.mcl.measurement in _LF_MEASUREMENTS or cfg.scanmatch is not None
-
-
-def _not_ported(name: str, item: int):
-    return NotImplementedError(
-        f"{name} is not ported to slam_tpu_torch yet (ROADMAP.md Queue 1 item {item})"
-    )
+    return cfg.mcl.measurement in mcl_mod.LF_MEASUREMENTS or cfg.scanmatch is not None
 
 
 def rebuild_edt(state: SLAMState, cfg: SLAMConfig) -> SLAMState:
@@ -118,17 +113,18 @@ def step(
     noise=None,
     u0=None,
 ) -> SLAMState:
-    """One full SLAM step (predict + update + map + resample). `noise` and
-    `u0` (CPU only) inject the motion draws and the resampler's uniform."""
-    if cfg.scanmatch is not None:
-        raise _not_ported("SLAMConfig.scanmatch", 11)
+    """One full SLAM step (predict + update + [refine] + map + resample).
+    `noise` (CPU only) and `u0` inject the motion draws and the
+    resampler's uniform."""
     st = mcl_mod.predict(state.mcl, odom, cfg.motion.alphas, noise=noise)
     blocked = gridlib.blocked_from_logodds(state.grid)
 
-    # The likelihood-field measurements read one capped EDT: the state's
-    # incremental cache with `edt_box`, else a rebuild of the frozen grid.
+    # The likelihood-field measurements and the scan-matching refinement
+    # read one capped EDT: the state's incremental cache with `edt_box`,
+    # else a rebuild of the frozen grid.
+    lf_meas = cfg.mcl.measurement in mcl_mod.LF_MEASUREMENTS
     lf_field = None
-    if cfg.mcl.measurement in _LF_MEASUREMENTS:
+    if _needs_field(cfg):
         if cfg.edt_box is not None:
             if state.edt is None:
                 raise ValueError(
@@ -142,12 +138,14 @@ def step(
         lf_field = rayfield.RayField(blocked=blocked, edt=edt)
 
     st = mcl_mod.update(
-        st, scan, blocked if lf_field is None else lf_field, cfg.mcl, cfg.raycast,
+        st, scan, lf_field if lf_meas else blocked, cfg.mcl, cfg.raycast,
         ray_sharding=ray_sharding, resample_fn=resample_fn, u0=u0,
     )
 
-    # The map follows `map_pose`'s estimator; the output estimate stays the
-    # best particle (the reference keeps the best particle's map).
+    # The map follows `map_pose`'s estimator; the output estimate is the
+    # best particle (the reference keeps the best particle's map), refined
+    # by scan matching when configured (and then mapped from with
+    # `ScanMatchConfig.mapping`).
     mp = resolve_map_pose(cfg)
     if mp == "mean":
         map_pose = mcl_mod.mean_pose(st)
@@ -155,6 +153,15 @@ def step(
         map_pose = st.mode_pose
     else:
         map_pose = st.best_pose
+    est_pose = st.best_pose
+    if cfg.scanmatch is not None:
+        est_pose, _ = scanmatch.refine_pose(
+            lf_field, st.best_pose, scan, rc=cfg.raycast, cfg=cfg.scanmatch,
+            scanner_offset=cfg.mcl.scanner_offset, stddev=cfg.mcl.meas_stddev,
+            z_hit=cfg.mcl.lf_z_hit, z_rand=cfg.mcl.lf_z_rand,
+        )
+        if cfg.scanmatch.mapping:
+            map_pose = est_pose
 
     # `st.updates` is post-increment here, so the first scan (the
     # bootstrap against the empty grid) always maps. A skipped map update
@@ -172,7 +179,7 @@ def step(
                 state.edt, blocked, gridlib.blocked_from_logodds(new_grid),
                 max_dist=_lf_cap(cfg), box=cfg.edt_box,
             )
-    return SLAMState(mcl=st, grid=new_grid, est_pose=st.best_pose, edt=new_edt)
+    return SLAMState(mcl=st, grid=new_grid, est_pose=est_pose, edt=new_edt)
 
 
 def predict_only(state: SLAMState, odom: Odometry, cfg: SLAMConfig) -> SLAMState:
@@ -180,24 +187,114 @@ def predict_only(state: SLAMState, odom: Odometry, cfg: SLAMConfig) -> SLAMState
     return state.replace(mcl=mcl_mod.predict(state.mcl, odom, cfg.motion.alphas))
 
 
+class AutoTierDispatcher:
+    """Host-lagged tier dispatch for ``measurement="likelihood_field_auto"``.
+
+    Two steps with a forced measurement, the boxed table and the direct
+    likelihood field, and the tier predicate (`measurement.
+    lf_auto_converged`) of the engine's state. The predicate of the state
+    after every ``check_every``-th step is copied ``non_blocking`` into
+    pinned host memory behind a recorded CUDA event; the next `step` call
+    waits for that event and reads the flag (`read_tier`), which is the
+    only host read, so the step itself never syncs. That is the JAX
+    package's lag: the tier of steps k*c + 1 .. k*c + c follows the state
+    after step k*c. ``check_every`` defaults to 4, or to 1 under
+    `MCLConfig.adaptive`, where injection disperses the cloud in one step
+    (`slam_tpu/models/slam.py:245-277` has the trade-off). The first step
+    reads the predicate of its input state at once.
+
+    ``make_step(cfg) -> fn(state, odom, scan)`` builds the engine's step
+    for a forced-measurement config. ``host_reads`` counts the predicate
+    reads and ``tiers`` records the tier each step ran ("table" or
+    "direct")."""
+
+    def __init__(self, cfg: SLAMConfig, make_step, check_every: Optional[int] = None):
+        self._step_table = make_step(dataclasses.replace(
+            cfg, mcl=dataclasses.replace(cfg.mcl, measurement="likelihood_field_table")))
+        self._step_direct = make_step(dataclasses.replace(
+            cfg, mcl=dataclasses.replace(cfg.mcl, measurement="likelihood_field")))
+        if check_every is None:
+            check_every = 1 if cfg.mcl.adaptive is not None else 4
+        self._cfg = cfg
+        self._flag = None
+        self.check_every = check_every
+        self.reset()
+
+    def reset(self):
+        self._pending = None
+        self._tick = 0
+        self.converged = None
+        self.host_reads = 0
+        self.tiers = []
+
+    def _predicate(self, state) -> torch.Tensor:
+        cfg = self._cfg
+        return measurement.lf_auto_converged(
+            state.mcl.particles.pose, cfg.mcl, cfg.map.shape,
+            scanner_offset=cfg.mcl.scanner_offset)
+
+    def read_tier(self, state) -> bool:
+        """Settle the tier the next step runs: the pending lagged predicate
+        (waiting for its copy), or, before the first step, `state`'s own.
+        Call it outside a region that must not sync; `step` calls it."""
+        if self.converged is None:
+            self.converged = bool(self._predicate(state))
+            self.host_reads += 1
+        elif self._pending is not None:
+            flag, event = self._pending
+            if event is not None:
+                event.synchronize()
+            self.converged = bool(flag)
+            self._pending = None
+            self.host_reads += 1
+        return self.converged
+
+    def step(self, state, odom, scan):
+        converged = self.read_tier(state)
+        out = (self._step_table if converged else self._step_direct)(state, odom, scan)
+        self.tiers.append("table" if converged else "direct")
+        self._tick += 1
+        if self._tick % self.check_every == 0:
+            p = self._predicate(out)
+            flag, event = p, None
+            if p.is_cuda:
+                # One pinned flag, reused: its last copy was read before
+                # this step ran.
+                if self._flag is None:
+                    self._flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+                flag = self._flag
+                flag.copy_(p, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+            self._pending = (flag, event)
+        return out
+
+
 class GridSLAM:
     """The SLAM engine on an explicit `device` (the CUDA card unless the
-    caller asks for another, `device="cpu"`); cfg held fixed."""
+    caller asks for another, `device="cpu"`); cfg held fixed.
+    ``likelihood_field_auto`` runs through `AutoTierDispatcher`."""
 
     def __init__(self, cfg: SLAMConfig, seed: int = 0, device=None):
-        if cfg.mcl.measurement == "likelihood_field_auto":
-            raise _not_ported("likelihood_field_auto (AutoTierDispatcher)", 11)
         self.cfg = cfg
         self._seed = seed
         self.device = entry_device(device)
+        self._auto = None
+        if cfg.mcl.measurement == "likelihood_field_auto":
+            self._auto = AutoTierDispatcher(
+                cfg, lambda c: (lambda s, o, z: step(s, o, z, c)))
 
     def init(self, pose: Optional[Pose] = None) -> SLAMState:
+        if self._auto is not None:
+            self._auto.reset()
         return init(
             mcl_mod.make_generator(self._seed, self.device), self.cfg, pose,
             device=self.device,
         )
 
     def step(self, state: SLAMState, odom: Odometry, scan: Scan) -> SLAMState:
+        if self._auto is not None:
+            return self._auto.step(state, odom, scan)
         return step(state, odom, scan, self.cfg)
 
     def predict(self, state: SLAMState, odom: Odometry) -> SLAMState:

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from slam_tpu_torch.core import grid as gridlib
@@ -88,7 +89,14 @@ def build_beam_lut(
     h, w = blocked.shape
     d = int(math.ceil(math.hypot(h, w))) + 2
     cap = torch.tensor(max_dist * 1.25, dtype=torch.float32, device=dev)
-    q_u8 = cap / 255.0
+    # The u8 code is floor(run / q), q = cap / 255, as XLA computes both:
+    # the divide by the constant 255 becomes a multiply by its f32
+    # reciprocal, so q = cap * f32(1 / 255) (one ulp above cap / 255 at
+    # max_dist 80), and run / q is a true divide. q is a tensor on the
+    # table's device, so CUDA divides too (a CPU scalar divisor would make
+    # it multiply by the reciprocal).
+    q_u8 = torch.tensor(np.float32(max_dist * 1.25) * (np.float32(1.0) / np.float32(255.0)),
+                        device=dev)
 
     ci, cj, cd = (h - 1) / 2.0, (w - 1) / 2.0, (d - 1) / 2.0
     ucol = _iota(d, d, 0, dev)

@@ -9,19 +9,22 @@ Per scan, every beam marches in fixed steps from the sensor:
   * each visited cell updates once per beam (cell dedup along the beam);
   * the march stops at the first out-of-bounds step.
 
-The fidelity mode (per-particle uint8 maps) waits for ROADMAP.md Queue 1
-item 11.
+The fidelity mode (per-particle uint8 maps with the reference's
+multiplicative quantized updates, `fidelity_measurement_and_mapping`)
+serves the RBPF of `models/rbpf.py`.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from slam_tpu_torch.core import grid as gridlib
 from slam_tpu_torch.core.types import Pose, Scan
-from slam_tpu_torch.ops.measurement import sensor_pose
+from slam_tpu_torch.ops.measurement import beam_log_weights, scanner_displacement, sensor_pose
+from slam_tpu_torch.planners._scatter import last_lanes
 
 
 def _beam_cells(shape, sp: Pose, angles, *, step, max_dist):
@@ -110,3 +113,148 @@ def scan_logodds_update(
     counts = counts[:-1].to(torch.float32)
     delta = counts[:, 0] * l_free + counts[:, 1] * l_occ
     return torch.clamp(grid_l + delta.reshape(lh, w), l_min, l_max)
+
+
+# --------------------------------------------------------------------------
+# Fidelity mode: per-particle uint8 maps with the reference's multiplicative
+# quantized updates.
+# --------------------------------------------------------------------------
+
+_L0 = 0.5
+_LOCC = 0.40
+_LFREE = 0.60
+# Lanes (particle x beam x ray step) of one chunk of the fidelity update:
+# the [C, B, K] intermediates of a chunk of C particles take ~60 bytes a
+# lane, so 2^25 lanes keep a chunk near 2 GB.
+_FIDELITY_CHUNK_LANES = 1 << 25
+
+
+def _u8_update(values_u8, factor):
+    """One multiplicative quantized update: p = clamp(p * factor) with
+    ceiling 1.0 and floor 1/255 (`slam/raycast.cpp:193-213`).
+
+    The JAX package writes v / 255.0 * factor; under `jit` XLA turns the
+    divide by a constant into a multiply by its f32 reciprocal and folds
+    the two constants into one, v * f32(f32(1 / 255) * f32(factor)). The
+    port multiplies by that constant, so the codes equal the compiled
+    reference's."""
+    c = float(np.float32(np.float32(1.0) / np.float32(255.0)) * np.float32(factor))
+    p = torch.clamp(values_u8.to(torch.float32) * c, max=1.0)
+    return torch.clamp(torch.floor(p * 255.0), min=1.0).to(torch.uint8)
+
+
+def _cos_sin(a):
+    """f32 cos and sin of f32 `a`, taken in f64 and rounded: the same bits
+    on every device (f32 cos / sin differ by an ulp between CUDA and the
+    CPU, and a ray step on a cell boundary then lands in another cell)."""
+    a = a.to(torch.float64)
+    return torch.cos(a).to(torch.float32), torch.sin(a).to(torch.float32)
+
+
+def _fidelity_chunk(maps_flat, n0: int, n1: int, hw, sp: Pose, scan: Scan, *,
+                    step: float, max_dist: float):
+    """Particles n0..n1 of `fidelity_measurement_and_mapping`: (hit_dist,
+    hit_any [C, B], flat map index, updated u8 value and write mask [C, B,
+    K]) for sensor poses `sp` of all particles."""
+    h, w = hw
+    dev = maps_flat.device
+    x, y, th = sp.x[n0:n1], sp.y[n0:n1], sp.theta[n0:n1]
+    angles = th[:, None] + scan.angles[None, :]  # [C, B]
+    k_total = int(math.ceil(max_dist / step))
+    ks = torch.arange(1, k_total + 1, dtype=torch.float32, device=dev)
+    d = ks * step  # [K]
+    c, s = _cos_sin(angles)
+    px = x[:, None, None] + ks[None, None, :] * (c * step)[..., None]
+    py = y[:, None, None] + ks[None, None, :] * (s * step)[..., None]
+    i, j = gridlib.world_to_cell((h, w), px, py)  # [C, B, K]
+    cell = i * w + j
+    i0, j0 = gridlib.world_to_cell((h, w), x, y)
+    cell0 = (i0 * w + j0)[:, None, None]
+    prev = torch.cat([cell0.expand(cell[..., :1].shape), cell[..., :-1]], dim=-1)
+    inb = gridlib.in_bounds((h, w), i, j)
+    processed = (cell != prev) & (torch.cummin(inb.to(torch.uint8), dim=-1).values > 0)
+    ic, jc = gridlib.clamp_cell((h, w), i, j)
+    base = torch.arange(n0, n1, device=dev, dtype=torch.int64) * (h * w)
+    flat = (ic.long() * w + jc) + base[:, None, None]
+    vals = maps_flat[flat]
+
+    # Predicted hit: the first processed cell with value < 128 (pre-scan map).
+    occupied = processed & (vals < 128) & (cell != cell0)
+    hit_any = torch.any(occupied, dim=-1)
+    hit_idx = torch.argmax(occupied.to(torch.uint8), dim=-1)  # the FIRST maximum
+    hit_dist = (hit_idx.to(torch.float32) + 1.0) * step
+
+    z = scan.dists[None, :, None]
+    free = processed & (d * d < z * z)
+    at_or_past = processed & (d >= z)
+    first_idx = torch.argmax(at_or_past.to(torch.uint8), dim=-1)
+    has_occ = torch.any(at_or_past, dim=-1) & (scan.dists[None, :] < max_dist)
+    occ = ((torch.arange(k_total, device=dev) == first_idx[..., None])
+           & has_occ[..., None] & at_or_past)
+    updated = torch.where(occ, _u8_update(vals, _LOCC / _L0),
+                          torch.where(free, _u8_update(vals, _LFREE / _L0), vals))
+    return hit_dist, hit_any, flat, updated, free | occ
+
+
+def fidelity_measurement_and_mapping(
+    maps_u8: torch.Tensor,
+    poses: Pose,
+    scan: Scan,
+    *,
+    scanner_offset=(0.0, 0.0, 0.0),
+    stddev: float = 5.0,
+    eps: float = 0.1,
+    max_dist: float = 500.0,
+    step: float = 0.5,
+):
+    """Reference-style fused weighting + mapping on per-particle maps.
+
+    For each particle n and beam b, marches through `maps_u8[n]`: the first
+    already-occupied (< 128) new cell is the predicted hit
+    (`slam/raycast.cpp:183-189`), cells before the measured endpoint get
+    the free update and the endpoint cell the occupied update. As in the
+    JAX package, hits are computed against the pre-scan map and all
+    updates applied afterwards, so beams are order-independent.
+
+    Where several lanes of one particle write one cell (beams crossing near
+    the sensor), the last lane in (beam, step) order wins, as XLA's
+    in-order scatter keeps it: `planners/_scatter.py:last_lanes` picks it
+    and every lane writes that lane's value, so the maps are the same on
+    every device.
+    Particles go in chunks of about `_FIDELITY_CHUNK_LANES` lanes. The ray
+    geometry's cos / sin are taken in f64 and rounded (`_cos_sin`), so the
+    maps are the same on the card and the CPU.
+
+    Returns (log_weights f32[N], new_maps u8[N, H, W])."""
+    n, h, w = maps_u8.shape
+    dist, th, rot = scanner_displacement(scanner_offset)
+    c, s = _cos_sin(poses.theta + th)
+    sp = Pose(x=poses.x + c * dist, y=poses.y + s * dist, theta=poses.theta + rot)
+    k_total = int(math.ceil(max_dist / step))
+    lanes = scan.angles.shape[0] * k_total
+    chunk = max(1, _FIDELITY_CHUNK_LANES // max(lanes, 1))
+    new_maps = maps_u8.reshape(-1).clone()
+    hit_dist, hit_any = [], []
+    for n0 in range(0, n, chunk):
+        n1 = min(n, n0 + chunk)
+        hd, ha, flat, updated, write = _fidelity_chunk(
+            maps_u8.reshape(-1), n0, n1, (h, w), sp, scan, step=step, max_dist=max_dist)
+        hit_dist.append(hd)
+        hit_any.append(ha)
+        # Targets of this chunk lie in its particles' maps: index them
+        # from the chunk's first cell so `last_lanes`' table is the
+        # chunk's size. Every lane writes its target the value of the
+        # target's last writing lane, or its own (the pre-scan value)
+        # where no lane writes the target: duplicate writes carry one
+        # value, and no slot is shared.
+        flat = flat.reshape(-1)
+        updated = updated.reshape(-1)
+        tgt = flat - n0 * h * w
+        top = last_lanes(write.reshape(-1), tgt, (n1 - n0) * h * w)[tgt]
+        lane = torch.arange(updated.numel(), device=updated.device)
+        new_maps.scatter_(0, flat, updated[torch.where(top >= 0, top, lane)])
+    lw = beam_log_weights(
+        torch.cat(hit_dist), torch.cat(hit_any), scan.dists[None, :],
+        stddev=stddev, max_dist=max_dist, eps=eps,
+    )
+    return torch.sum(lw, dim=-1), new_maps.reshape(n, h, w)

@@ -2,20 +2,22 @@
 model (raycast or fused LUT panorama route) and the likelihood field,
 direct or through the boxed correlative score table of the SLAM step.
 
-Not ported: the sharded table build (`bin_sharding`, `ray_sharding`,
-`lpad=`; ROADMAP.md Queue 1 item 14), `lf_auto_converged` (item 11) and
-`beam_weights_probabilistic` (item 11).
+Also the auto tier's predicate `lf_auto_converged` and the notebook's
+probabilistic beam model `beam_weights_probabilistic`. Not ported: the
+sharded table build (`bin_sharding`, `ray_sharding`, `lpad=`; ROADMAP.md
+Queue 1 item 14).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from slam_tpu_torch.core import grid as gridlib
 from slam_tpu_torch.core.config import RaycastConfig
-from slam_tpu_torch.core.stats import log_pdf_normal_clamp_eps, pdf_normal
+from slam_tpu_torch.core.stats import log_pdf_normal_clamp_eps, pdf_normal, pdf_normal_clamp
 from slam_tpu_torch.core.types import Pose, Scan
 from slam_tpu_torch.ops import lut as lutlib
 from slam_tpu_torch.ops import lut_weights_cuda
@@ -46,6 +48,64 @@ def beam_log_weights(pred_dist, hit, meas_dist, *, stddev, max_dist, eps=0.1):
     (`slam/raycast.cpp:225-242`)."""
     err = torch.where(hit, pred_dist - meas_dist, meas_dist - max_dist)
     return log_pdf_normal_clamp_eps(stddev, err, eps)
+
+
+def beam_weights_probabilistic(
+    prob_occ: torch.Tensor,
+    poses: Pose,
+    scan: Scan,
+    *,
+    scanner_offset=(0.0, 0.0, 0.0),
+    stddev: float = 5.0,
+    max_dist: float = 500.0,
+    step: float = 0.5,
+):
+    """'Most probable along ray' beam model over an uncertain occupancy map
+    `prob_occ` f32[H, W] (the notebook's cell-10
+    `measurement_model_beam_probabilistic`). Marching along each beam, a
+    new in-map cell at distance d < max_dist scores q = p * P(occ) *
+    pdf_clamp(z - d), where p is the survival probability (p <- p * (1 -
+    q)); the beam weight is the max q, floored by pdf(1.5 sigma) and, for
+    a ray that stayed in the map, the max-range term. JAX's `lax.scan`
+    over ray steps is a loop over the K steps here, with [N, B] tensors.
+
+    Returns f32[N, B] beam weights (probabilities, not logs)."""
+    h, w = prob_occ.shape
+    dev = prob_occ.device
+    prob_flat = prob_occ.reshape(-1)
+    sp = sensor_pose(poses, scanner_offset)
+    angles = sp.theta[:, None] + scan.angles[None, :]  # [N, B]
+    dx = torch.cos(angles) * step
+    dy = torch.sin(angles) * step
+    z = scan.dists[None, :]
+    i0, j0 = gridlib.world_to_cell((h, w), sp.x, sp.y)
+    k_total = int(math.ceil(max_dist / step))
+    p = torch.ones_like(angles)
+    best = torch.full_like(angles, float(pdf_normal(
+        stddev, torch.tensor(1.5 * stddev, dtype=torch.float32))))
+    prev_cell = (i0 * w + j0)[:, None].expand(angles.shape)
+    alive = torch.ones(angles.shape, dtype=torch.bool, device=dev)
+    for k in range(k_total):
+        kk = float(k + 1)
+        d = float(np.float32(kk) * np.float32(step))  # JAX's f32 (k + 1) * step
+        i, j = gridlib.world_to_cell((h, w), sp.x[:, None] + kk * dx, sp.y[:, None] + kk * dy)
+        inb = gridlib.in_bounds((h, w), i, j)
+        ic, jc = gridlib.clamp_cell((h, w), i, j)
+        cell = i * w + j
+        # The notebook breaks at the first out-of-bounds position and stops
+        # scoring before d >= z_max; `alive` is the not-yet-broken flag.
+        score = (cell != prev_cell) & inb & alive
+        if not np.float32(d) < np.float32(max_dist):
+            score = torch.zeros_like(score)
+        occ = prob_flat[ic.long() * w + jc]
+        q = torch.where(score, p * occ * pdf_normal_clamp(stddev, z - d), 0.0)
+        best = torch.maximum(best, q)
+        p = torch.where(score, p * (1.0 - q), p)
+        prev_cell = torch.where(score, cell, prev_cell)
+        alive = alive & inb
+    # Max-range term, only for rays that reached z_max inside the map.
+    return torch.maximum(
+        best, torch.where(alive, p * pdf_normal_clamp(stddev, z - max_dist), 0.0))
 
 
 def pano_log_weights(
@@ -332,6 +392,28 @@ def lf_score_table(
         v = valid[c0 : c0 + chunk][None, :, None, None]
         acc += torch.sum(win.to(torch.float32) * v, dim=1)
     return acc
+
+
+def lf_auto_converged(poses: Pose, cfg, grid_shape, scanner_offset=(0.0, 0.0, 0.0)):
+    """The auto tier's predicate (``measurement="likelihood_field_auto"``),
+    a bool 0-d tensor on the poses' device: True iff the cloud is
+    table-eligible, i.e. the 4-sigma heading window is tighter than
+    ``cfg.lf_auto_max_halfwidth`` AND the ``cfg.lf_auto_sigma``-sigma
+    spatial extent (population std) fits the half box. Reductions only, no
+    host read; one definition shared by `models/mcl.py:update` and
+    `models/slam.py:AutoTierDispatcher`."""
+    sp = sensor_pose(poses, scanner_offset)
+    c = torch.mean(torch.cos(sp.theta))
+    s = torch.mean(torch.sin(sp.theta))
+    rbar = torch.clamp(torch.sqrt(c * c + s * s), 1e-7, 1.0 - 1e-7)
+    cstd = torch.sqrt(-2.0 * torch.log(rbar))
+    halfwidth = cfg.lf_table_spread * cstd + cfg.lf_table_min_halfwidth
+    box_eff = float(cfg.lf_table_box if cfg.lf_table_box is not None else min(grid_shape))
+    return (
+        (halfwidth <= cfg.lf_auto_max_halfwidth)
+        & (cfg.lf_auto_sigma * torch.std(sp.x, correction=0) <= box_eff / 2.0)
+        & (cfg.lf_auto_sigma * torch.std(sp.y, correction=0) <= box_eff / 2.0)
+    )
 
 
 def lf_table_window(

@@ -1,14 +1,18 @@
-"""Particle resampling as prefix sums (port of the selection half of
-`slam_tpu/ops/resample.py`; adaptive injection is not ported yet).
+"""Particle resampling as prefix sums, and augmented-MCL random-particle
+injection (port of `slam_tpu/ops/resample.py`).
 
 Random draws come from a `torch.Generator` on the particles' device, or
-are injected (`u0=` / `u=`) so tests can feed in JAX's own draws.
+are injected (`u0=` / `u=` / `draws=`) so tests can feed in JAX's own
+draws.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from slam_tpu_torch.core import grid as gridlib
 from slam_tpu_torch.core.types import Particles, Pose, log_f32
 
 
@@ -83,3 +87,59 @@ def resample(particles: Particles, method: str = "systematic", *, u0=None,
             device=particles.log_weight.device,
         ),
     )
+
+
+# --------------------------------------------------------------------------
+# Augmented MCL (notebook cell 9): fast/slow weight averages, and uniform
+# random particles over free space when the fast average collapses.
+# --------------------------------------------------------------------------
+
+
+def update_w_averages(log_w, w_slow, w_fast, alpha_slow=0.1, alpha_fast=0.9):
+    """w_slow / w_fast EMAs of the mean unnormalized weight."""
+    w_avg = torch.mean(torch.exp(log_w))
+    w_slow = w_slow + alpha_slow * (w_avg - w_slow)
+    w_fast = w_fast + alpha_fast * (w_avg - w_fast)
+    return w_slow, w_fast
+
+
+def injection_ratio(w_slow, w_fast):
+    return torch.clamp(1.0 - w_fast / torch.clamp(w_slow, min=1e-30), min=0.0)
+
+
+def injection_draws(n: int, shape, *, generator=None, device=None):
+    """The four draws of `inject_random_particles`, in JAX's order: the
+    select uniform in [0, 1), cell row i in [0, h), column j in [0, w)
+    (int32) and heading theta in [-pi, pi), each [n]."""
+    h, w = shape
+    kw = dict(generator=generator, device=device)
+    u = torch.rand((n,), **kw)
+    i = torch.randint(0, h, (n,), dtype=torch.int32, **kw)
+    j = torch.randint(0, w, (n,), dtype=torch.int32, **kw)
+    theta = torch.rand((n,), **kw) * (2.0 * math.pi) - math.pi
+    return u, i, j, theta
+
+
+def inject_random_particles(particles: Particles, blocked: torch.Tensor, ratio, *,
+                            draws=None, generator=None) -> Particles:
+    """Replace a `ratio` fraction of particles (a float or a 0-d tensor on
+    the particles' device) with uniform poses over free space: a particle
+    is replaced iff its select draw is below `ratio` AND its drawn cell is
+    free, so a draw that lands on a blocked cell keeps the original
+    particle (the realized ratio is slightly lower near clutter). `draws`
+    injects (u, i, j, theta) as `injection_draws` returns them."""
+    n = particles.n
+    h, w = blocked.shape
+    if draws is None:
+        draws = injection_draws(n, (h, w), generator=generator,
+                                device=particles.pose.x.device)
+    u, i, j, theta = draws
+    free = ~blocked[i.long(), j.long()]
+    use = (u < ratio) & free
+    x, y = gridlib.cell_to_world((h, w), i, j)
+    pp = particles.pose
+    return particles.replace(pose=Pose(
+        x=torch.where(use, x, pp.x),
+        y=torch.where(use, y, pp.y),
+        theta=torch.where(use, theta, pp.theta),
+    ))

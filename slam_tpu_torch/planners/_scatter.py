@@ -9,7 +9,8 @@
     a target is the one that stays; CUDA's scatter keeps an arbitrary one.
     Writing only the last lane per target makes both devices agree with
     JAX, and makes several arrays scattered to one target take their
-    values from the same lane.
+    values from the same lane. `last_lanes` gives that lane per target,
+    for a scatter in which every lane writes its target's winning value.
 """
 
 from __future__ import annotations
@@ -47,10 +48,19 @@ def set_drop_(a: torch.Tensor, idx: torch.Tensor, v) -> torch.Tensor:
     return a
 
 
+def last_lanes(won: torch.Tensor, tgt: torch.Tensor, n: int) -> torch.Tensor:
+    """int64[n]: for each target in [0, n) of a 1-D scatter to `tgt`, the
+    last of the `won` lanes that scatter to it, or -1 where none does.
+    Every lane scatters to its own target (the lanes that did not win
+    offer -1, which never wins), so no slot collects the losers: on CUDA
+    such a slot serializes their atomics."""
+    lane = torch.arange(tgt.numel(), device=tgt.device)
+    top = torch.full((n,), -1, dtype=torch.int64, device=tgt.device)
+    return top.scatter_reduce(0, tgt.long(), torch.where(won, lane, -1), "amax")
+
+
 def last_writer(won: torch.Tensor, tgt: torch.Tensor, n: int) -> torch.Tensor:
     """bool mask of the lanes of a 1-D scatter to `tgt` (in [0, n)) that
     write: among the `won` lanes of each target, the last one."""
     lane = torch.arange(tgt.numel(), device=tgt.device)
-    top = torch.full((n + 1,), -1, dtype=torch.int64, device=tgt.device)
-    top = top.scatter_reduce(0, torch.where(won, tgt, n), lane, "amax")
-    return won & (top[tgt] == lane)
+    return won & (last_lanes(won, tgt, n)[tgt] == lane)

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from slam_tpu_torch.core.types import Particles, Pose, Scan
-from slam_tpu_torch.models.mcl import MCLState, init
+from slam_tpu_torch.models.mcl import MCLState, init, make_generator
+from slam_tpu_torch.models.rbpf import RBPFState
 from slam_tpu_torch.models.slam import SLAMState
 from slam_tpu_torch.ops.rayfield import RayField
 from slam_tpu_torch.planners.hastar import HAState, LatticeState
@@ -49,13 +50,33 @@ def scan(angles, dists, device=None) -> Scan:
 
 
 def mcl_state(p: Particles, best: Pose, mode: Pose, step: int, updates: int,
-              seed: int) -> MCLState:
+              seed: int, log_w_slow=None, log_w_fast=None) -> MCLState:
     """An MCLState from carried-over parts; `seed` stands in for the JAX
-    key (the two RNG streams never agree, so tests inject draws)."""
+    key (the two RNG streams never agree, so tests inject draws). The
+    adaptive-injection EMAs `log_w_slow` / `log_w_fast` (f32 scalars) stay
+    NaN, "no update yet", when None."""
     st = init(seed, p.n, best)
+    emas = {}
+    for name, v in (("log_w_slow", log_w_slow), ("log_w_fast", log_w_fast)):
+        if v is not None:
+            emas[name] = tensor(np.float32(v), p.pose.x.device)
     return st.replace(
         particles=p, best_pose=best, mode_pose=mode, step=int(step),
-        updates=int(updates),
+        updates=int(updates), **emas,
+    )
+
+
+def rbpf_state(p: Particles, maps, best: Pose, best_map_idx: int, step: int,
+               seed: int) -> RBPFState:
+    """An RBPFState from the JAX state's parts: the u8[N, H, W] `maps` as
+    a numpy array, the particles and best pose as port objects on one
+    device, `best_map_idx` and the step counter; `seed` stands in for the
+    JAX key, as in `mcl_state`. The maps go to the particles' device."""
+    dev = p.pose.x.device
+    return RBPFState(
+        particles=p, maps=tensor(maps, dev, torch.uint8), generator=make_generator(seed, dev),
+        best_pose=best, best_map_idx=torch.tensor(int(best_map_idx), device=dev),
+        step=int(step),
     )
 
 

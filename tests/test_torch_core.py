@@ -21,11 +21,13 @@ from slam_tpu_torch.core import config as tcfg
 from slam_tpu_torch.core import grid as tgrid
 from slam_tpu_torch.core import stats as tstats
 from slam_tpu_torch.core.device import entry_device
-from slam_tpu_torch.core.types import Pose
+from slam_tpu_torch.core.types import Box, Pose, Velocity
 from slam_tpu_torch.models.mcl import MCL
+from slam_tpu_torch.models.rbpf import RBPF
 from slam_tpu_torch.models.slam import GridSLAM
 from slam_tpu_torch.ops import lut as tlut
 from slam_tpu_torch.planners import AStar, HybridAStar, RRTStar
+from slam_tpu_torch.utils import convert
 from torch_port import np_
 
 REPO = Path(__file__).resolve().parent.parent
@@ -156,6 +158,54 @@ def test_stats_match(rng):
                                    rtol=1e-5, atol=1e-5)
 
 
+def test_triangular_and_blocked_helpers_match(rng):
+    """pdf_triangular to rtol 1e-6; sample_normal / sample_triangular with
+    JAX's own draws injected to 1e-6; the blocked-mask helpers exact;
+    random_cell with JAX's dtype, support and means (5 sigma); Velocity
+    and Box carry their fields."""
+    import jax
+
+    x = rng.uniform(-20, 20, 3000).astype(np.float32)
+    for sd in (2.0, 5.0):
+        np.testing.assert_allclose(np_(tstats.pdf_triangular(sd, torch.from_numpy(x))),
+                                   np_(jstats.pdf_triangular(sd, jnp.asarray(x))),
+                                   rtol=1e-6, atol=1e-9)
+    key = jax.random.key(3)
+    want = jstats.sample_normal(key, 2.5, (500,))
+    got = tstats.sample_normal(2.5, noise=convert.tensor(jax.random.normal(key, (500,))))
+    np.testing.assert_allclose(np_(got), np_(want), rtol=1e-6, atol=1e-6)
+    k1, k2 = jax.random.split(key)
+    u = tuple(convert.tensor(jax.random.uniform(k, (500,), minval=-1.0, maxval=1.0))
+              for k in (k1, k2))
+    np.testing.assert_allclose(np_(tstats.sample_triangular(1.5, u=u)),
+                               np_(jstats.sample_triangular(key, 1.5, (500,))), rtol=1e-6, atol=1e-6)
+    g = torch.Generator().manual_seed(0)
+    assert tstats.sample_triangular(1.0, (4000,), generator=g).abs().max() <= 1.0 + 6 ** 0.5 / 2
+    # random_cell: the same dtype and half-open support as JAX's, and the
+    # same per-axis means within 5 sigma over 4000 draws of each.
+    m = 4000
+    ti, tj = (torch.stack(v).numpy() for v in zip(*(
+        tstats.random_cell((7, 9), generator=g) for _ in range(m))))
+    ji, jj = (np.asarray(v) for v in jax.vmap(lambda k: jstats.random_cell(k, (7, 9)))(
+        jax.random.split(jax.random.key(5), m)))
+    assert ti.dtype == ji.dtype == np.int32
+    for t_, j_, n_ in ((ti, ji, 7), (tj, jj, 9)):
+        assert set(t_.tolist()) == set(j_.tolist()) == set(range(n_))
+        sd = math.sqrt((n_ * n_ - 1) / 12.0 * 2.0 / m)  # std of the mean gap
+        assert abs(t_.mean() - j_.mean()) < 5.0 * sd
+    pf = rng.uniform(0, 1, (20, 30)).astype(np.float32)
+    u8 = rng.integers(0, 256, (20, 30)).astype(np.uint8)
+    b = rng.integers(0, 2, (20, 30)).astype(np.int32)
+    for tf, jf, v in ((tgrid.blocked_from_prob_free, jgrid.blocked_from_prob_free, pf),
+                      (tgrid.blocked_from_u8, jgrid.blocked_from_u8, u8),
+                      (tgrid.blocked_from_binary, jgrid.blocked_from_binary, b)):
+        np.testing.assert_array_equal(tf(torch.from_numpy(v)).numpy(), np.asarray(jf(jnp.asarray(v))))
+    vel = Velocity.create(1.5, -0.25)
+    assert vel.v.dtype == torch.float32 and float(vel.w) == -0.25
+    box = Box(1, 2, 3, 4)
+    assert (box.start_i, box.start_j, box.stop_i, box.stop_j) == (1, 2, 3, 4)
+
+
 _IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|flax|slam_tpu)(\.|\s|$)", re.M)
 
 
@@ -168,7 +218,8 @@ def test_port_sources_import_no_jax():
 
 def test_import_without_jax():
     """With jax (and the JAX package) unimportable, the port's main paths
-    (MCL, SLAM, the planners) still import."""
+    (MCL, SLAM, the RBPF, scan matching, the simulator, diagnostics, the
+    planners) still import."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -181,6 +232,10 @@ def test_import_without_jax():
         "import slam_tpu_torch.planners.rrtstar, slam_tpu_torch.ops.spatial\n"
         "from slam_tpu_torch.planners import AStar, HybridAStar, RRTStar\n"
         "import slam_tpu_torch.ops._build\n"
+        "import slam_tpu_torch.models.rbpf, slam_tpu_torch.ops.scanmatch\n"
+        "import slam_tpu_torch.models.simulate, slam_tpu_torch.utils.diagnostics\n"
+        "import slam_tpu_torch.tools.global_loc_bench\n"
+        "from slam_tpu_torch.models.rbpf import RBPF\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -191,6 +246,7 @@ def test_import_without_jax():
 ENTRY_POINTS = {
     "MCL": lambda **kw: MCL(tcfg.MCLConfig(), **kw),
     "GridSLAM": lambda **kw: GridSLAM(tcfg.SLAMConfig(), **kw),
+    "RBPF": lambda **kw: RBPF(tcfg.MCLConfig(n_particles=4), **kw),
     "AStar": lambda **kw: AStar(np.ones((16, 16), bool), (1, 1), (9, 9), **kw),
     "RRTStar": lambda **kw: RRTStar(np.ones((16, 16), bool), (1.0, 1.0), (9.0, 9.0), **kw),
     "HybridAStar": lambda **kw: HybridAStar(

@@ -180,7 +180,8 @@ def test_uninformative_update_falls_back_to_mode_pose():
 
 def test_mcl_wrapper_and_mean_pose():
     """The MCL class runs the step on its device, and mean_pose matches
-    the JAX circular mean; unported options raise."""
+    the JAX circular mean; adaptive injection runs and the unported hooks
+    raise."""
     lidar, jrc, trc, jcfg, tc = _configs(n_particles=512)
     blocked = room(H, W)
     m = tmcl.MCL(tc, trc, seed=3, device="cpu")
@@ -203,8 +204,11 @@ def test_mcl_wrapper_and_mean_pose():
         step=jnp.int32(0), updates=jnp.int32(0)))
     _assert_pose_close(tmcl.mean_pose(state), jm, 1e-4)
 
-    for bad in (dict(adaptive=tcfg.AdaptiveConfig()), dict(measurement="likelihood_field_auto")):
-        with pytest.raises(NotImplementedError):
-            tmcl.update(state, scan, field, dataclasses.replace(tc, **bad), trc)
-    with pytest.raises(NotImplementedError):
-        tmcl.update(state, scan, field, tc, trc, resample_fn=lambda p: p)
+    # Adaptive injection runs now (tests/test_torch_globalloc.py); the
+    # sharded engines' hooks stay unported (item 14).
+    st = tmcl.update(state, scan, field, dataclasses.replace(tc, adaptive=tcfg.AdaptiveConfig()),
+                     trc)
+    assert torch.isfinite(st.log_w_slow) and torch.isfinite(st.log_w_fast)
+    for hook in ("resample_fn", "measurement_fn", "ray_sharding"):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            tmcl.update(state, scan, field, tc, trc, **{hook: lambda p: p})

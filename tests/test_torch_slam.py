@@ -228,18 +228,20 @@ def test_init_rebuild_predict_and_wrapper():
 
 
 def test_unported_options_raise():
+    """What stays unported raises, naming its item (`resample_fn`: item
+    14), and a missing EDT cache is a ValueError. Scan matching and the
+    auto tier run now (tests/test_torch_scanmatch.py,
+    tests/test_torch_globalloc.py)."""
     ts = tslam.init(0, _make(tc))
     odom, scan = Odometry.create(*ODOM), t_scan(_scans(1)[0])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tslam.step(ts, odom, scan, _make(tc, scanmatch=tc.ScanMatchConfig()))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tslam.GridSLAM(_make(tc, mcl={"measurement": "likelihood_field_auto"}), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tslam.step(ts, odom, scan, _make(tc, mcl={"measurement": "likelihood_field_auto"}))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 14"):
         tslam.step(ts, odom, scan, _make(tc), resample_fn=lambda p: p)
     with pytest.raises(ValueError, match="EDT cache"):
         tslam.step(ts, odom, scan, _make(tc, edt_box=80))
+    auto = tslam.GridSLAM(_make(tc, mcl={"measurement": "likelihood_field_auto"}), device="cpu")
+    assert isinstance(auto._auto, tslam.AutoTierDispatcher)
+    out = tslam.step(ts, odom, scan, _make(tc, scanmatch=tc.ScanMatchConfig()))
+    assert torch.isfinite(out.est_pose.x) and torch.isfinite(out.est_pose.y)
 
 
 def test_metrics_copy_matches():
