@@ -5,7 +5,9 @@ kernels each against its plain version, the 1M-particle full SLAM step,
 the planners of `benchmarks/suite.py` (lattice and continuous Hybrid A*,
 RRT*, the spatial queries) with the sdf ray backend, and the filter's
 features: 1M-particle global localization, the auto measurement tier,
-kidnap recovery, scan matching and the per-particle-map RBPF.
+kidnap recovery, scan matching and the per-particle-map RBPF; the maze
+through the compressed ray table (CDDT), the multi-robot fleet through one
+batched launch of the fused kernel, and the apps.
 
     python3 chip_smoke.py
 
@@ -90,6 +92,25 @@ raises, so the exit code is nonzero):
               (777 MB of u8 maps), 30 steps: ATE, ms/step, peak memory,
               profile; one N = 8 step card vs CPU (maps bit for bit,
               weights 1e-5, best_map_idx)
+ 20. maze       `benchmarks/maze_bench.py` through the port's tool: the 2400
+              px procedural maze's CDDT built on the card == the CPU's build
+              bit for bit (K > 64: binary search), the dense u8 table beside
+              it, CDDT vs dense queries on 100k rays (angle ties counted),
+              the 10k-particle MCL step and 60-step ATE through both tables,
+              the fused kernel on the u8 table's step vs its plain version;
+              the 7000 px beyond-memory demo through the CDDT (K <= 64:
+              masked min)
+ 21. fleet      `benchmarks/fleet_bench.py` through the port's tool: the fused
+              kernel with a robot axis == one-robot launches bit for bit (R =
+              1, 4), whole fleet steps == independent filters bit for bit (R =
+              1, 4, 16), R = 1, 4, 8, 16 x 100k (one lut_weights launch a fleet
+              step), the kernel at 16 x 100k vs its plain version (poses == K1's
+              per robot, weights within phase 6's tolerance) and beside its
+              bound, the fleet_localization app
+ 22. apps       the apps on the floor plan's PNG: grid_slam's quick start, a
+              --checkpoint-dir run cut in two == an uninterrupted one,
+              slam_replan at 100k particles, the A*, HA*, RRT*, nearest-
+              neighbour and regions apps
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device; without one it
@@ -215,6 +236,35 @@ SM_ITERS = 10
 RBPF_PARTICLES = 1000
 RBPF_STEPS = 30
 RBPF_ATE_PX = 5.0
+# Phase 20: `benchmarks/maze_bench.py` through the port's tool on its
+# procedural maze (MAZE_SIZE px, walls every MAZE_PITCH) and its
+# beyond-memory demo (BIG_SIZE, BIG_PITCH), 10k particles, 60 ATE steps.
+# CDDT_AGREE is the JAX package's own bound for CDDT against the dense
+# table (`tests/test_rayfield.py:175`); MAZE_ATE_PX the JAX tool's
+# expected tracking error (<= 1 px).
+MAZE_SIZE = 2400
+MAZE_PITCH = 40
+BIG_SIZE = 7000
+BIG_PITCH = 400
+MAZE_PARTICLES = 10_000
+MAZE_STEPS = 60
+MAZE_RAYS = 100_000
+CDDT_AGREE = 0.995
+MAZE_ATE_PX = 1.0
+# Phase 21: `benchmarks/fleet_bench.py` through the port's tool. Fleets of
+# 4 and FLEET_CHECK_R robots equal as many independent filters bit for bit
+# over three whole steps. FLEET_APP_ATE_PX is the JAX app test's bound
+# (`tests/test_apps.py:170`).
+FLEET_N = 100_000
+FLEET_ROBOTS = (1, 4, 8, 16)
+FLEET_CHECK_R = 16
+FLEET_ITERS = 10
+FLEET_SEED = 7
+FLEET_APP_ATE_PX = 10.0
+# Phase 22: the apps. GRID_SLAM_ATE_PX is the JAX app test's bound
+# (`tests/test_apps.py:27`); the checkpoint runs take CKPT_STEPS steps.
+GRID_SLAM_ATE_PX = 30.0
+CKPT_STEPS = 40
 
 
 def check(cond, msg: str) -> None:
@@ -268,26 +318,31 @@ def profiled(fn, iters: int = 20, warmup: int = 3):
     """({kernel name: [device ms per call, launches per call]}, ms per
     call) of `fn` over `iters` calls after `warmup` calls: the kernels from
     torch.profiler, the ms from CUDA events around the same calls (the
-    profiler's host cost included)."""
+    profiler's host cost included). A session whose trace comes back
+    without any CUDA kernel (seen once in ~200 sessions of one run) is
+    repeated once."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(iters):
-            fn()
-        stop.record()
+    for _ in range(2):
         torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0:
-            row = by_name.setdefault(e.name, [0.0, 0.0])
-            row[0] += e.device_time / 1e3 / iters
-            row[1] += 1 / iters
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(iters):
+                fn()
+            stop.record()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0:
+                row = by_name.setdefault(e.name, [0.0, 0.0])
+                row[0] += e.device_time / 1e3 / iters
+                row[1] += 1 / iters
+        if by_name:
+            break
     check(by_name, "the profiler saw no CUDA kernels")
     return by_name, start.elapsed_time(stop) / iters
 
@@ -704,6 +759,39 @@ def plain_lut_weights(lut, poses, scan, cfg, max_dist: float):
         lut_dtype=lut.dtype, max_dist=max_dist, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon)
 
 
+def hold_fused_to_plain(lut, poses, scan, cfg, max_dist: float, seed, odom, alphas,
+                        label: str) -> dict:
+    """The fused kernel's predict -> weigh launch on one filter's `poses`
+    against its plain composition, as in phase 6: its poses == K1's for
+    the same seed (int64 [1]) and host odometry bit for bit, its weights
+    within a relative LW_RTOL of the plain LUT weights of those poses on
+    LW_SHARE of the particles, the same best particle. Returns the share,
+    the count outside, max |diff|, the best particle and the distinct
+    panorama cells."""
+    from slam_tpu_torch.ops import lut_weights_cuda, measurement, motion_cuda
+
+    pk, lwk = lut_weights_cuda.launch(
+        lut, lut.shape[-1], poses, scan, beam_stride=cfg.lut_beam_stride,
+        displacement=measurement.scanner_displacement(cfg.scanner_offset),
+        max_dist=max_dist, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon,
+        motion=(seed, motion_cuda.odometry_rows(odom, lut.device), alphas))
+    p1 = motion_cuda.launch(seed, odom, poses, alphas)
+    for f in ("x", "y", "theta"):
+        check(torch.equal(getattr(pk, f).view(torch.int32), getattr(p1, f).view(torch.int32)),
+              f"lut_weights poses != K1's for the same seed ({f}; {label})")
+    pidx, lwp = plain_lut_weights(lut, p1, scan, cfg, max_dist)
+    diff = (lwk - lwp).abs()
+    close = diff <= LW_RTOL * lwp.abs()
+    share = float(close.float().mean())
+    arg_k, arg_p = int(torch.argmax(lwk)), int(torch.argmax(lwp))
+    check(bool(torch.isfinite(lwk).all()), f"lut_weights non-finite ({label})")
+    check(share >= LW_SHARE, f"lut_weights {label}: {share} within {LW_RTOL} < {LW_SHARE}")
+    check(arg_k == arg_p, f"lut_weights {label}: best particle {arg_k} != plain {arg_p}")
+    return {"within_rtol_share": share, "outside": int((~close).sum()),
+            "max_abs_diff": float(diff.max()), "best_particle": arg_k,
+            "distinct_cells": int(torch.unique(pidx).numel())}
+
+
 def clone_generator(g: torch.Generator) -> torch.Generator:
     c = torch.Generator(device=g.device)
     c.set_state(g.get_state())
@@ -789,21 +877,10 @@ def globalloc_phase(dev, blocked_np, field, counts) -> dict:
                displacement=measurement.scanner_displacement(cfg.scanner_offset),
                max_dist=rc.max_dist, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon)
     sd = torch.tensor([13], dtype=torch.int64, device=dev)
-    motion_args = (sd, cmds[0], alphas)
-    pk, lwk = fused(field.lut, 360, p, scans0[0], motion=motion_args, **wkw)
-    p1 = motion_cuda.launch(sd, cmds[0], p, alphas)
-    for f in ("x", "y", "theta"):
-        check(torch.equal(getattr(pk, f).view(torch.int32), getattr(p1, f).view(torch.int32)),
-              f"lut_weights poses != K1's on the 1M uniform cloud ({f})")
-    pidx, lwp = plain_lut_weights(field.lut, p1, scans0[0], cfg, rc.max_dist)
-    diff = (lwk - lwp).abs()
-    close = diff <= LW_RTOL * lwp.abs()
-    share_close = float(close.float().mean())
-    arg_k, arg_p = int(torch.argmax(lwk)), int(torch.argmax(lwp))
-    check(bool(torch.isfinite(lwk).all()), "lut_weights non-finite on the 1M uniform cloud")
-    check(share_close >= LW_SHARE, f"lut_weights 1M uniform: {share_close} within {LW_RTOL}")
-    check(arg_k == arg_p, f"lut_weights 1M uniform: best particle {arg_k} != plain {arg_p}")
-    cells = int(torch.unique(pidx).numel())
+    held = hold_fused_to_plain(field.lut, p, scans0[0], cfg, rc.max_dist, sd, cmds[0], alphas,
+                               "1M uniform cloud")
+    motion_args = (sd, motion_cuda.odometry_rows(cmds[0], dev), alphas)
+    cells = held["distinct_cells"]
     n_beams = scans0[0].angles.shape[0]
     lw_bound = bound(n * (12 + 12 + 4) + cells * n_beams * 2 + n_beams * 8 + 8,
                      n * (OPS_SAMPLE + OPS_LOCATE + n_beams * OPS_BEAM))
@@ -813,9 +890,7 @@ def globalloc_phase(dev, blocked_np, field, counts) -> dict:
         field.lut, motion_cuda.launch(sd, cmds[0], p, alphas), scans0[0], cfg, rc.max_dist),
         iters=5, warmup=1)[0]
     out["lut_weights_1m_uniform"] = {
-        "within_rtol_share": share_close, "outside": int((~close).sum()),
-        "max_abs_diff": float(diff.max()), "best_particle": arg_k, "distinct_cells": cells,
-        "ms": k_ms, "plain_ms": plain_ms, "bound_ms": lw_bound[0], "bound_by": lw_bound[1],
+        **held, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": lw_bound[0], "bound_by": lw_bound[1],
         "bound_share": lw_bound[0] / k_ms}
     say("globalloc", f"init_uniform {out['init_uniform']}; lut_weights at step 1 of the "
         f"{n} uniform cloud: poses == K1's bit for bit; {json.dumps(out['lut_weights_1m_uniform'])}")
@@ -1270,6 +1345,496 @@ def rbpf_phase(dev, blocked_np, counts) -> dict:
     return out
 
 
+def maze_phase(dev, counts) -> dict:
+    """Phase 20: the maze through the compressed ray table and the dense
+    one, driven by `slam_tpu_torch/tools/maze_bench.py`. The procedural
+    maze of MAZE_SIZE px: the CDDT built on the card equal bit for bit to
+    the port's CPU build (K > 64 there: the binary-search branch); the
+    dense u8 table beside it; CDDT queries against the dense table's on
+    MAZE_RAYS random rays; the tool's 10k-particle MCL step through both
+    tables (ms, device ms, launches, busy share) and its 60-step ATE; on
+    the u8 table the fused kernel on the step's cloud against its plain
+    version (poses == K1's, weights within phase 6's tolerance). Then
+    the tool's beyond-memory demo (BIG_SIZE px, pitch BIG_PITCH) through
+    the CDDT alone (K <= 64: the masked-min branch)."""
+    from slam_tpu_torch.core.config import RaycastConfig
+    from slam_tpu_torch.core.types import Odometry, Pose
+    from slam_tpu_torch.models import fake_lidar
+    from slam_tpu_torch.models import mcl as mcl_mod
+    from slam_tpu_torch.ops import cddt as cddtlib
+    from slam_tpu_torch.ops import lut as lutlib
+    from slam_tpu_torch.ops import lut_weights_cuda, measurement, motion, motion_cuda
+    from slam_tpu_torch.tools import maze_bench as mb
+
+    reset_counts, read_counts = counts
+    launches = {"gather_rows": 0, "motion_odometry": 0, "lut_weights": 0}
+    out = {}
+
+    def mcl_run(blocked_np, field, backend, start):
+        """The tool's timed step and ATE run, their launches and a profile
+        of one step."""
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, st = mb.step_ms(blocked_np, field, backend, start, MAZE_PARTICLES, iters=20,
+                            device=dev)
+        ate = mb.localization_ate(blocked_np, field, backend, start, MAZE_PARTICLES,
+                                  steps=MAZE_STEPS, device=dev)
+        c = read_counts()
+        for k_ in launches:
+            launches[k_] += c[k_]
+        lidar, rc, cfg = mb.configs(backend, MAZE_PARTICLES)
+        pose = st.particles.pose
+        scan = fake_lidar.scan(field.blocked, Pose.create(*start, device=dev), lidar,
+                               RaycastConfig(max_dist=500.0))
+        box = [st]
+        odom = Odometry.create(0.05, 1.0, 0.05)
+        held = {}
+        if backend == "lut":
+            sd = torch.tensor([17], dtype=torch.int64, device=dev)
+            held = hold_fused_to_plain(field.lut, pose, scan, cfg, rc.max_dist, sd, odom,
+                                       mb.ALPHAS, f"maze {MAZE_SIZE} u8")
+            motion_args = (sd, motion_cuda.odometry_rows(odom, dev), mb.ALPHAS)
+            wkw = dict(beam_stride=cfg.lut_beam_stride,
+                       displacement=measurement.scanner_displacement(cfg.scanner_offset),
+                       max_dist=rc.max_dist, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon)
+            held["ms"] = device_ms(lambda: lut_weights_cuda.launch(
+                field.lut, field.lut.shape[-1], pose, scan, motion=motion_args, **wkw))[0]
+            gp = mcl_mod.make_generator(18, dev)
+            held["plain_ms"] = device_ms(lambda: plain_lut_weights(
+                field.lut, motion.sample_motion_model_odometry(odom, pose, mb.ALPHAS,
+                                                               generator=gp),
+                scan, cfg, rc.max_dist))[0]
+            say("maze", f"lut_weights on the u8 table, {MAZE_PARTICLES} particles: poses == "
+                f"K1's bit for bit; {json.dumps(held)}")
+
+        def advance():
+            box[0] = mcl_mod.step(box[0], odom, mb.ALPHAS, scan, field, cfg, rc)
+
+        prof = step_profile(advance, iters=5, warmup=1)
+        check(bool(torch.isfinite(pose.x).all()), f"maze {backend}: non-finite poses")
+        check(ate < MAZE_ATE_PX, f"maze {backend}: ATE {ate} px >= {MAZE_ATE_PX}")
+        return {"ms_per_step": ms, "ate_px": ate, "launches": c, **prof,
+                **({"lut_weights_vs_plain": held} if held else {})}
+
+    # The MAZE_SIZE maze: CDDT on the card and on the CPU, dense u8 beside.
+    maze = mb.procedural_maze(MAZE_SIZE, MAZE_PITCH)
+    h, w = maze.shape
+    start = (*mb.find_start(maze, dev), 0.9)
+    field_c, cddt_s, desc = mb.build_field(maze, "cddt", device=dev)
+    tab = field_c.cddt
+    check(tab.n_overflow == 0, "maze cddt dropped runs")
+    t0 = time.perf_counter()
+    cpu_tab = cddtlib.build_cddt(torch.from_numpy(maze), 360, k=tab.k)
+    cpu_s = time.perf_counter() - t0
+    differ = int((cpu_tab.starts != tab.starts.cpu()).sum() + (cpu_tab.ends != tab.ends.cpu()).sum())
+    say("maze", f"{desc} built in {cddt_s:.2f} s on the card; the CPU's build at K={tab.k} "
+        f"took {cpu_s:.1f} s; {differ} entries differ")
+    check(cpu_tab.n_overflow == 0 and differ == 0, "maze cddt: the card's table != the CPU's")
+    field_l, lut_s, lut_desc = mb.build_field(maze, "lut", device=dev)
+    out["maze"] = {"size": MAZE_SIZE, "pitch": MAZE_PITCH, "d": tab.d, "k": tab.k,
+                   "branch": "binary search" if tab.k > 64 else "masked min",
+                   "cddt_mib": tab.nbytes / 2**20, "cddt_build_s": cddt_s,
+                   "cpu_build_s_at_k": cpu_s, "card_equals_cpu": True,
+                   "dense_u8_gb": field_l.lut.numel() / 1e9, "dense_build_s": lut_s}
+    say("maze", f"the card's table == the CPU's bit for bit; {lut_desc} built in "
+        f"{lut_s:.2f} s")
+
+    # CDDT queries against the dense u8 table's: the dense value is the
+    # CDDT distance encoded to its u8 code and decoded, except where an
+    # angle tie puts the ray in another canvas row.
+    g = mcl_mod.make_generator(20, dev)
+    x = torch.rand(MAZE_RAYS, generator=g, device=dev) * w
+    y = torch.rand(MAZE_RAYS, generator=g, device=dev) * h
+    th = (torch.rand(MAZE_RAYS, generator=g, device=dev) * 2 - 1) * math.pi
+    dc, hc = cddtlib.raycast_cddt(tab, x, y, th, max_dist=500.0, shape=(h, w))
+    dl, hl = lutlib.raycast_lut(field_l.lut, x, y, th, max_dist=500.0)
+    q = torch.tensor(np.float32(500.0 * 1.25) * (np.float32(1.0) / np.float32(255.0)),
+                     device=dev)
+    enc = lutlib.dequantize(torch.clamp(torch.floor(dc / q), 0.0, 255.0), torch.uint8, 500.0)
+    agree = (hc == hl) & (~hc | (dl == enc))
+    share = float(agree.float().mean())
+    out["maze"]["queries"] = {"rays": MAZE_RAYS, "agree_share": share,
+                              "ties": int((~agree).sum()), "cddt_hit_share": float(hc.float().mean())}
+    check(share >= CDDT_AGREE, f"maze cddt vs dense u8 queries: {share} agree < {CDDT_AGREE}")
+    say("maze", f"{MAZE_RAYS} random rays, CDDT vs the dense u8 table: {share:.6f} agree "
+        f"({int((~agree).sum())} angle ties)")
+
+    for backend, field in (("lut", field_l), ("cddt", field_c)):
+        out["maze"][backend] = mcl_run(maze, field, backend, start)
+        say("maze", f"{backend}: {json.dumps(out['maze'][backend])}")
+    # The lut route: the timed steps are fused launches; the ATE run's
+    # predict -> update is K1 then the weigh-only kernel. The cddt route:
+    # K1, then the queries in plain torch.
+    c_lut, c_cddt = out["maze"]["lut"]["launches"], out["maze"]["cddt"]["launches"]
+    check(c_lut["lut_weights"] == 23 + MAZE_STEPS and c_lut["motion_odometry"] == MAZE_STEPS,
+          f"maze lut route launches {c_lut}")
+    check(c_cddt["motion_odometry"] == 23 + MAZE_STEPS and c_cddt["lut_weights"] == 0,
+          f"maze cddt route launches {c_cddt}")
+    del field_l, field_c
+    torch.cuda.empty_cache()
+
+    # The beyond-memory demo through the CDDT alone.
+    big = mb.procedural_maze(BIG_SIZE, BIG_PITCH)
+    start_b = (*mb.find_start(big, dev), 0.9)
+    field_b, big_s, big_desc = mb.build_field(big, "cddt", device=dev)
+    tb = field_b.cddt
+    dense_gb = BIG_SIZE * BIG_SIZE * 360 / 1e9
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9  # decimal GB
+    out["big"] = {"size": BIG_SIZE, "pitch": BIG_PITCH, "d": tb.d, "k": tb.k,
+                  "branch": "binary search" if tb.k > 64 else "masked min",
+                  "cddt_mib": tb.nbytes / 2**20, "cddt_build_s": big_s,
+                  "dense_u8_gb_avoided": dense_gb, "card_gb": card_gb,
+                  "dense_would_fit": dense_gb < card_gb,
+                  "cddt": mcl_run(big, field_b, "cddt", start_b)}
+    say("maze", f"beyond-memory demo {BIG_SIZE} px: {big_desc} built in {big_s:.2f} s, "
+        f"against {dense_gb:.1f} GB of dense u8 table, which "
+        f"{'would fit' if dense_gb < card_gb else 'would not fit'} on this {card_gb:.1f} GB "
+        f"card; {json.dumps(out['big']['cddt'])}")
+    branches = {out["maze"]["branch"], out["big"]["branch"]}
+    check(branches == {"binary search", "masked min"},
+          f"the two maps took branches {branches}: both must run")
+    out["launches"] = launches
+    return out
+
+
+def fleet_phase(dev, blocked_np, field, counts, map_png, workdir) -> dict:
+    """Phase 21: the fleet through one launch of the fused kernel a step
+    (`models/fleet.py`), at `slam_tpu_torch/tools/fleet_bench.py`'s
+    configuration on the floor plan's bf16 LUT: the kernel with the robot
+    axis at R = 1 and each robot's slice at R = 4 == a one-robot launch with
+    that robot's seed, odometry and scan, bit for bit; two fleet steps at R
+    = 1 against mcl.step and three at R = 4 and FLEET_CHECK_R against as
+    many independent filters, and the batched resampler's indices against
+    the 1-D one's, all bit for bit; the bench at R in FLEET_ROBOTS (ms,
+    device ms, launches, busy share); the kernel at R x N = 1.6M against
+    its plain version (poses == K1's, weights within phase 6's tolerance)
+    and beside its bound; the fleet_localization app at its defaults on
+    the plan's PNG."""
+    import contextlib
+    import io
+    import re
+
+    from slam_tpu_torch.apps import fleet_localization
+    from slam_tpu_torch.core.types import Odometry, Pose, Scan
+    from slam_tpu_torch.models import fleet
+    from slam_tpu_torch.models import mcl as mcl_mod
+    from slam_tpu_torch.ops import lut_weights_cuda, measurement, motion, motion_cuda
+    from slam_tpu_torch.ops import resample as resample_mod
+    from slam_tpu_torch.tools import fleet_bench as fb
+
+    def bits_equal(a, b) -> bool:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    reset_counts, read_counts = counts
+    fused = lut_weights_cuda.launch
+    launches = {"gather_rows": 0, "motion_odometry": 0, "lut_weights": 0}
+    blocked = torch.from_numpy(blocked_np).to(dev)
+    n = FLEET_N
+    lidar, rc, cfg = fb.configs(n)
+    alphas = fb.ALPHAS
+    out = {"particles": n, "lut_mb": field.lut.numel() * field.lut.element_size() / 1e6}
+    wkw = dict(beam_stride=cfg.lut_beam_stride,
+               displacement=measurement.scanner_displacement(cfg.scanner_offset),
+               max_dist=rc.max_dist, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon)
+
+    def share_differing(a, b) -> dict:
+        """Per field, the share of particles whose bits differ between two
+        single-filter states."""
+        pa, pb = a.particles, b.particles
+        return {f: float((u.view(torch.int32) != v.view(torch.int32)).float().mean())
+                for f, u, v in (("x", pa.pose.x, pb.pose.x), ("y", pa.pose.y, pb.pose.y),
+                                ("theta", pa.pose.theta, pb.pose.theta),
+                                ("log_weight", pa.log_weight, pb.log_weight))}
+
+    def robot_scan(scans, q):
+        return Scan(angles=scans.angles[q], dists=scans.dists[q])
+
+    rng = np.random.default_rng(21)
+    odom0 = Odometry.create(*fb.ODOM)
+
+    def host_odom(odoms, q):
+        return Odometry.create(float(odoms.rot1[q]), float(odoms.trans[q]),
+                               float(odoms.rot2[q]))
+
+    # The kernel with the robot axis: at R = 1 and, per robot, at R = 4,
+    # equal bit for bit to a one-robot launch with that robot's seed,
+    # odometry and scan.
+    poses4, odoms4, scans4 = fb.fleet_inputs(blocked, 4, lidar, cfg, rng)
+    cloud = fleet.fleet_step(fleet.init_fleet(FLEET_SEED, 4, n, poses4), odoms4, scans4,
+                             field, alphas, cfg, rc).particles.pose
+    odo4 = Odometry.create([0.02, 0.3, -0.1, 0.0], [2.5, 1.0, 3.0, 0.5], [0.02, -0.2, 0.1, 0.0])
+    seeds4 = torch.tensor([5, 6, 7, 8], dtype=torch.int64, device=dev)
+    for r in (1, 4):
+        sub = Pose(x=cloud.x[:r].contiguous(), y=cloud.y[:r].contiguous(),
+                   theta=cloud.theta[:r].contiguous())
+        sub_scans = Scan(angles=scans4.angles[:r].contiguous(), dists=scans4.dists[:r].contiguous())
+        sub_odo = Odometry(rot1=odo4.rot1[:r], trans=odo4.trans[:r], rot2=odo4.rot2[:r])
+        pk, lwk = fused(field.lut, 360, sub, sub_scans, motion=(
+            seeds4[:r], motion_cuda.odometry_rows(sub_odo, dev), alphas), **wkw)
+        for q in range(r):
+            oq = motion_cuda.odometry_rows(host_odom(odo4, q), dev)
+            p1, lw1 = fused(field.lut, 360, fleet._row(sub, q), robot_scan(sub_scans, q),
+                            motion=(seeds4[q:q + 1], oq, alphas), **wkw)
+            check(all(bits_equal(getattr(pk, f)[q], getattr(p1, f)) for f in ("x", "y", "theta"))
+                  and bits_equal(lwk[q], lw1),
+                  f"fleet kernel at R={r}: robot {q} != its one-robot launch")
+    out["kernel_r1_r4_equal_one_robot_launches"] = True
+
+    # Whole steps on the same generators: a fleet of 1 against mcl.step
+    # (two steps), and fleets of 4 and 16 against as many independent
+    # filters (three steps): poses, weights and the batched resampler's
+    # indices, all equal bit for bit (the resampler's f64 prefix sum).
+    fs1 = fleet.init_fleet(FLEET_SEED, 1, n,
+                           Pose(x=poses4.x[:1], y=poses4.y[:1], theta=poses4.theta[:1]))
+    ss = mcl_mod.init(mcl_mod.make_generator(fleet.fleet_seeds(FLEET_SEED, 1)[0], dev), n,
+                      fleet._row(poses4, 0))
+    sc1 = Scan(angles=scans4.angles[:1], dists=scans4.dists[:1])
+    od1 = Odometry(rot1=odoms4.rot1[:1], trans=odoms4.trans[:1], rot2=odoms4.rot2[:1])
+    for _ in range(2):
+        fs1 = fleet.fleet_step(fs1, od1, sc1, field, alphas, cfg, rc)
+        ss = mcl_mod.step(ss, odom0, alphas, robot_scan(scans4, 0), field, cfg, rc)
+    vs = {"r1_two_steps_vs_mcl_step": share_differing(fleet.robot(fs1, 0), ss)}
+    idx_share = {}
+    for r, (pr, odr, scr) in ((4, (poses4, odoms4, scans4)),
+                              (FLEET_CHECK_R, fb.fleet_inputs(blocked, FLEET_CHECK_R, lidar,
+                                                              cfg, rng))):
+        fs = fleet.init_fleet(FLEET_SEED, r, n, pr)
+        singles = [mcl_mod.init(mcl_mod.make_generator(s, dev), n, fleet._row(pr, q))
+                   for q, s in enumerate(fleet.fleet_seeds(FLEET_SEED, r))]
+        for _ in range(3):
+            fs = fleet.fleet_step(fs, odr, scr, field, alphas, cfg, rc)
+            singles = [mcl_mod.step(s, host_odom(odr, q), alphas, robot_scan(scr, q), field,
+                                    cfg, rc) for q, s in enumerate(singles)]
+        vs[f"r{r}_three_steps_vs_{r}_filters"] = [
+            share_differing(fleet.robot(fs, q), s) for q, s in enumerate(singles)]
+        _, lw_r = fused(field.lut, 360, fs.particles.pose, scr, **wkw)
+        u0 = torch.rand(r, generator=mcl_mod.make_generator(4, dev), device=dev)
+        idx_b = resample_mod.systematic_indices(lw_r, u0=u0)
+        idx_1 = torch.stack([resample_mod.systematic_indices(lw_r[q], u0=u0[q])
+                             for q in range(r)])
+        idx_share[r] = float((idx_b != idx_1).float().mean())
+        del fs, singles
+    worst = max(max(d.values()) for v in vs.values() for d in (v if isinstance(v, list) else [v]))
+    out["fleet_vs_independent"] = {**vs, "resample_index_differing_share": idx_share,
+                                   "worst_differing_share": worst}
+    say("fleet", f"the kernel at R=1 and R=4 == one-robot launches bit for bit; "
+        f"{json.dumps(out['fleet_vs_independent'])}")
+    check(max(idx_share.values()) == 0.0,
+          f"batched vs 1-D resampler indices differ: {idx_share}")
+    check(worst == 0.0, f"fleet vs independent filters differ on {worst} of particles")
+
+    # The bench at R in FLEET_ROBOTS: one lut_weights launch a fleet step.
+    out["bench"] = {}
+    for r in FLEET_ROBOTS:
+        poses, odoms, scans = fb.fleet_inputs(blocked, r, lidar, cfg, rng)
+        fl = fleet.MCLFleet(r, cfg, rc, seed=0, device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, states = fb.time_fleet(fl, field, poses, odoms, scans, FLEET_ITERS)
+        c = read_counts()
+        steps = FLEET_ITERS + 3
+        check(c == {"gather_rows": 0, "motion_odometry": 0, "lut_weights": steps},
+              f"fleet R={r}: launches {c} for {steps} fleet steps")
+        for k_ in launches:
+            launches[k_] += c[k_]
+        box = [states]
+
+        def advance():
+            box[0] = fl.step(box[0], odoms, scans, field, alphas)
+
+        prof = step_profile(advance, iters=5, warmup=1)
+        out["bench"][r] = {"metric": f"fleet_mcl_step_ms_r{r}", "ms_per_step": ms,
+                           "particles_total": r * n, **prof}
+        say("fleet", json.dumps(out["bench"][r]))
+
+    # The kernel at R x N = max(FLEET_ROBOTS) x N, as the fleet step
+    # launches it, against its plain version: robot q's poses == K1's with
+    # seed q and its odometry bit for bit, its weights within a relative
+    # LW_RTOL of the plain LUT weights of those poses (phase 6's
+    # tolerance), the same best particle; timed beside its bound.
+    r = max(FLEET_ROBOTS)
+    poses, odoms, scans = fb.fleet_inputs(blocked, r, lidar, cfg, rng)
+    st = fleet.fleet_step(fleet.init_fleet(1, r, n, poses), odoms, scans, field, alphas, cfg, rc)
+    cloud = st.particles.pose
+    seeds = torch.arange(r, dtype=torch.int64, device=dev) + 100
+    motion_args = (seeds, motion_cuda.odometry_rows(odoms, dev), alphas)
+    pk, lwk = fused(field.lut, 360, cloud, scans, motion=motion_args, **wkw)
+    outside, max_diff, pidxs = 0, 0.0, []
+    for q in range(r):
+        p1 = motion_cuda.launch(seeds[q:q + 1], host_odom(odoms, q), fleet._row(cloud, q), alphas)
+        check(all(bits_equal(getattr(pk, f)[q], getattr(p1, f)) for f in ("x", "y", "theta")),
+              f"fleet kernel at R={r}: robot {q}'s poses != K1's")
+        pidx, lwp = plain_lut_weights(field.lut, p1, robot_scan(scans, q), cfg, rc.max_dist)
+        diff = (lwk[q] - lwp).abs()
+        outside += int((diff > LW_RTOL * lwp.abs()).sum())
+        max_diff = max(max_diff, float(diff.max()))
+        pidxs.append(pidx)
+        check(bool(torch.isfinite(lwk[q]).all()), f"fleet kernel at R={r}: robot {q} non-finite")
+        check(int(torch.argmax(lwk[q])) == int(torch.argmax(lwp)),
+              f"fleet kernel at R={r}: robot {q}'s best particle differs from plain")
+    share = 1.0 - outside / (r * n)
+    check(share >= LW_SHARE, f"fleet kernel at R={r}: {share} within {LW_RTOL} < {LW_SHARE}")
+    n_beams = scans.angles.shape[-1]
+    cells = int(torch.unique(torch.cat(pidxs)).numel())  # the robots share the table
+    kb = bound(r * n * (12 + 12 + 4) + cells * n_beams * 2 + r * (n_beams * 8 + 8 + 24),
+               r * n * (OPS_SAMPLE + OPS_LOCATE + n_beams * OPS_BEAM))
+    # CUDA events around back-to-back launches: the kernel (~0.5 ms) far
+    # outlasts the host's enqueue, so this is its device time.
+    k_ms = cuda_ms(lambda: fused(field.lut, 360, cloud, scans, motion=motion_args, **wkw))
+    gp = mcl_mod.make_generator(3, dev)
+    odoms_q = [host_odom(odoms, q) for q in range(r)]
+
+    def plain_fleet():
+        """The plain version, looped over robots: the plain sampler, then
+        the plain LUT weights."""
+        for q in range(r):
+            pq = motion.sample_motion_model_odometry(odoms_q[q], fleet._row(cloud, q), alphas,
+                                                     generator=gp)
+            plain_lut_weights(field.lut, pq, robot_scan(scans, q), cfg, rc.max_dist)
+
+    plain_ms = device_ms(plain_fleet, iters=3, warmup=1)[0]
+    out["kernel_fleet"] = {"robots": r, "particles_total": r * n, "distinct_cells": cells,
+                           "within_rtol_share": share, "outside": outside,
+                           "max_abs_diff": max_diff, "ms": k_ms, "plain_ms": plain_ms,
+                           "bound_ms": kb[0], "bound_by": kb[1], "bound_share": kb[0] / k_ms}
+    say("fleet", f"lut_weights at R x N = {r} x {n}: poses == K1's bit for bit per robot; "
+        f"{json.dumps(out['kernel_fleet'])}")
+
+    # The fleet_localization app at its defaults on the plan's PNG.
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mean_ate = fleet_localization.main(["--map", map_png, "--out",
+                                            f"{workdir}/fleet.png"])
+    app_s = time.perf_counter() - t0
+    c = read_counts()
+    for k_ in launches:
+        launches[k_] += c[k_]
+    ates = [float(a) for a in re.findall(r"robot \d+: ATE ([0-9.]+)px", buf.getvalue())]
+    out["fleet_localization"] = {"robots": len(ates), "ate_px": ates,
+                                 "mean_ate_px": float(mean_ate),
+                                 "seconds": app_s, "launches": c}
+    check(len(ates) == 8 and mean_ate < FLEET_APP_ATE_PX,
+          f"fleet_localization: ATEs {ates} (mean bound {FLEET_APP_ATE_PX} px)")
+    check(c["lut_weights"] == 100, f"fleet_localization launches {c} for 100 fleet steps")
+    say("fleet", f"fleet_localization (8 robots x 10k, 100 steps): {json.dumps(out['fleet_localization'])}")
+    out["launches"] = launches
+    return out
+
+
+def apps_phase(dev, counts, map_png, workdir) -> dict:
+    """Phase 22: the apps on the floor plan's PNG, as users run them:
+    grid_slam at the README's quick start; a --checkpoint-dir run cut in
+    two against an uninterrupted one (their last checkpoints bit for bit);
+    slam_replan at its on-card configuration; the A*, HA*, RRT*,
+    nearest-neighbour and regions apps once each, the planners' paths free
+    of their inflated maps."""
+    import contextlib
+    import io
+    import os
+
+    from slam_tpu_torch.apps import (astar_planner, grid_slam, hastar_planner,
+                                     nearest_neighbor, regions, rrt_planner, slam_replan)
+
+    reset_counts, read_counts = counts
+    launches = {"gather_rows": 0, "motion_odometry": 0, "lut_weights": 0}
+    out = {}
+
+    def run(fn, argv, **kw):
+        """(return value, stdout, seconds, launches) of one app run."""
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            ret = fn(argv, **kw)
+        secs = time.perf_counter() - t0
+        c = read_counts()
+        for k_ in launches:
+            launches[k_] += c[k_]
+        return ret, buf.getvalue(), secs, c
+
+    gif = f"{workdir}/slam.gif"
+    ate, _, secs, c = run(grid_slam.main, ["--map", map_png, "--particles", "1000", "--steps",
+                                           "200", "--out", gif])
+    out["grid_slam"] = {"particles": 1000, "steps": 200, "ate_px": ate, "seconds": secs,
+                        "gif_bytes": os.path.getsize(gif), "launches": c}
+    check(ate < GRID_SLAM_ATE_PX and c["motion_odometry"] == 200,
+          f"grid_slam: ATE {ate} px (bound {GRID_SLAM_ATE_PX}), launches {c}")
+    say("apps", f"grid_slam quick start: {json.dumps(out['grid_slam'])}")
+
+    # --checkpoint-dir: CKPT_STEPS steps in one run, and in two runs cut at
+    # half; the last checkpoints of both must be equal bit for bit.
+    common = ["--map", map_png, "--particles", "1000", "--checkpoint-every", "10",
+              "--frame-every", "1000", "--out", f"{workdir}/ck.gif"]
+    half = str(CKPT_STEPS // 2)
+    run(grid_slam.main, common + ["--steps", str(CKPT_STEPS), "--checkpoint-dir", f"{workdir}/ckA"])
+    run(grid_slam.main, common + ["--steps", half, "--checkpoint-dir", f"{workdir}/ckB"])
+    _, resumed, _, _ = run(grid_slam.main, common + ["--steps", str(CKPT_STEPS),
+                                                     "--checkpoint-dir", f"{workdir}/ckB"])
+    check(f"resumed from step {int(half) - 1}" in resumed, "grid_slam did not resume")
+    last = f"{CKPT_STEPS - 1}/state.pt"
+    a = torch.load(f"{workdir}/ckA/{last}", weights_only=True)
+    b = torch.load(f"{workdir}/ckB/{last}", weights_only=True)
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k_, v in tree.items():
+                yield from leaves(v, path + (k_,))
+        else:
+            yield path, tree
+
+    la, lb = dict(leaves(a)), dict(leaves(b))
+    check(la.keys() == lb.keys(), "checkpoint layouts differ")
+    diff = [p for p in la if (la[p].numpy().tobytes() != lb[p].numpy().tobytes()
+                              if isinstance(la[p], torch.Tensor) else la[p] != lb[p])]
+    out["checkpoint_resume"] = {"steps": CKPT_STEPS, "cut_at": int(half), "leaves": len(la),
+                                "differing_leaves": ["/".join(p) for p in diff]}
+    check(not diff, f"grid_slam resumed != uninterrupted: {diff}")
+    say("apps", f"grid_slam --checkpoint-dir cut at step {half} of {CKPT_STEPS}: the last "
+        f"checkpoint equals the uninterrupted run's bit for bit ({len(la)} leaves)")
+
+    rc_, text, secs, c = run(slam_replan.main, ["--map", map_png, "--particles", "100000",
+                                                "--replan-every", "10", "--n-rays", "90",
+                                                "--out", f"{workdir}/replan.png"])
+    rec = json.loads(text.strip().splitlines()[-1])
+    out["slam_replan"] = {**rec, "seconds": secs, "launches": c}
+    check(rec["steps"] > 0 and rec["n_replans"] >= 1, f"slam_replan: {rec}")
+    say("apps", f"slam_replan (100k particles, replan every 10, 90 rays): {json.dumps(out['slam_replan'])}")
+
+    h = 599
+    (sx, sy), (gx, gy) = plan_poses(h)
+    planners = (
+        ("astar", astar_planner.main, ["--start", *map(str, PLAN_START_IJ), "--goal",
+                                       *map(str, PLAN_GOAL_IJ), "--inflate", str(PLAN_INFLATE)]),
+        ("hastar", hastar_planner.main, ["--start", str(sx), str(sy), "--goal", str(gx), str(gy)]),
+        ("rrt", rrt_planner.main, ["--start", str(sx), str(sy), "--goal", str(gx), str(gy)]),
+    )
+    for name_, fn, extra in planners:
+        res = {}
+        ok, _, secs, _ = run(fn, ["--map", map_png, "--out", f"{workdir}/{name_}.png", *extra],
+                             result=res)
+        free = res["free"]
+        if name_ == "rrt":  # world (x, y) nodes -> cells
+            cells = [(int(math.floor(h - y - 1.0)), int(math.floor(x))) for x, y in res["path"]]
+        else:
+            cells = list(res["path"])
+        blocked_cells = sum(not free[i, j] for i, j in cells)
+        out[name_] = {"ok": bool(ok), "path_points": len(cells), "points_blocked": blocked_cells,
+                      "seconds": secs}
+        check(ok and cells and blocked_cells == 0, f"{name_} app: {out[name_]}")
+        say("apps", f"{name_}: {json.dumps(out[name_])}")
+    for name_, fn, argv in (("nearest_neighbor", nearest_neighbor.main, ["--check"]),
+                            ("regions", regions.main, ["--check"])):
+        _, text, secs, _ = run(fn, argv + ["--out", f"{workdir}/{name_}.png"])
+        check("brute-force check OK" in text, f"{name_} app: {text}")
+        out[name_] = {"checked": True, "seconds": secs}
+    say("apps", f"nearest_neighbor and regions: brute-force checks OK "
+        f"({out['nearest_neighbor']['seconds']:.2f} s, {out['regions']['seconds']:.2f} s)")
+    out["launches"] = launches
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1537,11 +2102,12 @@ def main() -> None:
         rr.uniform(-math.pi, math.pi, RAGGED_N))))
     wkw = dict(beam_stride=2, displacement=measurement.scanner_displacement(cfg.scanner_offset),
                max_dist=rc.max_dist, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon)
+    bench_motion = (motion_cuda.odometry_rows(bench_odom, dev), bench_alphas)
     lw_err = 0.0
     for tname, lut_ in (("bf16", lut), ("u8", field_u8.lut)):
         for label, poses in (*clouds, (f"N={RAGGED_N}, a third off the map", off_map)):
             sd = seed(11)
-            pk, lwk = fused(lut_, 360, poses, scan, motion=(sd, bench_odom, bench_alphas), **wkw)
+            pk, lwk = fused(lut_, 360, poses, scan, motion=(sd, *bench_motion), **wkw)
             p1 = motion_cuda.launch(sd, bench_odom, poses, bench_alphas)
             for f in ("x", "y", "theta"):
                 check(torch.equal(getattr(pk, f).view(torch.int32),
@@ -1583,7 +2149,7 @@ def main() -> None:
                          N_PARTICLES * (OPS_SAMPLE + OPS_LOCATE + n_beams * OPS_BEAM))
         lw_times[label] = {
             "ms": device_ms(lambda: fused(lut, 360, poses, scan,
-                                          motion=(sd, bench_odom, bench_alphas), **wkw))[0],
+                                          motion=(sd, *bench_motion), **wkw))[0],
             "weigh_only_ms": device_ms(lambda: fused(lut, 360, poses, scan, **wkw))[0],
             "plain_ms": device_ms(lambda: plain_predict_weigh(poses))[0],
             "bound_ms": lw_bound[0], "bound_by": lw_bound[1], "distinct_cells": cells}
@@ -1966,17 +2532,47 @@ def main() -> None:
     rb = rbpf_phase(dev, blocked_np, counts)
     phase_s["rbpf"] = time.perf_counter() - t0
     say("rbpf", json.dumps({**rb, "device": name, "power_limit": power}))
-    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-19 "
+
+    # 20-22. the maze through the CDDT and the dense table, the fleet, the
+    # apps: the apps read the floor plan from a PNG, as users pass it.
+    import shutil
+    import tempfile
+
+    from PIL import Image
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        map_png = f"{workdir}/floor_plan.png"
+        Image.fromarray(np.where(blocked_np, 0, 255).astype(np.uint8)).save(map_png)
+        t0 = time.perf_counter()
+        mz = maze_phase(dev, counts)
+        phase_s["maze"] = time.perf_counter() - t0
+        say("maze", json.dumps({**mz, "device": name, "power_limit": power}))
+        t0 = time.perf_counter()
+        fl = fleet_phase(dev, blocked_np, field, counts, map_png, workdir)
+        phase_s["fleet"] = time.perf_counter() - t0
+        say("fleet", json.dumps({**fl, "device": name, "power_limit": power}))
+        t0 = time.perf_counter()
+        ap = apps_phase(dev, counts, map_png, workdir)
+        phase_s["apps"] = time.perf_counter() - t0
+        say("apps", json.dumps({**ap, "device": name, "power_limit": power}))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-22 "
         f"{time.perf_counter() - t_new:.1f} s {json.dumps(phase_s)}")
 
     # Launches: the counts of the main paths' runs (phase 7's mcl.step,
     # phase 9's SLAM step, phase 15's global localization, phase 16's auto
-    # tier, phase 18's scan-matched SLAM step, phase 19's RBPF). K2 left the
-    # MCL step with this kernel line's third entry; phases 3, 5 and 6 still
-    # hold it to rows[idx].
+    # tier, phase 18's scan-matched SLAM step, phase 19's RBPF, phase 20's
+    # maze steps through both tables, phase 21's fleet steps, phase 22's
+    # apps). K2 left the MCL step with this kernel line's third entry;
+    # phases 3, 5 and 6 still hold it to rows[idx].
     main_launches = {k: launches[k] + slam_launches[k] + gl["launches"][k]
                      + auto["launches_after_step_5"][k] + sm["launches"][k] + rb["launches"][k]
+                     + mz["launches"][k] + fl["launches"][k] + ap["launches"][k]
                      for k in launches}
+    lw_fleet = fl["kernel_fleet"]
+    lw_maze = mz["maze"]["lut"]["lut_weights_vs_plain"]
     lw_1m = gl["lut_weights_1m_uniform"]
     k1_bound = bound(N_PARTICLES * 24, N_PARTICLES * OPS_SAMPLE)
     lw_bench = lw_times["bench cloud"]
@@ -2012,7 +2608,15 @@ def main() -> None:
          # Phase 15: step 1 of the 1M uniform global-localization cloud.
          "ms_1m_uniform": lw_1m["ms"], "plain_ms_1m_uniform": lw_1m["plain_ms"],
          "bound_ms_1m_uniform": lw_1m["bound_ms"], "bound_by_1m_uniform": lw_1m["bound_by"],
-         "max_abs_err_1m_uniform": lw_1m["max_abs_diff"]},
+         "max_abs_err_1m_uniform": lw_1m["max_abs_diff"],
+         # Phase 21: one launch for a fleet of 16 x 100k (robot axis).
+         "ms_fleet_16x100k": lw_fleet["ms"], "plain_ms_fleet_16x100k": lw_fleet["plain_ms"],
+         "bound_ms_fleet_16x100k": lw_fleet["bound_ms"],
+         "bound_by_fleet_16x100k": lw_fleet["bound_by"],
+         "max_abs_err_fleet_16x100k": lw_fleet["max_abs_diff"],
+         # Phase 20: the maze's 10k step on its 2400 px u8 table.
+         "ms_maze_u8_10k": lw_maze["ms"], "plain_ms_maze_u8_10k": lw_maze["plain_ms"],
+         "max_abs_err_maze_u8_10k": lw_maze["max_abs_diff"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -85,7 +85,8 @@ class Particles(_TensorDataclass):
 
     @property
     def n(self) -> int:
-        return self.pose.x.shape[0]
+        """Particles per filter (the last axis; a fleet stacks [R, N])."""
+        return self.pose.x.shape[-1]
 
     @classmethod
     def uniform_at(cls, pose: Pose, n: int) -> "Particles":

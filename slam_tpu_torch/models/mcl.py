@@ -26,7 +26,7 @@ per update by `measurement.lf_auto_converged` on the device (JAX's
 alternative is `models/slam.py:AutoTierDispatcher`). `MCLConfig.adaptive`
 adds augmented-MCL injection over free space (`init_uniform` is the
 global-localization start). Not ported: `ray_sharding`, `resample_fn` and
-`measurement_fn` (ROADMAP.md Queue 1 item 14); they raise
+`measurement_fn` (ROADMAP.md Queue 1 item 5, `parallel/`); they raise
 NotImplementedError.
 """
 
@@ -43,7 +43,9 @@ from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan, log_f32
 from slam_tpu_torch.ops import edt as edtlib
 from slam_tpu_torch.ops import lut_weights_cuda, measurement, rayfield, resample
-from slam_tpu_torch.ops.motion_cuda import draw_seed, sample_motion_model_odometry_fused
+from slam_tpu_torch.ops.motion_cuda import (
+    draw_seed, odometry_rows, sample_motion_model_odometry_fused,
+)
 
 
 @dataclasses.dataclass
@@ -135,24 +137,24 @@ def estimate(pp: Pose, log_weight, lw, mode_tau: float):
     log_w)-weighted circular mean. Under an uninformative measurement (the
     top score is a majority tie, within a tolerance RELATIVE to |max|) the
     argmax is arbitrary, so best_pose falls back to the sharpened mean
-    (slam_tpu/models/mcl.py:289-312 has the why)."""
-    k = torch.argmax(log_weight).view(1)
+    (slam_tpu/models/mcl.py:289-312 has the why). Particles [..., N]: the
+    estimates are taken along the last axis, per batch row."""
+    k = torch.argmax(log_weight, dim=-1, keepdim=True)
     best_pose = Pose(
-        x=pp.x.index_select(0, k)[0],
-        y=pp.y.index_select(0, k)[0],
-        theta=pp.theta.index_select(0, k)[0],
+        x=pp.x.gather(-1, k)[..., 0],
+        y=pp.y.gather(-1, k)[..., 0],
+        theta=pp.theta.gather(-1, k)[..., 0],
     )
-    wm = torch.softmax(log_weight * mode_tau, dim=0)
+    wm = torch.softmax(log_weight * mode_tau, dim=-1)
     mode_pose = Pose(
-        x=torch.sum(wm * pp.x),
-        y=torch.sum(wm * pp.y),
-        theta=torch.atan2(
-            torch.sum(wm * torch.sin(pp.theta)), torch.sum(wm * torch.cos(pp.theta))
-        ),
+        x=torch.sum(wm * pp.x, dim=-1),
+        y=torch.sum(wm * pp.y, dim=-1),
+        theta=torch.atan2(torch.sum(wm * torch.sin(pp.theta), dim=-1),
+                          torch.sum(wm * torch.cos(pp.theta), dim=-1)),
     )
-    max_lw = torch.max(lw)
+    max_lw = torch.amax(lw, dim=-1, keepdim=True)
     tie_tol = torch.clamp(1e-6 * torch.abs(max_lw), min=1e-6)
-    top_tie_frac = torch.mean(((max_lw - lw) < tie_tol).to(torch.float32))
+    top_tie_frac = torch.mean(((max_lw - lw) < tie_tol).to(torch.float32), dim=-1)
     informative = top_tie_frac < 0.5
     return _select(informative, best_pose, mode_pose), mode_pose
 
@@ -161,7 +163,7 @@ def _check_ported(**options) -> None:
     for name, v in options.items():
         if v is not None:
             raise NotImplementedError(
-                f"{name} is not ported to slam_tpu_torch yet (ROADMAP.md Queue 1 item 14)"
+                f"{name} is not ported to slam_tpu_torch yet (ROADMAP.md Queue 1 item 5, parallel/)"
             )
 
 
@@ -216,13 +218,13 @@ def _weigh(pp: Pose, scan: Scan, field, cfg: MCLConfig, rc: RaycastConfig):
 
 def adaptive_emas(log_w_slow, log_w_fast, lw, adaptive):
     """The augmented-MCL EMAs of the mean unnormalized likelihood after a
-    measurement `lw` [N], in log space, and the capped injection ratio:
-    (log_w_slow, log_w_fast, ratio), 0-d tensors. WARM START: the first
-    update (NaN EMAs) seeds both with the observed average, so the ratio
+    measurement `lw` [..., N], in log space, and the capped injection
+    ratio: (log_w_slow, log_w_fast, ratio), one per batch row. WARM START:
+    the first update (NaN EMAs) seeds both with the observed average, so the ratio
     starts at 0 and answers only to changes (slam_tpu/models/mcl.py:
     335-343 has the measurement behind it); the ratio is capped at
     `adaptive.max_ratio`."""
-    log_w_avg = torch.logsumexp(lw, dim=0) - log_f32(lw.shape[0])
+    log_w_avg = torch.logsumexp(lw, dim=-1) - log_f32(lw.shape[-1])
     first = torch.isnan(log_w_slow)
     out = []
     for prev, a in ((log_w_slow, adaptive.alpha_slow), (log_w_fast, adaptive.alpha_fast)):
@@ -234,11 +236,14 @@ def adaptive_emas(log_w_slow, log_w_fast, lw, adaptive):
 
 
 def _finish(state: MCLState, lw, cfg: MCLConfig, u0=None, blocked=None,
-            inject=None) -> MCLState:
+            inject=None, u=None) -> MCLState:
     """Update's second half: add the measurement's log weights `lw` to the
     particles', estimate, then (conditionally) resample and, with
-    `cfg.adaptive`, inject over the free cells of `blocked`. `inject`
-    injects the injection's draws (u, i, j, theta)."""
+    `cfg.adaptive`, inject over the free cells of `blocked`. `u0` (the
+    systematic resampler's draw), `u` (the multinomial resampler's) and
+    `inject` (the injection's (u, i, j, theta)) inject the draws. The
+    particles may carry a leading batch axis ([R, N], `models/fleet.py`,
+    which then passes every draw): each batch row is one filter."""
     pp = state.particles.pose
     log_weight = state.particles.log_weight + lw
     best_pose, mode_pose = estimate(pp, log_weight, lw, cfg.mode_tau)
@@ -250,9 +255,9 @@ def _finish(state: MCLState, lw, cfg: MCLConfig, u0=None, blocked=None,
     # device value and selects.
     if state.updates % cfg.resample_every == 0:
         ess = resample.effective_sample_size(log_weight)
-        do_it = ess <= cfg.ess_threshold * particles.n
+        do_it = (ess <= cfg.ess_threshold * particles.n)[..., None]
         new = resample.resample(
-            particles, cfg.resample, u0=u0, generator=state.generator
+            particles, cfg.resample, u0=u0, u=u, generator=state.generator
         )
         particles = Particles(
             pose=_select(do_it, new.pose, particles.pose),
@@ -263,7 +268,7 @@ def _finish(state: MCLState, lw, cfg: MCLConfig, u0=None, blocked=None,
     if cfg.adaptive is not None:
         log_w_slow, log_w_fast, ratio = adaptive_emas(log_w_slow, log_w_fast, lw, cfg.adaptive)
         particles = resample.inject_random_particles(
-            particles, blocked, ratio, draws=inject, generator=state.generator)
+            particles, blocked, ratio[..., None], draws=inject, generator=state.generator)
 
     return state.replace(
         particles=particles,
@@ -307,6 +312,22 @@ def _fused_route(pose: Pose, field, cfg: MCLConfig, rc: RaycastConfig) -> bool:
             and isinstance(field, rayfield.RayField) and field.lut is not None)
 
 
+def predict_weigh(pose: Pose, scan: Scan, field, cfg: MCLConfig, rc: RaycastConfig,
+                  seed, odom: Odometry, alphas):
+    """The fused route's one launch of `csrc/lut_weights.cu`: K1's sampler
+    with `seed` (int64 [R]) and `odom` (scalar fields for one filter, [R]
+    fields for a fleet, host or device), then the LUT beam weights of
+    `scan`. Poses [N] (one filter) or [R, N] (a fleet; the scan [R, B]).
+    Returns (the sampled poses, their log weights)."""
+    return lut_weights_cuda.launch(
+        field.lut, field.lut_bins or field.lut.shape[-1], pose, scan,
+        beam_stride=cfg.lut_beam_stride,
+        displacement=measurement.scanner_displacement(cfg.scanner_offset),
+        max_dist=rc.max_dist, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon,
+        motion=(seed, odometry_rows(odom, pose.x.device), alphas),
+    )
+
+
 def step(
     state: MCLState,
     odom: Odometry,
@@ -335,13 +356,8 @@ def step(
             "injected noise is a CPU-path argument; the CUDA kernel draws its own"
         )
     pose = state.particles.pose
-    new_pose, lw = lut_weights_cuda.launch(
-        field.lut, field.lut_bins or field.lut.shape[-1], pose, scan,
-        beam_stride=cfg.lut_beam_stride,
-        displacement=measurement.scanner_displacement(cfg.scanner_offset),
-        max_dist=rc.max_dist, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon,
-        motion=(draw_seed(state.generator, pose.x.device), odom, alphas),
-    )
+    new_pose, lw = predict_weigh(pose, scan, field, cfg, rc,
+                                 draw_seed(state.generator, pose.x.device), odom, alphas)
     state = state.replace(
         particles=state.particles.replace(pose=new_pose), step=state.step + 1
     )

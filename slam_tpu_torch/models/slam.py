@@ -17,7 +17,7 @@ runs through `GridSLAM`'s host-lagged `AutoTierDispatcher` (in `step`
 itself, through `mcl.update`'s both-tiers selection).
 
 Not ported yet: `ray_sharding` and `resample_fn` (ROADMAP.md Queue 1 item
-14); they raise NotImplementedError.
+5, `parallel/`); they raise NotImplementedError.
 """
 
 from __future__ import annotations

@@ -47,14 +47,14 @@ _SIGNATURES = {
     "gather_rows_launch": (
         [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P]
     ),
-    # (predict, table_u8, seed*, r1, t, r2, std_r1, std_t, std_r2, x*, y*,
-    #  th*, ox*, oy*, oth*, lut*, row_stride, h, w, n_bins, g, angles*,
-    #  dists*, n_beams, sensor_d, sensor_th, sensor_rot, binw, max_dist,
-    #  inv_stddev, clamp, inv_norm, eps, quant, lw*, n, stream)
+    # (predict, table_u8, seed*, odo*, a0, a1, a2, a3, x*, y*, th*, ox*,
+    #  oy*, oth*, lut*, row_stride, h, w, n_bins, g, angles*, dists*,
+    #  n_beams, sensor_d, sensor_th, sensor_rot, binw, max_dist, inv_stddev,
+    #  clamp, inv_norm, eps, quant, lw*, n, n_robots, stream)
     "lut_weights_launch": (
-        [ctypes.c_int] * 2 + [_P] + [ctypes.c_float] * 6 + [_P] * 7
+        [ctypes.c_int] * 2 + [_P] * 2 + [ctypes.c_float] * 4 + [_P] * 7
         + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P] * 2 + [ctypes.c_int]
-        + [ctypes.c_float] * 10 + [_P, ctypes.c_longlong, _P]
+        + [ctypes.c_float] * 10 + [_P, ctypes.c_longlong, ctypes.c_int, _P]
     ),
 }
 

@@ -5,7 +5,7 @@ direct or through the boxed correlative score table of the SLAM step.
 Also the auto tier's predicate `lf_auto_converged` and the notebook's
 probabilistic beam model `beam_weights_probabilistic`. Not ported: the
 sharded table build (`bin_sharding`, `ray_sharding`, `lpad=`; ROADMAP.md
-Queue 1 item 14).
+Queue 1 item 5, `parallel/`).
 """
 
 from __future__ import annotations
@@ -247,7 +247,7 @@ def particle_log_weights(
 # correlative score table.
 # --------------------------------------------------------------------------
 
-_SHARDING = "is not ported to slam_tpu_torch yet (ROADMAP.md Queue 1 item 14)"
+_SHARDING = "is not ported to slam_tpu_torch yet (ROADMAP.md Queue 1 item 5, parallel/)"
 
 # Elements of one gathered [T, beams, si, sj] window stack in the table
 # build (256 MiB in f32): beams are taken in chunks of at most this size.

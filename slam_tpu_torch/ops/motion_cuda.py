@@ -36,6 +36,17 @@ def host_params(odom: Odometry, alphas):
     )
 
 
+def odometry_rows(odom: Odometry, device) -> torch.Tensor:
+    """f32 [R, 3] (rot1, trans, rot2) on `device` of an Odometry with
+    scalar (R = 1) or [R] fields on the host or the device: the fused
+    kernel's odometry, from which it computes the stddevs as `host_params`
+    does. Host odometry is copied over without a host sync (a pageable
+    source: the copy returns once its bytes are staged)."""
+    rows = torch.stack([torch.as_tensor(v, dtype=torch.float32)
+                        for v in (odom.rot1, odom.trans, odom.rot2)], dim=-1)
+    return rows.reshape(-1, 3).to(device, non_blocking=True).contiguous()
+
+
 def draw_seed(generator, device) -> torch.Tensor:
     """The kernel's seed, int64[1], drawn from `generator` on the device:
     no host sync in the step. `mcl.step` draws the fused kernel's seed the

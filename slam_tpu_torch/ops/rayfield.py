@@ -1,11 +1,11 @@
 """Raycast backend dispatch (port of `slam_tpu/ops/rayfield.py`).
 
-The port has the ``march`` (exact fixed-step DDA), ``sdf`` (sphere trace
+Four backends: ``march`` (exact fixed-step DDA), ``sdf`` (sphere trace
 over a Euclidean distance transform: `edt_exact` for a static map,
-`edt_jfa` for the per-step rebuild) and ``lut`` (dense directional table)
-backends. ``cddt`` waits for ROADMAP.md Queue 1 item 11. A `RayField`
-built with an EDT serves the likelihood-field measurements whatever the
-backend.
+`edt_jfa` for the per-step rebuild), ``lut`` (dense directional table)
+and ``cddt`` (the compressed interval table of `ops/cddt.py`, for maps
+whose dense table outgrows memory). A `RayField` built with an EDT serves
+the likelihood-field measurements whatever the backend.
 """
 
 from __future__ import annotations
@@ -19,18 +19,11 @@ import numpy as np
 import torch
 
 from slam_tpu_torch.core.config import RaycastConfig
+from slam_tpu_torch.ops import cddt as cddtlib
 from slam_tpu_torch.ops import edt as edtlib
 from slam_tpu_torch.ops import lut as lutlib
 from slam_tpu_torch.ops.raycast import raycast_march, raycast_sdf
-
-_NOT_PORTED = {"cddt": "ROADMAP.md Queue 1 item 11 (ops/cddt.py)"}
-
-
-def _not_ported(backend: str):
-    return NotImplementedError(
-        f"raycast backend {backend!r} is not ported to slam_tpu_torch yet: "
-        f"see {_NOT_PORTED[backend]}"
-    )
+from slam_tpu_torch.utils.logging import get_logger
 
 
 @dataclasses.dataclass
@@ -44,15 +37,46 @@ class RayField:
     lut: Optional[torch.Tensor] = None
     # Semantic angular bin count.
     lut_bins: Optional[int] = None
+    # Compressed directional table (cddt backend).
+    cddt: Optional[cddtlib.CDDTTable] = None
 
 
 def _cache_path(host: np.ndarray, rc: RaycastConfig, cache_dir: str) -> str:
-    # The JAX package's key, byte for byte: a table it cached loads here.
+    # The JAX package's keys, byte for byte: a table it cached loads here.
+    if rc.backend == "cddt":
+        tag, name, ext = f"{rc.cddt_k}|cddt-v1", "cddt", "npz"
+    else:
+        tag, name, ext = f"{rc.max_dist}|{rc.lut_dtype}|v2", "beam_lut", "npy"
     key = hashlib.sha1(
-        host.tobytes()
-        + f"{host.shape}|{rc.lut_bins}|{rc.max_dist}|{rc.lut_dtype}|v2".encode()
+        host.tobytes() + f"{host.shape}|{rc.lut_bins}|{tag}".encode()
     ).hexdigest()[:16]
-    return os.path.join(cache_dir, f"beam_lut_{key}.npy")
+    os.makedirs(cache_dir, exist_ok=True)
+    return os.path.join(cache_dir, f"{name}_{key}.{ext}")
+
+
+def _cddt_field(blocked: torch.Tensor, rc: RaycastConfig, cache_dir) -> RayField:
+    """The cddt backend's field: the table from the `cddt-v1` npz cache when
+    `cache_dir` holds it, else built (and cached). A table that dropped
+    runs warns, on a cache hit too: it is wrong every run."""
+    path = None if cache_dir is None else _cache_path(blocked.cpu().numpy(), rc, cache_dir)
+    table = None
+    if path is not None and os.path.exists(path):
+        z = np.load(path)
+        table = cddtlib.CDDTTable(
+            starts=torch.from_numpy(z["starts"]).to(blocked.device),
+            ends=torch.from_numpy(z["ends"]).to(blocked.device),
+            n_bins=rc.lut_bins, n_overflow=int(z["n_overflow"]))
+    fresh = table is None
+    if fresh:
+        table = cddtlib.build_cddt(blocked, n_bins=rc.lut_bins, k=rc.cddt_k)
+    if table.n_overflow:
+        get_logger().warning(
+            "cddt table dropped %d runs (cddt_k=%s too small); far obstacles "
+            "may read as misses", table.n_overflow, rc.cddt_k)
+    if fresh and path is not None:
+        np.savez(path, starts=table.starts.cpu().numpy(), ends=table.ends.cpu().numpy(),
+                 n_overflow=table.n_overflow)
+    return RayField(blocked=blocked, cddt=table)
 
 
 def make_ray_field(
@@ -61,24 +85,23 @@ def make_ray_field(
     """Build the backend structure for a static map (one-off), on `device`
     (default: `blocked`'s device).
 
-    `cache_dir` caches the LUT on disk in the JAX package's format (same
-    sha1 key, bf16 saved as its uint16 bits), so either package loads a
-    table the other wrote."""
+    `cache_dir` caches the LUT or the CDDT table on disk in the JAX
+    package's format (same sha1 key; a bf16 LUT saved as its uint16 bits,
+    the CDDT as the `cddt-v1` npz), so either package loads a table the
+    other wrote."""
     blocked = torch.as_tensor(blocked, dtype=torch.bool, device=device)
     if rc.backend == "march":
         return RayField(blocked=blocked)
     if rc.backend == "sdf":
         return RayField(blocked=blocked, edt=edtlib.edt_exact(blocked))
-    if rc.backend in _NOT_PORTED:
-        raise _not_ported(rc.backend)
+    if rc.backend == "cddt":
+        return _cddt_field(blocked, rc, cache_dir)
     if rc.backend != "lut":
         raise ValueError(f"unknown raycast backend: {rc.backend}")
     dtype = {"bf16": torch.bfloat16, "u8": torch.uint8}[rc.lut_dtype]
     path = None
     if cache_dir is not None:
-        host = blocked.cpu().numpy()
-        os.makedirs(cache_dir, exist_ok=True)
-        path = _cache_path(host, rc, cache_dir)
+        path = _cache_path(blocked.cpu().numpy(), rc, cache_dir)
         if os.path.exists(path):
             lut_np = np.load(path)
             if dtype == torch.bfloat16:  # stored as its uint16 bits
@@ -136,8 +159,12 @@ def raycast_field(field: RayField, x, y, theta, rc: RaycastConfig):
         return lutlib.raycast_lut(
             field.lut, x, y, theta, max_dist=rc.max_dist, n_bins=field.lut_bins
         )
-    if rc.backend in _NOT_PORTED:
-        raise _not_ported(rc.backend)
+    if rc.backend == "cddt":
+        if field.cddt is None:
+            raise ValueError("cddt backend needs field.cddt")
+        return cddtlib.raycast_cddt(
+            field.cddt, x, y, theta, max_dist=rc.max_dist, shape=field.blocked.shape
+        )
     raise ValueError(f"unknown raycast backend: {rc.backend}")
 
 

@@ -951,7 +951,7 @@ class HybridAStar:
         if query_sharding is not None:
             raise NotImplementedError(
                 "solve_many(query_sharding=...) is not ported to slam_tpu_torch "
-                "yet: see ROADMAP.md Queue 1 item 14 (parallel/)"
+                "yet: see ROADMAP.md Queue 1 item 5 (parallel/)"
             )
         if self.cfg.mode != "lattice":
             raise ValueError("solve_many requires mode='lattice'")

@@ -1,9 +1,23 @@
-"""Maps the port runs on without any asset file, and the planners' map
-preamble (disc erosion, vehicle inflation)."""
+"""Map IO and the maps the port runs on without any asset file, and the
+planners' map preamble (disc erosion, vehicle inflation)."""
 
 from __future__ import annotations
 
 import numpy as np
+from PIL import Image
+
+
+def load_grayscale(path) -> np.ndarray:
+    """u8[H, W] grayscale image."""
+    return np.asarray(Image.open(path).convert("L"))
+
+
+def load_binary_map(path, threshold: int = 128) -> np.ndarray:
+    """i32[H, W] 0/1 ground-truth map: 1 = free, 0 = obstacle
+    (`apps/grid_slam.cpp:84-86` THRESH_BINARY at 128; a copy of
+    `slam_tpu/utils/maps.py:load_binary_map`)."""
+    g = load_grayscale(path)
+    return (g > threshold).astype(np.int32)
 
 
 def synthetic_floor_plan() -> np.ndarray:

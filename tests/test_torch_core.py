@@ -22,6 +22,7 @@ from slam_tpu_torch.core import grid as tgrid
 from slam_tpu_torch.core import stats as tstats
 from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch.core.types import Box, Pose, Velocity
+from slam_tpu_torch.models.fleet import MCLFleet
 from slam_tpu_torch.models.mcl import MCL
 from slam_tpu_torch.models.rbpf import RBPF
 from slam_tpu_torch.models.slam import GridSLAM
@@ -219,7 +220,8 @@ def test_port_sources_import_no_jax():
 def test_import_without_jax():
     """With jax (and the JAX package) unimportable, the port's main paths
     (MCL, SLAM, the RBPF, scan matching, the simulator, diagnostics, the
-    planners) still import."""
+    planners, the CDDT, the fleet, the tools, utilities and apps) still
+    import."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -235,6 +237,14 @@ def test_import_without_jax():
         "import slam_tpu_torch.models.rbpf, slam_tpu_torch.ops.scanmatch\n"
         "import slam_tpu_torch.models.simulate, slam_tpu_torch.utils.diagnostics\n"
         "import slam_tpu_torch.tools.global_loc_bench\n"
+        "import slam_tpu_torch.ops.cddt, slam_tpu_torch.models.fleet\n"
+        "import slam_tpu_torch.tools.maze_bench, slam_tpu_torch.tools.fleet_bench\n"
+        "import slam_tpu_torch.utils.checkpoint, slam_tpu_torch.utils.profiling\n"
+        "import slam_tpu_torch.utils.render, slam_tpu_torch.native\n"
+        "import slam_tpu_torch.apps.grid_slam, slam_tpu_torch.apps.slam_replan\n"
+        "import slam_tpu_torch.apps.fleet_localization, slam_tpu_torch.apps.astar_planner\n"
+        "import slam_tpu_torch.apps.hastar_planner, slam_tpu_torch.apps.rrt_planner\n"
+        "import slam_tpu_torch.apps.nearest_neighbor, slam_tpu_torch.apps.regions\n"
         "from slam_tpu_torch.models.rbpf import RBPF\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
     )
@@ -247,6 +257,7 @@ ENTRY_POINTS = {
     "MCL": lambda **kw: MCL(tcfg.MCLConfig(), **kw),
     "GridSLAM": lambda **kw: GridSLAM(tcfg.SLAMConfig(), **kw),
     "RBPF": lambda **kw: RBPF(tcfg.MCLConfig(n_particles=4), **kw),
+    "MCLFleet": lambda **kw: MCLFleet(2, tcfg.MCLConfig(n_particles=4), **kw),
     "AStar": lambda **kw: AStar(np.ones((16, 16), bool), (1, 1), (9, 9), **kw),
     "RRTStar": lambda **kw: RRTStar(np.ones((16, 16), bool), (1.0, 1.0), (9.0, 9.0), **kw),
     "HybridAStar": lambda **kw: HybridAStar(

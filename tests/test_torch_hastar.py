@@ -154,7 +154,7 @@ def test_solve_many_matches_single_and_jax():
         assert tp.path_cost() == tfleet[q][1] and tp.recover_path() == paths[q]
     with pytest.raises(ValueError, match="solve_many"):
         tp.recover_path_for(0)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tp.solve_many(queries[:1], query_sharding=object())
 
 

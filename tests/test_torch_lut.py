@@ -160,5 +160,11 @@ def test_ray_field_cache_is_shared_with_jax(blocked, dtype, tmp_path):
 
 
 def test_unported_backends_raise(blocked):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        trf.make_ray_field(torch.from_numpy(blocked), RaycastConfig(backend="cddt"))
+    """Every backend of the JAX package is ported now: `cddt` builds its
+    table (tests/test_torch_cddt.py holds it to JAX's), and only a name
+    neither package knows raises."""
+    field = trf.make_ray_field(torch.from_numpy(blocked), RaycastConfig(backend="cddt",
+                                                                        lut_bins=16))
+    assert field.cddt is not None and field.cddt.n_bins == 16
+    with pytest.raises(ValueError, match="unknown raycast backend"):
+        trf.make_ray_field(torch.from_numpy(blocked), RaycastConfig(backend="dense"))

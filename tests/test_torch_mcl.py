@@ -205,10 +205,10 @@ def test_mcl_wrapper_and_mean_pose():
     _assert_pose_close(tmcl.mean_pose(state), jm, 1e-4)
 
     # Adaptive injection runs now (tests/test_torch_globalloc.py); the
-    # sharded engines' hooks stay unported (item 14).
+    # sharded engines' hooks stay unported (item 5).
     st = tmcl.update(state, scan, field, dataclasses.replace(tc, adaptive=tcfg.AdaptiveConfig()),
                      trc)
     assert torch.isfinite(st.log_w_slow) and torch.isfinite(st.log_w_fast)
     for hook in ("resample_fn", "measurement_fn", "ray_sharding"):
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(NotImplementedError, match="item 5"):
             tmcl.update(state, scan, field, tc, trc, **{hook: lambda p: p})

@@ -109,6 +109,25 @@ def test_kernel_host_params_match_pallas_formula():
     np.testing.assert_allclose(np.float32(got), np.float32(want), rtol=1e-7, atol=0)
 
 
+@pytest.mark.parametrize("robots", [None, 3])
+def test_kernel_odometry_rows(robots):
+    """The fused kernel's odometry: f32 [R, 3] rows (rot1, trans, rot2),
+    one row for a single filter's scalar odometry, bit for bit the f32
+    values `host_params` starts from (the kernel derives the stddevs from
+    them as `host_params` does)."""
+    odoms = [(2.5, 0.02, 0.02), (0.3, -1.25, 0.7), (-0.01, 0.0, 3.1)]
+    if robots is None:
+        odom, rows = Odometry.create(*odoms[0]), odoms[:1]
+    else:
+        rows = odoms[:robots]
+        odom = Odometry.create(*(list(c) for c in zip(*rows)))
+    got = motion_cuda.odometry_rows(odom, "cpu")
+    assert got.dtype == torch.float32 and got.shape == (len(rows), 3) and got.is_contiguous()
+    for q, o in enumerate(rows):
+        want = np.float32(motion_cuda.host_params(Odometry.create(*o), ALPHAS)[:3])
+        assert got[q].numpy().tobytes() == want.tobytes()
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "u8"])
 def test_gather_rows_plain_matches_pallas_interpret(dtype):
     """K2's plain version == the Pallas row gather (interpret mode)

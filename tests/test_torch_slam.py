@@ -234,7 +234,7 @@ def test_unported_options_raise():
     tests/test_torch_globalloc.py)."""
     ts = tslam.init(0, _make(tc))
     odom, scan = Odometry.create(*ODOM), t_scan(_scans(1)[0])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tslam.step(ts, odom, scan, _make(tc), resample_fn=lambda p: p)
     with pytest.raises(ValueError, match="EDT cache"):
         tslam.step(ts, odom, scan, _make(tc, edt_box=80))
