@@ -111,10 +111,30 @@ raises, so the exit code is nonzero):
               --checkpoint-dir run cut in two == an uninterrupted one,
               slam_replan at 100k particles, the A*, HA*, RRT*, nearest-
               neighbour and regions apps
+ 23. parallel   slam_tpu_torch/parallel/ on torch.distributed. (a) A world
+              of one rank over NCCL in this process: ShardedGridSLAM at 1M
+              (phase 9's configuration, shard_bench's) == GridSLAM over 8
+              steps and ShardedMCL at 1M through the fused route ==
+              mcl.step, bit for bit; systematic_resample_sharded at 1M vs
+              the plain resampler with the same u0. (b) Worlds of 2 and 4
+              ranks sharing the card over gloo (`python3 chip_smoke.py
+              --parallel-rank DIR` is one rank; each world has a wall-clock
+              limit and every rank's exit code is checked): the fused
+              kernel with i0 == its slice of the whole launch, ShardedMCL
+              and ShardedGridSLAM at 1M against the unsharded engines
+              (poses and weights bit for bit before resampling, estimates
+              within 1e-5, resampled slots within 0.1%, the grids equal on
+              every rank, the collectives' elements and the largest
+              all-gather), MapShardedGridSLAM on the 2400 px maze (the
+              sharded capped EDT and march == the replicated ones bit for
+              bit, one step vs GridSLAM), ShardedMCLFleet 16 x 100k ==
+              MCLFleet bit for bit, lattice HA* queries spread over the
+              ranks; step times labelled as D ranks sharing one card
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device; without one it
-raises and prints no result.
+raises and prints no result. Phase 23 starts its worlds itself, on that
+one card.
 """
 
 from __future__ import annotations
@@ -122,6 +142,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1835,6 +1856,535 @@ def apps_phase(dev, counts, map_png, workdir) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# 23. parallel/ on torch.distributed
+# ---------------------------------------------------------------------------
+# World sizes of the D-rank checks; they share the one card (gloo), so
+# their times measure sharing, not multi-GPU scaling.
+PAR_WORLDS = (2, 4)
+# Wall clock of one world, its kernel loads and map builds included;
+# ranks left then are killed.
+PAR_WORLD_LIMIT_S = 240.0
+PAR_SLAM_STEPS = 8
+# The systematic resampler's bin-edge bound: the share of slots whose
+# source may differ when the prefix sum's summation order changes.
+PAR_RESAMPLE_SHARE = 1e-3
+# Cloud estimates over the sharded axis: relative to max(1, |value|).
+PAR_EST_RTOL = 1e-5
+PAR_FLEET = (16, 100_000)
+PAR_MAZE_PARTICLES = 10_000
+
+
+def par_close(a, b, rtol=PAR_EST_RTOL) -> float:
+    """Largest |a - b| / max(1, |b|) over the fields of two poses."""
+    return max(abs(float(getattr(a, f)) - float(getattr(b, f))) / max(1.0, abs(float(getattr(b, f))))
+               for f in ("x", "y", "theta"))
+
+
+def par_mcl_setup(dev):
+    """Phase 6's bench configuration at 1M particles on the floor plan's
+    LUT: (blocked, field, rc, cfg, scan, start pose, odometry, alphas)."""
+    from slam_tpu_torch.core.config import LidarConfig, MCLConfig, RaycastConfig
+    from slam_tpu_torch.core.types import Odometry, Pose
+    from slam_tpu_torch.models import fake_lidar
+    from slam_tpu_torch.ops import measurement, rayfield
+    from slam_tpu_torch.utils.maps import synthetic_floor_plan
+
+    blocked = torch.from_numpy(synthetic_floor_plan()).to(dev)
+    lidar = LidarConfig(start=0.0, stop=math.pi, max_dist=500.0, n_rays=90)
+    rc = RaycastConfig(step=0.5, max_dist=500.0, backend="lut")
+    field = rayfield.make_ray_field(blocked, rc)
+    cfg = MCLConfig(n_particles=SLAM_PARTICLES, meas_stddev=5.0,
+                    scanner_offset=(0.0, 30.0, 0.0), lut_beam_stride=2)
+    pose0 = Pose.create(400.0, 400.0, math.pi, device=dev)
+    scan = fake_lidar.scan(blocked, measurement.sensor_pose(pose0, cfg.scanner_offset), lidar,
+                           RaycastConfig(max_dist=500.0))
+    return (blocked, field, rc, cfg, scan, pose0, Odometry.create(2.5, 0.02, 0.02),
+            (0.0005, 0.0005, 0.01, 0.01))
+
+
+def par_slam_setup(dev, blocked):
+    """Phase 9's 1M SLAM configuration (shard_bench's): (cfg, odometry,
+    the two alternating scans, start pose)."""
+    from slam_tpu_torch.core.types import Odometry, Pose
+    from slam_tpu_torch.models import fake_lidar
+    from slam_tpu_torch.ops import measurement
+
+    cfg = slam_config()
+    scans = [fake_lidar.scan(blocked, measurement.sensor_pose(p, cfg.mcl.scanner_offset),
+                             cfg.lidar, cfg.raycast)
+             for p in (Pose.create(400.0, 400.0, math.pi, device=dev),
+                       Pose.create(403.0, 403.0, math.pi + 0.05, device=dev))]
+    return cfg, Odometry.create(0.02, 2.5, 0.02), scans, Pose.create(400.0, 400.0, math.pi,
+                                                                    device=dev)
+
+
+def par_timed(fn, iters: int) -> float:
+    """ms per call of `fn` over `iters` calls, between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def par_equal_states(a, b) -> bool:
+    """Bit-for-bit equality of two MCL / SLAM states' tensors."""
+    ma, mb = getattr(a, "mcl", a), getattr(b, "mcl", b)
+    pairs = [(ma.particles.pose.x, mb.particles.pose.x), (ma.particles.pose.y, mb.particles.pose.y),
+             (ma.particles.pose.theta, mb.particles.pose.theta),
+             (ma.particles.log_weight, mb.particles.log_weight)]
+    for f in ("x", "y", "theta"):
+        pairs += [(getattr(ma.best_pose, f), getattr(mb.best_pose, f)),
+                  (getattr(ma.mode_pose, f), getattr(mb.mode_pose, f))]
+    if hasattr(a, "grid"):
+        pairs += [(a.grid, b.grid)] + [(getattr(a.est_pose, f), getattr(b.est_pose, f))
+                                       for f in ("x", "y", "theta")]
+    return all(torch.equal(x, y) for x, y in pairs)
+
+
+def parallel_world1(dev, counts) -> dict:
+    """(a) A world of one rank over NCCL in this process. With one shard
+    the sharded engines run the single-device code (`mesh.particle_axis`
+    and `beam_axis` are None at |p| = |b| = 1), so their bit-for-bit
+    equality with the unsharded engines shows the hooks leave that code as
+    it was, not that the collectives are right. The sharded reductions are
+    therefore also called directly over the world-1 NCCL axes at 1M and
+    held to the single-device functions: the reduce-scatter resampler,
+    `estimate_sharded` (with the ESS), the sharded `adaptive_emas`, the
+    beam psum `_beam_sum` and the cloud means `_cloud_means`."""
+    import shutil
+    import tempfile
+
+    from slam_tpu_torch.core.types import Particles, Pose
+    from slam_tpu_torch.models import mcl as mcl_mod
+    from slam_tpu_torch.models import slam as slam_mod
+    from slam_tpu_torch.core.config import AdaptiveConfig
+    from slam_tpu_torch.ops import measurement
+    from slam_tpu_torch.ops import resample as resample_mod
+    from slam_tpu_torch.parallel import ShardedGridSLAM, ShardedMCL, _collectives, distributed
+    from slam_tpu_torch.parallel import make_mesh, shard_state
+    from slam_tpu_torch.parallel.resample import systematic_resample_sharded
+
+    reset_counts, read_counts = counts
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    distributed.initialize(f"file://{store}/store", 1, 0, backend="nccl", device=dev)
+    out = {"backend": "nccl", "world": 1}
+    launches = {}
+    try:
+        mesh = make_mesh()
+        blocked, field, rc, cfg, scan, pose0, odom, alphas = par_mcl_setup(dev)
+        n = cfg.n_particles
+
+        # ShardedMCL through the fused route vs mcl.step, 4 steps.
+        m = ShardedMCL(mesh, cfg, rc)
+        st = shard_state(mcl_mod.init(mcl_mod.make_generator(0, dev), n, pose0), mesh, n)
+        one = mcl_mod.init(mcl_mod.make_generator(0, dev), n, pose0)
+        reset_counts()
+        for _ in range(4):
+            st = m.step(st, odom, alphas, scan, field)
+        torch.cuda.synchronize()
+        for k, v in read_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        for _ in range(4):
+            one = mcl_mod.step(one, odom, alphas, scan, field, cfg, rc)
+        check(par_equal_states(st, one), "world 1: ShardedMCL != MCL.step bit for bit")
+        out["mcl_step_ms"] = par_timed(lambda: m.step(st, odom, alphas, scan, field), 10)
+        out["mcl_unsharded_step_ms"] = par_timed(
+            lambda: mcl_mod.step(one, odom, alphas, scan, field, cfg, rc), 10)
+
+        # ShardedGridSLAM vs GridSLAM, PAR_SLAM_STEPS steps.
+        scfg, sodom, scans, spose = par_slam_setup(dev, blocked)
+        eng = ShardedGridSLAM(mesh, scfg)
+        ref = slam_mod.GridSLAM(scfg, seed=0, device=dev)
+        s1, s0 = eng.init(spose), ref.init(spose)
+        reset_counts()
+        for k in range(PAR_SLAM_STEPS):
+            s1 = eng.step(s1, sodom, scans[k % 2])
+        torch.cuda.synchronize()
+        for k, v in read_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        for k in range(PAR_SLAM_STEPS):
+            s0 = ref.step(s0, sodom, scans[k % 2])
+        check(par_equal_states(s1, s0), "world 1: ShardedGridSLAM != GridSLAM bit for bit")
+        out["slam_step_ms"] = par_timed(lambda: eng.step(s1, sodom, scans[0]), 8)
+        out["slam_unsharded_step_ms"] = par_timed(lambda: ref.step(s0, sodom, scans[0]), 8)
+
+        # The sharded resampler itself at 1M, one rank, vs the plain one.
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+        lw = torch.randn(n, generator=g, device=dev) * 6.0
+        ar = torch.arange(n, dtype=torch.float32, device=dev)
+        p = Particles(pose=Pose(x=ar, y=ar * 0.0, theta=ar * 0.0), log_weight=lw)
+        u0 = torch.tensor(0.37, device=dev)
+        _collectives.reset_counts()
+        got = systematic_resample_sharded(mesh, p, u0=u0)
+        coll = _collectives.counts()
+        want = resample_mod.resample(p, u0=u0)
+        share = float((got.pose.x != want.pose.x).float().mean())
+        check(share <= PAR_RESAMPLE_SHARE, f"world 1: sharded resampler differs on {share}")
+        out["resample_1m"] = {"differing_share": share, "collectives": coll,
+                              "ms": par_timed(lambda: systematic_resample_sharded(mesh, p, u0=u0), 5),
+                              "plain_ms": par_timed(lambda: resample_mod.resample(p, u0=u0), 5)}
+
+        # The sharded reductions over the NCCL axes, against the
+        # single-device functions on the same 1M cloud.
+        pax, bax = mesh.axis("p"), mesh.axis("b")
+        pp = Pose(x=torch.rand(n, generator=g, device=dev) * 800,
+                  y=torch.rand(n, generator=g, device=dev) * 800,
+                  theta=(torch.rand(n, generator=g, device=dev) * 2 - 1) * math.pi)
+        lw_meas = torch.randn(n, generator=g, device=dev) * 3.0
+        _collectives.reset_counts()
+        best_s, mode_s, ess_s = mcl_mod.estimate_sharded(pp, lw, lw_meas, cfg.mode_tau, pax)
+        best_u, mode_u = mcl_mod.estimate(pp, lw, lw_meas, cfg.mode_tau)
+        # The ESS against an f64 reference: the plain f32 `effective_sample_size`
+        # (squares of normalized weights) may round further from it at 1M
+        # than the sharded sums do, so both are read against f64.
+        w64 = torch.softmax(lw.double(), dim=0)
+        ess_ref = float(1.0 / torch.sum(w64 * w64))
+        ess_u = resample_mod.effective_sample_size(lw)
+        nan = torch.tensor(float("nan"), device=dev)
+        ema_s = mcl_mod.adaptive_emas(nan, nan, lw_meas, AdaptiveConfig(), pax)
+        ema_u = mcl_mod.adaptive_emas(nan, nan, lw_meas, AdaptiveConfig())
+        beams = torch.randn(n // 16, 90, generator=g, device=dev)
+        beam_s = measurement._beam_sum(beams, bax)
+        means_s = measurement._cloud_means([pp.x, pp.y], pax)
+        means_u = measurement._cloud_means([pp.x, pp.y], None)
+        red = {
+            "collectives": _collectives.counts(),
+            "best_pose_rel_err": par_close(best_s, best_u),
+            "mode_pose_rel_err": par_close(mode_s, mode_u),
+            "ess_rel_err": abs(float(ess_s) - ess_ref) / ess_ref,
+            "ess_plain_rel_err": abs(float(ess_u) - ess_ref) / ess_ref,
+            "ema_abs_err": max(abs(float(a) - float(b)) for a, b in zip(ema_s, ema_u)),
+            "beam_sum_bitwise": bool(torch.equal(beam_s, torch.sum(beams, dim=-1))),
+            "means_rel_err": max(abs(float(a) - float(b)) / abs(float(b))
+                                 for a, b in zip(means_s, means_u)),
+        }
+        check(red["collectives"]["calls"] > 0 and red["best_pose_rel_err"] == 0.0
+              and max(red["mode_pose_rel_err"], red["ess_rel_err"], red["means_rel_err"])
+              <= PAR_EST_RTOL and red["ema_abs_err"] <= PAR_EST_RTOL
+              and red["beam_sum_bitwise"],
+              f"world 1: a sharded reduction over NCCL differs from its plain one: {red}")
+        out["reductions_1m"] = red
+    finally:
+        distributed.shutdown()
+        shutil.rmtree(store, ignore_errors=True)
+    out["launches"] = launches
+    return out
+
+
+def par_rank_main(outdir: str) -> None:
+    """(b) One rank of a D-rank world on the one card over gloo: prints one
+    JSON line of its checks and times."""
+    import dataclasses as dc
+
+    from slam_tpu_torch.core.config import HybridAStarConfig, MapConfig, MCLConfig
+    from slam_tpu_torch.core.config import RaycastConfig, SLAMConfig, LidarConfig
+    from slam_tpu_torch.core import grid as gridlib
+    from slam_tpu_torch.core.types import Particles, Pose
+    from slam_tpu_torch.models import fake_lidar
+    from slam_tpu_torch.models import fleet as fleet_mod
+    from slam_tpu_torch.models import mcl as mcl_mod
+    from slam_tpu_torch.models import slam as slam_mod
+    from slam_tpu_torch.ops import edt as edtlib
+    from slam_tpu_torch.ops import lut_weights_cuda, measurement, motion_cuda, pano_cuda
+    from slam_tpu_torch.ops import resample as resample_mod
+    from slam_tpu_torch.ops.raycast import raycast_march
+    from slam_tpu_torch.parallel import ShardedGridSLAM, ShardedMCL, ShardedMCLFleet
+    from slam_tpu_torch.parallel import _collectives, distributed, make_mesh, shard_state
+    from slam_tpu_torch.parallel import edt as pedt
+    from slam_tpu_torch.parallel import mapshard
+    from slam_tpu_torch.parallel.resample import systematic_resample_sharded
+    from slam_tpu_torch.parallel.sharded import gather_particles, particle_sharding
+    from slam_tpu_torch.planners import HybridAStar
+    from slam_tpu_torch.tools import fleet_bench
+    from slam_tpu_torch.tools.maze_bench import find_start, procedural_maze
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    distributed.initialize(f"file://{outdir}/store", world, rank, backend="gloo", device=dev)
+    gather = pano_cuda.gather_rows
+    sampler = motion_cuda.sample_motion_model_odometry_fused
+    fused = lut_weights_cuda.launch
+    launches = {"gather_rows": 0, "motion_odometry": 0, "lut_weights": 0}
+
+    def counted(fn):
+        """Run a main-path call with the launch counts zeroed; add its."""
+        gather.launches = sampler.launches = fused.launches = 0
+        r = fn()
+        for k, v in (("gather_rows", gather.launches), ("motion_odometry", sampler.launches),
+                     ("lut_weights", fused.launches)):
+            launches[k] += v
+        return r
+
+    res = {"rank": rank, "world": world, "backend": "gloo"}
+    mesh = make_mesh()
+    pax = mesh.axis("p")
+    blocked, field, rc, cfg, scan, pose0, odom, alphas = par_mcl_setup(dev)
+    n = cfg.n_particles
+    l = n // world
+    sl = slice(rank * l, (rank + 1) * l)
+
+    # The fused kernel with i0 on a uniform free-space cloud.
+    rng = np.random.default_rng(0)
+    free = np.argwhere(~blocked.cpu().numpy())
+    pick = free[rng.integers(0, len(free), n)]
+    h = blocked.shape[0]
+    cloud = Pose(x=torch.tensor(pick[:, 1] + 0.5, dtype=torch.float32, device=dev),
+                 y=torch.tensor(h - pick[:, 0] - 0.5, dtype=torch.float32, device=dev),
+                 theta=torch.tensor(rng.uniform(-math.pi, math.pi, n), dtype=torch.float32,
+                                    device=dev))
+    seed = torch.tensor([12345], dtype=torch.int64, device=dev)
+    full_pose, full_lw = mcl_mod.predict_weigh(cloud, scan, field, cfg, rc, seed, odom, alphas)
+    part = Pose(*(getattr(cloud, f)[sl].contiguous() for f in ("x", "y", "theta")))
+    part_pose, part_lw = mcl_mod.predict_weigh(part, scan, field, cfg, rc, seed, odom, alphas,
+                                               i0=rank * l)
+    check(all(torch.equal(getattr(part_pose, f), getattr(full_pose, f)[sl])
+              for f in ("x", "y", "theta")) and torch.equal(part_lw, full_lw[sl]),
+          f"rank {rank}: the fused kernel with i0 != slice of the whole launch")
+    res["fused_i0_bitwise"] = True
+
+    # ShardedMCL at 1M, beam_axis 1: one step without resampling vs the
+    # unsharded step on this rank.
+    cfg0 = dc.replace(cfg, ess_threshold=0.0)
+    one = mcl_mod.step(mcl_mod.init(mcl_mod.make_generator(0, dev), n, pose0), odom, alphas,
+                       scan, field, cfg0, rc)
+    m0 = ShardedMCL(mesh, cfg0, rc)
+    st = shard_state(mcl_mod.init(mcl_mod.make_generator(0, dev), n, pose0), mesh, n)
+    _collectives.reset_counts()
+    st = counted(lambda: m0.step(st, odom, alphas, scan, field))
+    res["mcl_collectives_per_step_no_resample"] = _collectives.counts()
+    p, q = st.particles, one.particles
+    check(all(torch.equal(getattr(p.pose, f), getattr(q.pose, f)[sl]) for f in ("x", "y", "theta"))
+          and torch.equal(p.log_weight, q.log_weight[sl]),
+          f"rank {rank}: ShardedMCL poses / log weights != world 1")
+    est = max(par_close(st.best_pose, one.best_pose), par_close(st.mode_pose, one.mode_pose))
+    check(est <= PAR_EST_RTOL, f"rank {rank}: ShardedMCL estimate off by {est}")
+    res["mcl_estimate_rel_err"] = est
+    # The sharded resampler on this step's weights (poses = global index)
+    # vs the plain one on the whole cloud.
+    ar = torch.arange(n, dtype=torch.float32, device=dev)
+    u0 = torch.tensor(0.37, device=dev)
+    got = systematic_resample_sharded(mesh, Particles(
+        pose=Pose(x=ar[sl].contiguous(), y=ar[sl] * 0.0, theta=ar[sl] * 0.0),
+        log_weight=p.log_weight), u0=u0)
+    got_x = pax.all_gather(got.pose.x).reshape(-1)
+    want_x = resample_mod.resample(Particles(pose=Pose(x=ar, y=ar * 0.0, theta=ar * 0.0),
+                                             log_weight=q.log_weight), u0=u0).pose.x
+    share = float((got_x != want_x).float().mean())
+    check(share <= PAR_RESAMPLE_SHARE, f"rank {rank}: resampled slots differ on {share}")
+    res["mcl_resample_differing_share"] = share
+    m = ShardedMCL(mesh, cfg, rc)
+    st = shard_state(mcl_mod.init(mcl_mod.make_generator(0, dev), n, pose0), mesh, n)
+    for _ in range(2):
+        st = counted(lambda: m.step(st, odom, alphas, scan, field))
+    _collectives.reset_counts()
+    st = counted(lambda: m.step(st, odom, alphas, scan, field))
+    res["mcl_collectives_per_step"] = _collectives.counts()
+
+    def mcl_step():
+        nonlocal st
+        st = counted(lambda: m.step(st, odom, alphas, scan, field))
+
+    res["mcl_step_ms"] = par_timed(mcl_step, 10)
+
+    # ShardedGridSLAM at 1M: one step vs world 1, then PAR_SLAM_STEPS.
+    scfg, sodom, scans, spose = par_slam_setup(dev, blocked)
+    ref = slam_mod.GridSLAM(scfg, seed=0, device=dev)
+    r1 = ref.step(ref.init(spose), sodom, scans[0])
+    eng = ShardedGridSLAM(mesh, scfg)
+    s = eng.init(spose)
+    _collectives.reset_counts()
+    s = counted(lambda: eng.step(s, sodom, scans[0]))
+    coll = _collectives.counts()
+    check(coll["largest_all_gather"] <= world * 16,
+          f"rank {rank}: an all-gather of {coll['largest_all_gather']} elements in the step")
+    res["slam_collectives_step1"] = coll
+    # The map follows the mode estimate, a sum over the shards whose
+    # rounding differs from one rank's: a beam on a cell edge may map
+    # another cell.
+    grid_differ = float((s.grid != r1.grid).float().mean())
+    check(grid_differ <= PAR_RESAMPLE_SHARE,
+          f"rank {rank}: SLAM grid after step 1 differs from world 1 on {grid_differ}")
+    est = max(par_close(s.est_pose, r1.est_pose), par_close(s.mcl.mode_pose, r1.mcl.mode_pose))
+    check(est <= PAR_EST_RTOL, f"rank {rank}: SLAM estimate off by {est}")
+    whole = gather_particles(mesh, s)
+    rp = r1.mcl.particles
+    differ = float(((whole[0] != rp.pose.x) | (whole[1] != rp.pose.y)).float().mean())
+    check(differ <= PAR_RESAMPLE_SHARE, f"rank {rank}: SLAM particles differ on {differ}")
+    res["slam_step1"] = {"estimate_rel_err": est, "differing_particles": differ,
+                         "differing_grid_cells": grid_differ}
+    t_steps = []
+    for k in range(1, PAR_SLAM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = counted(lambda: eng.step(s, sodom, scans[k % 2]))
+        torch.cuda.synchronize()
+        t_steps.append((time.perf_counter() - t0) * 1e3)
+    grids = pax.all_gather(s.grid)
+    check(all(torch.equal(grids[k], s.grid) for k in range(world)),
+          f"rank {rank}: the replicated grids differ between ranks")
+    res["slam_step_ms"] = statistics.median(t_steps)
+    res["slam_grids_identical"] = True
+
+    # MapShardedGridSLAM on the 2400 px maze, the map in row blocks.
+    maze_np = procedural_maze(2400, 40)
+    maze = torch.from_numpy(maze_np).to(dev)
+    mesh_b = make_mesh(beam_axis=world)  # every rank a row block
+    rows = mapshard.grid_rows(mesh_b, 2400)
+    mcfg = SLAMConfig(
+        mcl=MCLConfig(n_particles=PAR_MAZE_PARTICLES, meas_stddev=5.0,
+                      measurement="likelihood_field_table", lf_table_box=128),
+        map=MapConfig(height=2400, width=2400),
+        lidar=LidarConfig(start=0.0, stop=math.pi, max_dist=500.0, n_rays=90),
+        raycast=RaycastConfig(step=0.5, max_dist=500.0, backend="sdf"))
+    cap = 5.0 * mcfg.mcl.meas_stddev + 2.0
+    _collectives.reset_counts()
+    e_sh = pedt.edt_capped_sharded(mesh_b, maze[rows], max_dist=cap, full_shape=(2400, 2400))
+    halo = _collectives.counts()
+    e_rep = edtlib.edt_capped(maze, cap)
+    check(torch.equal(e_sh, e_rep[rows]), f"rank {rank}: sharded capped EDT != replicated")
+    g2 = torch.Generator(device=dev)
+    g2.manual_seed(1)
+    rays = [torch.rand(100_000, generator=g2, device=dev) * 2400,
+            torch.rand(100_000, generator=g2, device=dev) * 2400,
+            (torch.rand(100_000, generator=g2, device=dev) * 2 - 1) * math.pi]
+    d_sh, h_sh = mapshard.raycast_march_sharded(mesh_b, maze[rows], *rays, full_h=2400,
+                                                step=0.5, max_dist=500.0)
+    d_rep, h_rep = raycast_march(maze, *rays, step=0.5, max_dist=500.0)
+    check(torch.equal(h_sh, h_rep) and torch.equal(torch.where(h_rep, d_sh, 0.0),
+                                                   torch.where(h_rep, d_rep, 0.0)),
+          f"rank {rank}: sharded march != replicated")
+    sx, sy = find_start(maze_np, dev)
+    mpose = Pose.create(sx, sy, 0.0, device=dev)
+    mscan = fake_lidar.scan(maze, measurement.sensor_pose(mpose, mcfg.mcl.scanner_offset),
+                            mcfg.lidar, mcfg.raycast)
+    full_grid = torch.where(maze, mcfg.map.l_max, mcfg.map.l_min).to(torch.float32)
+    mref = slam_mod.GridSLAM(mcfg, seed=0, device=dev)
+    r0 = mref.init(mpose)
+    r0 = mref.step(r0.replace(grid=full_grid.clone()), sodom, mscan)
+    meng = mapshard.MapShardedGridSLAM(mesh_b, mcfg)
+    ms = meng.init(mpose)
+    ms = ms.replace(grid=full_grid[rows].contiguous())
+    ms = counted(lambda: meng.step(ms, sodom, mscan))
+    grid_all = mesh_b.axis("b").all_gather(ms.grid).reshape(2400, 2400)
+    mp, rp = ms.mcl.particles, r0.mcl.particles
+    lw_err = float((mp.log_weight - rp.log_weight).abs().max())
+    differ = float(((mp.pose.x != rp.pose.x) | (mp.pose.y != rp.pose.y)).float().mean())
+    check(torch.equal(grid_all, r0.grid), f"rank {rank}: map-sharded grid != GridSLAM")
+    check(differ <= PAR_RESAMPLE_SHARE and par_close(ms.est_pose, r0.est_pose) <= PAR_EST_RTOL,
+          f"rank {rank}: map-sharded step differs from GridSLAM ({differ}, {lw_err})")
+    res["maze"] = {"edt_bitwise": True, "edt_halo_collectives": halo,
+                   "march_bitwise": True, "step_lw_max_abs": lw_err,
+                   "step_differing_particles": differ,
+                   "step_ms": par_timed(lambda: meng.step(ms, sodom, mscan), 5)}
+
+    # ShardedMCLFleet: robots over the ranks == MCLFleet bit for bit.
+    r_all, n_fl = PAR_FLEET
+    lidar_f, rc_f, cfg_f = fleet_bench.configs(n_fl)
+    poses, odoms, fscans = fleet_bench.fleet_inputs(blocked, r_all, lidar_f, cfg_f,
+                                                    np.random.default_rng(7))
+    fl = fleet_mod.MCLFleet(r_all, cfg_f, rc_f, seed=0, device=dev)
+    fs = fl.init(poses)
+    sf = ShardedMCLFleet(mesh, r_all, cfg_f, rc_f, seed=0)
+    ss = sf.init(poses)
+    _collectives.reset_counts()
+    for _ in range(2):
+        fs = fl.step(fs, odoms, fscans, field, fleet_bench.ALPHAS)
+        ss = counted(lambda: sf.step(ss, odoms, fscans, field, fleet_bench.ALPHAS))
+    check(_collectives.counts()["calls"] == 0, f"rank {rank}: the fleet step called a collective")
+    mine = sf.robots
+    check(all(torch.equal(getattr(ss.particles.pose, f), getattr(fs.particles.pose, f)[mine])
+              for f in ("x", "y", "theta"))
+          and torch.equal(ss.particles.log_weight, fs.particles.log_weight[mine]),
+          f"rank {rank}: ShardedMCLFleet != MCLFleet")
+
+    def fleet_step():
+        nonlocal ss
+        ss = counted(lambda: sf.step(ss, odoms, fscans, field, fleet_bench.ALPHAS))
+
+    res["fleet"] = {"robots": r_all, "particles": n_fl, "robots_per_rank": r_all // world,
+                    "bitwise": True, "step_ms": par_timed(fleet_step, 5)}
+
+    # Lattice HA* queries spread over the ranks.
+    free_w = np.ones((64, 64), bool)
+    free_w[:, 31:33] = False
+    free_w[28:38, 31:33] = True
+    hcfg = HybridAStarConfig(velocity=4.0, length=4.0 / math.tan(40 * math.pi / 180) * 2,
+                             theta_res=12, branching_factor=3, tol=4.0, batch=64,
+                             mode="lattice")
+    qs = [((10.0, 32.0, 0.0), (54.0, 32.0, 0.0)), ((10.0, 10.0, 0.0), (50.0, 50.0, 0.0)),
+          ((54.0, 10.0, 0.0), (10.0, 50.0, 0.0)), ((50.0, 50.0, 0.0), (10.0, 12.0, 0.0))]
+    queries = [(Pose.create(*a, device=dev), Pose.create(*b, device=dev)) for a, b in qs]
+    hp = HybridAStar(free_w, queries[0][0], queries[0][1], hcfg, device=dev)
+    want = hp.solve_many(queries, 400)
+    want_paths = [hp.recover_path_for(k) for k in range(len(qs))]
+    t0 = time.perf_counter()
+    got = hp.solve_many(queries, 400, query_sharding=particle_sharding(mesh))
+    hs = (time.perf_counter() - t0) * 1e3
+    check(got == want and all(hp.recover_path_for(k) == want_paths[k] for k in range(len(qs))),
+          f"rank {rank}: sharded solve_many != unsharded")
+    res["hastar"] = {"queries": len(qs), "solved": sum(a for a, _ in got), "paths_equal": True,
+                     "sharded_ms": hs}
+    res["launches"] = launches
+    print(json.dumps(res), flush=True)
+    distributed.shutdown()
+
+
+def parallel_phase(dev, counts) -> dict:
+    """Phase 23: (a) world 1 over NCCL here, (b) D = 2 and 4 ranks sharing
+    the card over gloo, each world in subprocesses under a wall-clock
+    limit, every rank's exit code checked."""
+    import shutil
+    import tempfile
+
+    from slam_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    out = {"world1": parallel_world1(dev, counts)}
+    launches = dict(out["world1"]["launches"])
+    for d in PAR_WORLDS:
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_d{d}_")
+        try:
+            rcs, outs, errs, secs = distributed.launch_world(
+                [sys.executable, os.path.abspath(__file__), "--parallel-rank", tmp], d,
+                timeout_s=PAR_WORLD_LIMIT_S)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if rcs != [0] * d:
+            for r, (rc, e) in enumerate(zip(rcs, errs)):
+                if rc != 0:
+                    print(f"[parallel] world {d} rank {r} rc {rc}:\n{e[-4000:]}", flush=True)
+            check(False, f"world of {d} ranks: exit codes {rcs}")
+        ranks = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+        for r in ranks:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        r0 = ranks[0]
+        out[f"world{d}"] = {
+            "label": f"{d} ranks sharing one card (gloo); not a multi-GPU result",
+            "seconds": secs, "backend": r0["backend"],
+            # Bytes copied through the host: only gloo's ppermute (the EDT
+            # halo) stages a CUDA buffer; every other collective runs on the card.
+            "staged_bytes": {"mcl_step": r0["mcl_collectives_per_step"]["staged_bytes"],
+                             "slam_step": r0["slam_collectives_step1"]["staged_bytes"],
+                             "maze_edt_halo": r0["maze"]["edt_halo_collectives"]["staged_bytes"]},
+            **{k: r0[k] for k in ("mcl_step_ms", "slam_step_ms", "mcl_estimate_rel_err",
+                                  "mcl_resample_differing_share", "slam_step1",
+                                  "slam_collectives_step1", "mcl_collectives_per_step",
+                                  "maze", "fleet", "hastar")},
+            "mcl_step_ms_per_rank": [r["mcl_step_ms"] for r in ranks],
+            "slam_step_ms_per_rank": [r["slam_step_ms"] for r in ranks],
+        }
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2558,18 +3108,26 @@ def main() -> None:
         say("apps", json.dumps({**ap, "device": name, "power_limit": power}))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-22 "
+
+    # 23. parallel/: world 1 over NCCL here, then D ranks sharing the card.
+    t0 = time.perf_counter()
+    par = parallel_phase(dev, counts)
+    phase_s["parallel"] = time.perf_counter() - t0
+    say("parallel", json.dumps({**par, "device": name, "power_limit": power}))
+    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-23 "
         f"{time.perf_counter() - t_new:.1f} s {json.dumps(phase_s)}")
 
     # Launches: the counts of the main paths' runs (phase 7's mcl.step,
     # phase 9's SLAM step, phase 15's global localization, phase 16's auto
     # tier, phase 18's scan-matched SLAM step, phase 19's RBPF, phase 20's
     # maze steps through both tables, phase 21's fleet steps, phase 22's
-    # apps). K2 left the MCL step with this kernel line's third entry;
-    # phases 3, 5 and 6 still hold it to rows[idx].
+    # apps, phase 23's sharded engines on every rank of every world). K2
+    # left the MCL step with this kernel line's third entry; phases 3, 5
+    # and 6 still hold it to rows[idx].
     main_launches = {k: launches[k] + slam_launches[k] + gl["launches"][k]
                      + auto["launches_after_step_5"][k] + sm["launches"][k] + rb["launches"][k]
                      + mz["launches"][k] + fl["launches"][k] + ap["launches"][k]
+                     + par["launches"].get(k, 0)
                      for k in launches}
     lw_fleet = fl["kernel_fleet"]
     lw_maze = mz["maze"]["lut"]["lut_weights_vs_plain"]
@@ -2623,5 +3181,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--parallel-rank":
+        par_rank_main(sys.argv[2])  # one rank of a phase-23 world
+    else:
+        main()
     sys.exit(0)

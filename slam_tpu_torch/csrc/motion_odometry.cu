@@ -16,6 +16,11 @@
 // 4 B loads and stores, a bounds check in place of the TPU's padding to
 // 256x128 tiles, and the seed read from device memory so the caller never
 // syncs with the host to draw it.
+//
+// `i0` is the global index of the launch's first particle: particle i
+// draws Philox counter i0 + i. A rank that holds particles [i0, i0 + n)
+// of a sharded filter and the filter's seed so draws exactly what the
+// unsharded launch draws for them (slam_tpu_torch/parallel/).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,11 +35,11 @@ __global__ void __launch_bounds__(kThreads) motion_odometry_kernel(
     const long long* __restrict__ seed, slam_motion::OdomParams mp,
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ th, float* __restrict__ ox,
-    float* __restrict__ oy, float* __restrict__ oth, long long n) {
+    float* __restrict__ oy, float* __restrict__ oth, long long n, long long i0) {
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
-  slam_motion::sample_odometry(static_cast<unsigned long long>(seed[0]), i, mp,
-                               x[i], y[i], th[i], ox + i, oy + i, oth + i);
+  slam_motion::sample_odometry(static_cast<unsigned long long>(seed[0]), i0 + i,
+                               mp, x[i], y[i], th[i], ox + i, oy + i, oth + i);
 }
 
 }  // namespace
@@ -44,7 +49,7 @@ extern "C" int motion_odometry_launch(const void* seed, float r1, float t,
                                       float std_r2, const void* x,
                                       const void* y, const void* th, void* ox,
                                       void* oy, void* oth, long long n,
-                                      void* stream) {
+                                      long long i0, void* stream) {
   if (n <= 0) return 0;
   const long long blocks = (n + kThreads - 1) / kThreads;
   const slam_motion::OdomParams mp{r1, t, r2, std_r1, std_t, std_r2};
@@ -53,6 +58,6 @@ extern "C" int motion_odometry_launch(const void* seed, float r1, float t,
       static_cast<const long long*>(seed), mp, static_cast<const float*>(x),
       static_cast<const float*>(y), static_cast<const float*>(th),
       static_cast<float*>(ox), static_cast<float*>(oy),
-      static_cast<float*>(oth), n);
+      static_cast<float*>(oth), n, i0);
   return static_cast<int>(cudaGetLastError());
 }

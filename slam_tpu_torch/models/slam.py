@@ -16,8 +16,10 @@ estimate on the device (`ops/scanmatch.py`), and ``likelihood_field_auto``
 runs through `GridSLAM`'s host-lagged `AutoTierDispatcher` (in `step`
 itself, through `mcl.update`'s both-tiers selection).
 
-Not ported yet: `ray_sharding` and `resample_fn` (ROADMAP.md Queue 1 item
-5, `parallel/`); they raise NotImplementedError.
+Under a `ray_sharding` (`slam_tpu_torch/parallel/sharded.py`) each rank
+steps its particle shard with the sharded `mcl` functions; the map pose
+is a global estimate, so every rank applies the same map update and the
+replicated grids stay identical.
 """
 
 from __future__ import annotations
@@ -115,8 +117,10 @@ def step(
 ) -> SLAMState:
     """One full SLAM step (predict + update + [refine] + map + resample).
     `noise` (CPU only) and `u0` inject the motion draws and the
-    resampler's uniform."""
-    st = mcl_mod.predict(state.mcl, odom, cfg.motion.alphas, noise=noise)
+    resampler's uniform. `ray_sharding` and `resample_fn` are
+    `mcl.update`'s: the state is one particle shard of a sharded filter."""
+    st = mcl_mod.predict(state.mcl, odom, cfg.motion.alphas, noise=noise,
+                         ray_sharding=ray_sharding)
     blocked = gridlib.blocked_from_logodds(state.grid)
 
     # The likelihood-field measurements and the scan-matching refinement
@@ -148,7 +152,7 @@ def step(
     # `ScanMatchConfig.mapping`).
     mp = resolve_map_pose(cfg)
     if mp == "mean":
-        map_pose = mcl_mod.mean_pose(st)
+        map_pose = mcl_mod.mean_pose(st, ray_sharding)
     elif mp == "mode":
         map_pose = st.mode_pose
     else:
@@ -182,9 +186,11 @@ def step(
     return SLAMState(mcl=st, grid=new_grid, est_pose=est_pose, edt=new_edt)
 
 
-def predict_only(state: SLAMState, odom: Odometry, cfg: SLAMConfig) -> SLAMState:
+def predict_only(state: SLAMState, odom: Odometry, cfg: SLAMConfig,
+                 ray_sharding=None) -> SLAMState:
     """Motion-only step for frames without a scan."""
-    return state.replace(mcl=mcl_mod.predict(state.mcl, odom, cfg.motion.alphas))
+    return state.replace(mcl=mcl_mod.predict(state.mcl, odom, cfg.motion.alphas,
+                                             ray_sharding=ray_sharding))
 
 
 class AutoTierDispatcher:
@@ -206,9 +212,11 @@ class AutoTierDispatcher:
     ``make_step(cfg) -> fn(state, odom, scan)`` builds the engine's step
     for a forced-measurement config. ``host_reads`` counts the predicate
     reads and ``tiers`` records the tier each step ran ("table" or
-    "direct")."""
+    "direct"). Under ``ray_sharding`` the predicate is the whole sharded
+    cloud's, so every rank reads the same tier."""
 
-    def __init__(self, cfg: SLAMConfig, make_step, check_every: Optional[int] = None):
+    def __init__(self, cfg: SLAMConfig, make_step, check_every: Optional[int] = None,
+                 ray_sharding=None):
         self._step_table = make_step(dataclasses.replace(
             cfg, mcl=dataclasses.replace(cfg.mcl, measurement="likelihood_field_table")))
         self._step_direct = make_step(dataclasses.replace(
@@ -216,6 +224,7 @@ class AutoTierDispatcher:
         if check_every is None:
             check_every = 1 if cfg.mcl.adaptive is not None else 4
         self._cfg = cfg
+        self._sharding = ray_sharding
         self._flag = None
         self.check_every = check_every
         self.reset()
@@ -231,7 +240,7 @@ class AutoTierDispatcher:
         cfg = self._cfg
         return measurement.lf_auto_converged(
             state.mcl.particles.pose, cfg.mcl, cfg.map.shape,
-            scanner_offset=cfg.mcl.scanner_offset)
+            scanner_offset=cfg.mcl.scanner_offset, ray_sharding=self._sharding)
 
     def read_tier(self, state) -> bool:
         """Settle the tier the next step runs: the pending lagged predicate

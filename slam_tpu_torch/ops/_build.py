@@ -39,9 +39,9 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # (seed*, r1, t, r2, std_r1, std_t, std_r2, x*, y*, th*, ox*, oy*, oth*,
-    #  n, stream)
+    #  n, i0, stream)
     "motion_odometry_launch": (
-        [_P] + [ctypes.c_float] * 6 + [_P] * 6 + [ctypes.c_longlong, _P]
+        [_P] + [ctypes.c_float] * 6 + [_P] * 6 + [ctypes.c_longlong] * 2 + [_P]
     ),
     # (rows*, idx*, out*, n, row_bytes, vec_bytes, stream)
     "gather_rows_launch": (
@@ -50,11 +50,11 @@ _SIGNATURES = {
     # (predict, table_u8, seed*, odo*, a0, a1, a2, a3, x*, y*, th*, ox*,
     #  oy*, oth*, lut*, row_stride, h, w, n_bins, g, angles*, dists*,
     #  n_beams, sensor_d, sensor_th, sensor_rot, binw, max_dist, inv_stddev,
-    #  clamp, inv_norm, eps, quant, lw*, n, n_robots, stream)
+    #  clamp, inv_norm, eps, quant, lw*, n, i0, n_robots, stream)
     "lut_weights_launch": (
         [ctypes.c_int] * 2 + [_P] * 2 + [ctypes.c_float] * 4 + [_P] * 7
         + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P] * 2 + [ctypes.c_int]
-        + [ctypes.c_float] * 10 + [_P, ctypes.c_longlong, ctypes.c_int, _P]
+        + [ctypes.c_float] * 10 + [_P] + [ctypes.c_longlong] * 2 + [ctypes.c_int, _P]
     ),
 }
 

@@ -88,6 +88,7 @@ def _robot_inputs(poses: Pose, scan: Scan, seed, odo, dev):
 def launch(
     lut: torch.Tensor, n_bins: int, poses: Pose, scan: Scan, *, beam_stride: int,
     displacement, max_dist: float, stddev: float, eps: float, motion=None,
+    i0: int = 0,
 ):
     """Run the kernel: `lut` [H, W, P] bf16 or u8 on a CUDA device (P >=
     n_bins storage width), poses f32 [N] there (one filter) or [R, N] (R
@@ -96,7 +97,9 @@ def launch(
     (`measurement.scanner_displacement`). With `motion` = (seed int64 [R]
     and odometry f32 [R, 3] (rot1, trans, rot2; `motion_cuda.
     odometry_rows`), both on the device, and the four alphas) the poses
-    are first sampled with K1's sampler, robot r with seed[r] and odo[r].
+    are first sampled with K1's sampler, robot r with seed[r] and odo[r],
+    particle i with Philox counter `i0` + i (`i0`: the global index of a
+    particle shard's first particle, 0 for a whole filter or a fleet).
     Returns (the sampled poses, or None without `motion`; lw f32 [N] or
     [R, N])."""
     if not lut.is_cuda:
@@ -135,7 +138,7 @@ def launch(
             *(float(a) for a in alphas),
             x.data_ptr(), y.data_ptr(), th.data_ptr(), *o, lut.data_ptr(),
             stride, h, w, n_bins, g, angles.data_ptr(), dists.data_ptr(), n_beams,
-            *(float(p) for p in params), lw.data_ptr(), n, r, stream,
+            *(float(p) for p in params), lw.data_ptr(), n, int(i0), r, stream,
         )
     _build.check(code, "lut_weights_launch")
     launch.launches += 1

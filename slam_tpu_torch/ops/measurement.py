@@ -3,9 +3,18 @@ model (raycast or fused LUT panorama route) and the likelihood field,
 direct or through the boxed correlative score table of the SLAM step.
 
 Also the auto tier's predicate `lf_auto_converged` and the notebook's
-probabilistic beam model `beam_weights_probabilistic`. Not ported: the
-sharded table build (`bin_sharding`, `ray_sharding`, `lpad=`; ROADMAP.md
-Queue 1 item 5, `parallel/`).
+probabilistic beam model `beam_weights_probabilistic`.
+
+Sharding (`slam_tpu_torch/parallel/`): a `ray_sharding` (a
+`parallel.mesh.Sharding` over ('p', 'b')) splits each particle's beams
+over its 'b' axis, each rank summing its beams' log weights and one psum
+over 'b' adding the parts (the fused LUT route keeps every beam on every
+rank: its bins follow from the first beam's), builds the correlative
+table's heading bins split over 'b' (`bin_sharding`, then one all-gather
+of the table), and takes the cloud statistics of the table window and of
+the auto tier over its 'p' axis. `lpad=` hands `lf_score_table` the
+padded score window that the map-sharded engine assembles from a
+distributed EDT (`parallel/edt.py:lf_window_sharded`).
 """
 
 from __future__ import annotations
@@ -22,6 +31,33 @@ from slam_tpu_torch.core.types import Pose, Scan
 from slam_tpu_torch.ops import lut as lutlib
 from slam_tpu_torch.ops import lut_weights_cuda
 from slam_tpu_torch.ops.rayfield import as_ray_field, raycast_field
+from slam_tpu_torch.parallel.mesh import beam_axis, particle_axis, split_range
+
+
+def _beam_part(scan: Scan, ray_sharding):
+    """(this rank's beams of `scan`, the 'b' `Axis` that sums the parts,
+    or None when the beams are not split)."""
+    bax = beam_axis(ray_sharding)
+    if bax is None:
+        return scan, None
+    lo, hi = split_range(scan.angles.shape[-1], bax)
+    return Scan(angles=scan.angles[lo:hi], dists=scan.dists[lo:hi]), bax
+
+
+def _beam_sum(lw, bax):
+    """Sum of per-beam log weights [N, B] over the beams, all of them when
+    split over `bax`."""
+    lw = torch.sum(lw, dim=-1)
+    return lw if bax is None else bax.psum(lw)
+
+
+def _cloud_means(vals, ax):
+    """Means of the [N] tensors `vals` over the particle axis, over the
+    whole sharded cloud with a 'p' `Axis` `ax` (one psum)."""
+    if ax is None:
+        return [torch.mean(v) for v in vals]
+    n = ax.size * vals[0].shape[-1]
+    return list(ax.psum(torch.stack([torch.sum(v) for v in vals])) / n)
 
 
 def scanner_displacement(scanner_offset):
@@ -217,19 +253,22 @@ def particle_log_weights(
     stddev: float = 5.0,
     eps: float = 0.1,
     lut_beam_stride=None,
+    ray_sharding=None,
 ):
     """Log measurement likelihood f32[N] of every particle given one scan
     (the log of `slam/mcl.cpp:69-75`'s product of beam weights).
 
     `field` is a `RayField` or a raw bool[H, W] blocked mask. With the lut
     backend and a `lut_beam_stride`, the fused panorama route; otherwise one
-    raycast per (particle, beam) through `raycast_field`."""
+    raycast per (particle, beam) through `raycast_field`, the beams split
+    over the 'b' axis of `ray_sharding`."""
     field = as_ray_field(field, rc)
     if lut_beam_stride is not None and rc.backend == "lut" and field.lut is not None:
         return particle_log_weights_lut_fused(
             field, poses, scan, rc=rc, beam_stride=lut_beam_stride,
             scanner_offset=scanner_offset, stddev=stddev, eps=eps,
         )
+    scan, bax = _beam_part(scan, ray_sharding)
     sp = sensor_pose(poses, scanner_offset)
     angles = sp.theta[:, None] + scan.angles[None, :]  # [N, B]
     px = sp.x[:, None].expand(angles.shape)
@@ -239,15 +278,13 @@ def particle_log_weights(
         pred, hit, scan.dists[None, :],
         stddev=stddev, max_dist=rc.max_dist, eps=eps,
     )
-    return torch.sum(lw, dim=-1)
+    return _beam_sum(lw, bax)
 
 
 # --------------------------------------------------------------------------
 # Likelihood field (Thrun et al. table 6.3), direct and through the boxed
 # correlative score table.
 # --------------------------------------------------------------------------
-
-_SHARDING = "is not ported to slam_tpu_torch yet (ROADMAP.md Queue 1 item 5, parallel/)"
 
 # Elements of one gathered [T, beams, si, sj] window stack in the table
 # build (256 MiB in f32): beams are taken in chunks of at most this size.
@@ -277,10 +314,10 @@ def particle_log_weights_likelihood_field(
     """Likelihood-field log weights f32[N]: each beam endpoint scores
     log(z_hit * N(edt at its cell; sigma) + z_rand / z_max); max-range
     beams score 0 (no endpoint information) and out-of-map endpoints the
-    z_rand floor. One EDT gather per (particle, beam)."""
-    if ray_sharding is not None:
-        raise NotImplementedError(f"ray_sharding {_SHARDING}")
+    z_rand floor. One EDT gather per (particle, beam); the beams split
+    over the 'b' axis of `ray_sharding`."""
     field = as_ray_field(field, rc)
+    scan, bax = _beam_part(scan, ray_sharding)
     _needs_edt(field, "likelihood_field")
     h, w = field.edt.shape
     sp = sensor_pose(poses, scanner_offset)
@@ -296,7 +333,7 @@ def particle_log_weights_likelihood_field(
     p = z_hit * p_hit + z_rand / rc.max_dist
     lw = torch.log(torch.clamp(p, min=1e-30))
     lw = torch.where(z >= rc.max_dist, 0.0, lw)
-    return torch.sum(lw, dim=-1)
+    return _beam_sum(lw, bax)
 
 
 def lf_log_score_field(edt, *, stddev, z_hit, z_rand, max_dist):
@@ -354,30 +391,61 @@ def lf_score_table(
     are rows of an `unfold` view of it, so one advanced-indexing op
     gathers the windows of all bins and a chunk of beams; beams are
     valid-masked and summed in f32 (``dtype="bf16"`` stores the score
-    field in bf16, accumulation stays f32)."""
-    if bin_sharding is not None or lpad is not None:
-        raise NotImplementedError(f"bin_sharding / lpad {_SHARDING}")
+    field in bf16, accumulation stays f32).
+
+    ``bin_sharding`` (a `parallel.mesh.Sharding` whose spec names the 'b'
+    axis) builds the bins split over that axis, each rank its contiguous
+    share, and all-gathers the table; a bin count the axis does not divide
+    gives the first ranks one bin more, each part padded to the largest
+    for the all-gather. ``lpad`` supplies the padded score window
+    itself ([si + 2 pad, sj + 2 pad], row 0 = the padded field's row i0 -
+    pad; needs ``out_shape``): ``edt`` is then read only for its shape."""
     h, w = edt.shape
     dev = edt.device
     si, sj = (h, w) if out_shape is None else out_shape
     pad = int(math.ceil(rc.max_dist)) + 1
     floor_val = float(math.log(max(z_rand / rc.max_dist, 1e-30)))
     store = torch.bfloat16 if dtype == "bf16" else torch.float32
-    score = lf_log_score_field(
-        edt, stddev=stddev, z_hit=z_hit, z_rand=z_rand, max_dist=rc.max_dist
-    ).to(store)
-    if origin is None:
-        lpad = torch.nn.functional.pad(score, (pad, pad, pad, pad), value=floor_val)
+    bax = beam_axis(bin_sharding)
+    t_all = headings.shape[0]
+    if bax is not None:
+        q = -(-t_all // bax.size)  # the largest part
+        lo, hi = split_range(t_all, bax)
+        part = torch.zeros((0, si, sj), dtype=torch.float32, device=dev)
+        if hi > lo:
+            part = lf_score_table(
+                edt, scan, headings[lo:hi], rc=rc, stddev=stddev, z_hit=z_hit,
+                z_rand=z_rand, dtype=dtype, origin=origin, out_shape=out_shape, lpad=lpad,
+            )
+        if part.shape[0] < q:
+            part = torch.cat([part, part.new_zeros((q - part.shape[0], si, sj))])
+        g = bax.all_gather(part)  # [|b|, q, si, sj]
+        sizes = [t_all // bax.size + (r < t_all % bax.size) for r in range(bax.size)]
+        return torch.cat([g[r, :k] for r, k in enumerate(sizes)])
+    if lpad is not None:
+        if out_shape is None:
+            raise ValueError("lf_score_table(lpad=...) requires out_shape")
+        if tuple(lpad.shape) != (si + 2 * pad, sj + 2 * pad):
+            raise ValueError(
+                f"lpad shape {tuple(lpad.shape)} != expected {(si + 2 * pad, sj + 2 * pad)}"
+            )
+        lpad = lpad.to(store)
     else:
-        i0, j0 = (torch.as_tensor(o, device=dev) for o in origin)
-        rows = i0 - pad + torch.arange(si + 2 * pad, device=dev)
-        cols = j0 - pad + torch.arange(sj + 2 * pad, device=dev)
-        in_i = (rows >= 0) & (rows < h)
-        in_j = (cols >= 0) & (cols < w)
-        core = score.index_select(0, rows.clamp(0, h - 1)).index_select(
-            1, cols.clamp(0, w - 1)
-        )
-        lpad = torch.where(in_i[:, None] & in_j[None, :], core, floor_val)
+        score = lf_log_score_field(
+            edt, stddev=stddev, z_hit=z_hit, z_rand=z_rand, max_dist=rc.max_dist
+        ).to(store)
+        if origin is None:
+            lpad = torch.nn.functional.pad(score, (pad, pad, pad, pad), value=floor_val)
+        else:
+            i0, j0 = (torch.as_tensor(o, device=dev) for o in origin)
+            rows = i0 - pad + torch.arange(si + 2 * pad, device=dev)
+            cols = j0 - pad + torch.arange(sj + 2 * pad, device=dev)
+            in_i = (rows >= 0) & (rows < h)
+            in_j = (cols >= 0) & (cols < w)
+            core = score.index_select(0, rows.clamp(0, h - 1)).index_select(
+                1, cols.clamp(0, w - 1)
+            )
+            lpad = torch.where(in_i[:, None] & in_j[None, :], core, floor_val)
 
     valid = (scan.dists < rc.max_dist).to(torch.float32)  # [B]
     # Window starts, clamped as a dynamic slice clamps its start.
@@ -394,25 +462,35 @@ def lf_score_table(
     return acc
 
 
-def lf_auto_converged(poses: Pose, cfg, grid_shape, scanner_offset=(0.0, 0.0, 0.0)):
+def lf_auto_converged(poses: Pose, cfg, grid_shape, scanner_offset=(0.0, 0.0, 0.0),
+                      ray_sharding=None):
     """The auto tier's predicate (``measurement="likelihood_field_auto"``),
     a bool 0-d tensor on the poses' device: True iff the cloud is
     table-eligible, i.e. the 4-sigma heading window is tighter than
     ``cfg.lf_auto_max_halfwidth`` AND the ``cfg.lf_auto_sigma``-sigma
     spatial extent (population std) fits the half box. Reductions only, no
     host read; one definition shared by `models/mcl.py:update` and
-    `models/slam.py:AutoTierDispatcher`."""
+    `models/slam.py:AutoTierDispatcher`. The statistics are over the whole
+    sharded cloud under `ray_sharding`."""
     sp = sensor_pose(poses, scanner_offset)
-    c = torch.mean(torch.cos(sp.theta))
-    s = torch.mean(torch.sin(sp.theta))
+    ax = particle_axis(ray_sharding)
+    if ax is None:
+        c = torch.mean(torch.cos(sp.theta))
+        s = torch.mean(torch.sin(sp.theta))
+        sx = torch.std(sp.x, correction=0)
+        sy = torch.std(sp.y, correction=0)
+    else:
+        c, s, mx, my = _cloud_means([torch.cos(sp.theta), torch.sin(sp.theta), sp.x, sp.y], ax)
+        vx, vy = _cloud_means([(sp.x - mx) ** 2, (sp.y - my) ** 2], ax)
+        sx, sy = torch.sqrt(vx), torch.sqrt(vy)
     rbar = torch.clamp(torch.sqrt(c * c + s * s), 1e-7, 1.0 - 1e-7)
     cstd = torch.sqrt(-2.0 * torch.log(rbar))
     halfwidth = cfg.lf_table_spread * cstd + cfg.lf_table_min_halfwidth
     box_eff = float(cfg.lf_table_box if cfg.lf_table_box is not None else min(grid_shape))
     return (
         (halfwidth <= cfg.lf_auto_max_halfwidth)
-        & (cfg.lf_auto_sigma * torch.std(sp.x, correction=0) <= box_eff / 2.0)
-        & (cfg.lf_auto_sigma * torch.std(sp.y, correction=0) <= box_eff / 2.0)
+        & (cfg.lf_auto_sigma * sx <= box_eff / 2.0)
+        & (cfg.lf_auto_sigma * sy <= box_eff / 2.0)
     )
 
 
@@ -425,21 +503,28 @@ def lf_table_window(
     spread_mult: float = 4.0,
     min_halfwidth: float = 0.02,
     box_size=None,
+    ray_sharding=None,
 ):
     """Particle-count-independent window statistics of the correlative
     table: the heading-bin window from the cloud's circular spread and the
     box origin from its mean sensor cell. Returns ``(mu, binw, halfwidth,
     headings[t], i0, j0, si, sj)``: tensors on the poses' device (no host
     read), except the static box dims ``si, sj`` (the map's without a
-    ``box_size``)."""
+    ``box_size``). The means are over the whole sharded cloud under
+    `ray_sharding`."""
     t = int(table_bins)
     if t < 2:
         raise ValueError(f"table_bins must be >= 2, got {t}")
     h, w = grid_shape
     sp = sensor_pose(poses, scanner_offset)
     dev = sp.theta.device
-    c = torch.mean(torch.cos(sp.theta))
-    s = torch.mean(torch.sin(sp.theta))
+    ax = particle_axis(ray_sharding)
+    if ax is None:
+        c = torch.mean(torch.cos(sp.theta))
+        s = torch.mean(torch.sin(sp.theta))
+        mx, my = torch.mean(sp.x), torch.mean(sp.y)
+    else:
+        c, s, mx, my = _cloud_means([torch.cos(sp.theta), torch.sin(sp.theta), sp.x, sp.y], ax)
     mu = torch.atan2(s, c)
     rbar = torch.clamp(torch.sqrt(c * c + s * s), 1e-7, 1.0 - 1e-7)
     cstd = torch.sqrt(-2.0 * torch.log(rbar))
@@ -453,7 +538,7 @@ def lf_table_window(
     else:
         si = min(int(box_size), h)
         sj = min(int(box_size), w)
-        mi, mj = gridlib.world_to_cell((h, w), torch.mean(sp.x), torch.mean(sp.y))
+        mi, mj = gridlib.world_to_cell((h, w), mx, my)
         i0 = torch.clamp(mi - si // 2, 0, h - si).to(torch.int32)
         j0 = torch.clamp(mj - sj // 2, 0, w - sj).to(torch.int32)
     return mu, binw, halfwidth, headings, i0, j0, si, sj
@@ -478,21 +563,21 @@ def lf_table_prepare(
 ):
     """Particle-count-independent half of `particle_log_weights_lf_table`:
     heading window, box origin and score-table build. Returns ``(tbl[si,
-    sj, T] bins-last, mu, binw, halfwidth, i0, j0)`` for `lf_table_lookup`."""
-    if ray_sharding is not None:
-        raise NotImplementedError(f"ray_sharding {_SHARDING}")
+    sj, T] bins-last, mu, binw, halfwidth, i0, j0)`` for `lf_table_lookup`.
+    Under `ray_sharding` the window's statistics are global and the bins
+    split over its 'b' axis (`lf_score_table`'s ``bin_sharding``)."""
     field = as_ray_field(field, rc)
     _needs_edt(field, "likelihood_field_table")
     h, w = field.edt.shape
     mu, binw, halfwidth, headings, i0, j0, si, sj = lf_table_window(
         poses, grid_shape=(h, w), scanner_offset=scanner_offset,
         table_bins=table_bins, spread_mult=spread_mult,
-        min_halfwidth=min_halfwidth, box_size=box_size,
+        min_halfwidth=min_halfwidth, box_size=box_size, ray_sharding=ray_sharding,
     )
     boxed = box_size is not None
     table = lf_score_table(
         field.edt, scan, headings, rc=rc, stddev=stddev, z_hit=z_hit,
-        z_rand=z_rand, dtype=table_dtype,
+        z_rand=z_rand, dtype=table_dtype, bin_sharding=ray_sharding,
         origin=(i0, j0) if boxed else None, out_shape=(si, sj) if boxed else None,
     )
     tbl = table.permute(1, 2, 0).contiguous()  # [si, sj, T]

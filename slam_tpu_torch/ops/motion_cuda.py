@@ -73,9 +73,11 @@ def kernel_inputs(pose: Pose, seed, dev):
     return fields
 
 
-def launch(seed: torch.Tensor, odom: Odometry, pose: Pose, alphas) -> Pose:
+def launch(seed: torch.Tensor, odom: Odometry, pose: Pose, alphas, i0: int = 0) -> Pose:
     """Run the CUDA kernel: poses f32[N] on one CUDA device, `seed` an
-    int64[1] on that device. Returns the sampled poses, theta wrapped."""
+    int64[1] on that device; particle i draws Philox counter `i0` + i (the
+    global index of a particle shard's first particle). Returns the
+    sampled poses, theta wrapped."""
     dev = pose.x.device
     x, y, th = kernel_inputs(pose, seed, dev)
     params = [float(p) for p in host_params(odom, alphas)]
@@ -89,7 +91,7 @@ def launch(seed: torch.Tensor, odom: Odometry, pose: Pose, alphas) -> Pose:
             seed.data_ptr(), *params,
             x.data_ptr(), y.data_ptr(), th.data_ptr(),
             ox.data_ptr(), oy.data_ptr(), oth.data_ptr(),
-            x.numel(), stream,
+            x.numel(), int(i0), stream,
         )
     _build.check(code, "motion_odometry_launch")
     sample_motion_model_odometry_fused.launches += 1
@@ -97,20 +99,32 @@ def launch(seed: torch.Tensor, odom: Odometry, pose: Pose, alphas) -> Pose:
 
 
 def sample_motion_model_odometry_fused(
-    odom: Odometry, pose: Pose, alphas, *, generator=None, noise=None
+    odom: Odometry, pose: Pose, alphas, *, generator=None, noise=None,
+    shard=None,
 ) -> Pose:
     """Sample next poses under the odometry motion model.
 
     CUDA poses: the kernel, seeded from `generator` on the device; `noise`
     must be None there (the kernel draws its own). CPU poses: the plain
-    version, with `noise` injected or drawn from `generator`."""
+    version, with `noise` injected or drawn from `generator`.
+
+    `shard` = (i0, n_global): the poses are particles [i0, i0 + N) of a
+    filter of n_global particles whose generator every shard holds in the
+    same state. The kernel then counts Philox from i0 and the CPU draws the
+    filter's n_global normals and keeps its slice, so either way a shard
+    draws what the unsharded filter draws for its particles."""
+    i0, n_global = (0, None) if shard is None else shard
     if pose.x.is_cuda:
         if noise is not None:
             raise ValueError(
                 "injected noise is a CPU-path argument; the CUDA kernel draws "
                 "its own from the generator"
             )
-        return launch(draw_seed(generator, pose.x.device), odom, pose, alphas)
+        return launch(draw_seed(generator, pose.x.device), odom, pose, alphas, i0)
+    if noise is None and n_global is not None:
+        n = pose.x.shape[0]
+        noise = tuple(torch.randn((n_global,), generator=generator)[i0:i0 + n]
+                      for _ in range(3))
     return sample_motion_model_odometry(
         odom, pose, alphas, noise=noise, generator=generator
     )

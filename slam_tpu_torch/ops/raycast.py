@@ -34,12 +34,21 @@ def raycast_march(
     step: float = 0.5,
     max_dist: float = 500.0,
     chunk: int = 64,
+    row_offset: int | None = None,
+    full_h: int | None = None,
 ):
     """March rays through bool[H, W] `blocked`. x, y, theta broadcast to a
-    common batch shape. Returns (dist f32[batch], hit bool[batch])."""
+    common batch shape. Returns (dist f32[batch], hit bool[batch]).
+
+    `blocked` may be a row block of a map `full_h` rows high whose first
+    row is the map's `row_offset`: cells outside the block read as free,
+    so a ray's first hit on the whole map is the least of its first hits
+    over the blocks (`parallel/mapshard.py` marches so)."""
     blocked = blocked.to(torch.bool)
     dev = blocked.device
-    h, w = blocked.shape
+    lh, w = blocked.shape
+    h = lh if full_h is None else int(full_h)
+    ro = 0 if row_offset is None else int(row_offset)
     x, y, theta = torch.broadcast_tensors(
         *(torch.as_tensor(v, dtype=torch.float32, device=dev) for v in (x, y, theta))
     )
@@ -69,8 +78,11 @@ def raycast_march(
         py = y[:, None] + ks[None, :] * dy[:, None]
         i, j = gridlib.world_to_cell((h, w), px, py)
         inb = gridlib.in_bounds((h, w), i, j)
-        ic, jc = gridlib.clamp_cell((h, w), i, j)
-        occ = flat[(ic.long() * w + jc).reshape(-1)].reshape(i.shape)
+        il = i - ro  # block-local row; rows outside the block read as free
+        inblk = (il >= 0) & (il < lh)
+        ilc = torch.clamp(il, 0, lh - 1)
+        jc = torch.clamp(j, 0, w - 1)
+        occ = flat[(ilc.long() * w + jc).reshape(-1)].reshape(i.shape) & inblk
         cell = i * w + j
         miss = (d[None, :] >= max_dist) | ~inb
         hit_k = occ & (cell != cell0[:, None]) & ~miss

@@ -842,6 +842,7 @@ class HybridAStar:
         self._pending = (_pose_xyt(a, self.device), _pose_xyt(b, self.device))
         self.state = None
         self._fleet_state = None
+        self._fleet_paths = None
         # The last solve's rounds (as the JAX loop counts them), loop
         # iterations launched (gated ones included) and host reads (the
         # loop's flag reads and the final read of rounds and goal).
@@ -947,14 +948,18 @@ class HybridAStar:
         """Solve Q independent (start, goal) queries together (lattice
         mode): the states stack on a leading axis and advance in lockstep,
         each frozen once its own search ends. Returns [(success, cost)];
-        `recover_path_for(q)` walks query q's chain."""
-        if query_sharding is not None:
-            raise NotImplementedError(
-                "solve_many(query_sharding=...) is not ported to slam_tpu_torch "
-                "yet: see ROADMAP.md Queue 1 item 5 (parallel/)"
-            )
+        `recover_path_for(q)` walks query q's chain.
+
+        `query_sharding` (a `parallel.mesh.Sharding` whose spec names the
+        mesh dims that split the queries, e.g. ``("p",)``) spreads the
+        queries over those ranks: Q must divide by their count; each rank
+        solves its contiguous share and walks their paths, and one object
+        all-gather hands every rank all the results and paths (the
+        queries solve independently, so no other collective)."""
         if self.cfg.mode != "lattice":
             raise ValueError("solve_many requires mode='lattice'")
+        if query_sharding is not None:
+            return self._solve_many_sharded(queries, max_rounds, query_sharding)
         max_rounds = max_rounds or self.cfg.max_rounds
         states, goals, tbins, hfields = [], [], [], []
         for a, b in queries:
@@ -975,11 +980,46 @@ class HybridAStar:
         goal_idx = out.goal_idx.cpu().numpy()
         goal_cost = out.goal_cost.cpu().numpy()
         self._fleet_state = out
+        self._fleet_paths = None
         return [(int(goal_idx[q]) >= 0, float(goal_cost[q])) for q in range(len(queries))]
 
+    def _solve_many_sharded(self, queries, max_rounds, query_sharding):
+        import torch.distributed as dist
+
+        mesh = query_sharding.mesh
+        axes = [mesh.axis(a) for a in query_sharding.spec]
+        n_shards = int(np.prod([a.size for a in axes]))
+        q_all = len(queries)
+        if q_all % n_shards:
+            raise ValueError(
+                f"solve_many got {q_all} queries over a {n_shards}-rank query "
+                "sharding — Q must divide by the sharded axis size (pad with "
+                "repeated queries)"
+            )
+        shard = 0
+        for a in axes:
+            shard = shard * a.size + a.index
+        per = q_all // n_shards
+        mine = list(range(shard * per, (shard + 1) * per))
+        res = self.solve_many([queries[q] for q in mine], max_rounds)
+        paths = [self.recover_path_for(k) for k in range(per)]
+        # Every rank of the world contributes; the ranks that replicate a
+        # shard (other mesh dims) send the same results.
+        gathered = [(mine, res, paths)]
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            gathered = [None] * dist.get_world_size()
+            dist.all_gather_object(gathered, (mine, res, paths))
+        results, self._fleet_paths = [None] * q_all, {}
+        for qs, rs, ps in gathered:
+            for q, r, pth in zip(qs, rs, ps):
+                results[q] = r
+                self._fleet_paths[q] = pth
+        return results
     def recover_path_for(self, q: int) -> List[Tuple[int, int]]:
         """Parent-chain walk (image coords) of query q of the last
         `solve_many`; valid until the next `reset_query` / `solve_many`."""
+        if self._fleet_paths is not None:
+            return list(self._fleet_paths[q])
         if self._fleet_state is None:
             raise ValueError(
                 "recover_path_for: no solve_many results are live "

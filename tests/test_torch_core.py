@@ -220,8 +220,8 @@ def test_port_sources_import_no_jax():
 def test_import_without_jax():
     """With jax (and the JAX package) unimportable, the port's main paths
     (MCL, SLAM, the RBPF, scan matching, the simulator, diagnostics, the
-    planners, the CDDT, the fleet, the tools, utilities and apps) still
-    import."""
+    planners, the CDDT, the fleet, the sharded engines of parallel/, the
+    tools, utilities and apps) still import."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -246,6 +246,10 @@ def test_import_without_jax():
         "import slam_tpu_torch.apps.hastar_planner, slam_tpu_torch.apps.rrt_planner\n"
         "import slam_tpu_torch.apps.nearest_neighbor, slam_tpu_torch.apps.regions\n"
         "from slam_tpu_torch.models.rbpf import RBPF\n"
+        "import slam_tpu_torch.parallel.sharded, slam_tpu_torch.parallel.mapshard\n"
+        "import slam_tpu_torch.parallel.fleet, slam_tpu_torch.parallel.edt\n"
+        "from slam_tpu_torch.parallel import ShardedMCL, ShardedGridSLAM, make_mesh\n"
+        "import slam_tpu_torch.tools.shard_bench, slam_tpu_torch.parallel.distributed\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

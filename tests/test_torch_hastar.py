@@ -28,7 +28,7 @@ from slam_tpu_torch.planners import hastar as th
 from slam_tpu_torch.planners._scatter import set_drop, set_drop_, with_spare
 from slam_tpu_torch.utils import convert
 from test_planners import wall_map
-from torch_port import np_
+from torch_port import np_, one_rank_sharding
 
 BASE = dict(velocity=4.0, length=4.0 / math.tan(40 * math.pi / 180) * 2, theta_res=12,
             branching_factor=3, tol=4.0, batch=64, mode="lattice")
@@ -154,8 +154,12 @@ def test_solve_many_matches_single_and_jax():
         assert tp.path_cost() == tfleet[q][1] and tp.recover_path() == paths[q]
     with pytest.raises(ValueError, match="solve_many"):
         tp.recover_path_for(0)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tp.solve_many(queries[:1], query_sharding=object())
+    # The query sharding runs (tests/test_torch_distributed.py spreads the
+    # queries over worlds of ranks): over one rank it solves them all, and
+    # the paths come from the gathered walks.
+    assert tp.solve_many([(Pose.create(*a), Pose.create(*b)) for a, b in queries], 400,
+                         query_sharding=one_rank_sharding()) == tfleet
+    assert [tp.recover_path_for(q) for q in range(len(queries))] == paths
 
 
 def test_rejects_too_coarse_theta_res():

@@ -19,7 +19,7 @@ from slam_tpu.ops.rayfield import RayField as JRayField
 from slam_tpu_torch.core.config import RaycastConfig
 from slam_tpu_torch.ops import measurement as tm
 from slam_tpu_torch.utils import convert
-from torch_port import np_, room, t_pose, t_scan
+from torch_port import np_, one_rank_sharding, room, t_pose, t_scan
 
 H, W, MAX_DIST, STD, CAP = 96, 128, 60.0, 3.0, 17.0
 JRC = JRaycast(step=1.0, max_dist=MAX_DIST, backend="sdf")
@@ -156,15 +156,34 @@ def test_particle_log_weights_lf_table(rng, box, dtype):
 
 
 def test_unported_and_invalid_arguments():
+    """The sharding arguments run (tests/test_torch_parallel.py and
+    tests/test_torch_mapshard.py run them over worlds of ranks): a
+    one-rank `bin_sharding` / `ray_sharding` changes nothing, `lpad` takes
+    the padded window of the boxed build in its place and checks its
+    shape; a missing EDT is a ValueError."""
     _, tf = _fields()
     scan = t_scan(_scan())
     poses = convert.pose(np.full(4, 50.0), np.full(4, 40.0), np.zeros(4))
     heads = torch.zeros(4)
-    for kw in (dict(bin_sharding=object()), dict(lpad=torch.zeros(3, 3))):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tm.lf_score_table(tf.edt, scan, heads, rc=TRC, **LF, **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tm.particle_log_weights_lf_table(tf, poses, scan, rc=TRC, ray_sharding=object())
+    want = tm.lf_score_table(tf.edt, scan, heads, rc=TRC, **LF)
+    got = tm.lf_score_table(tf.edt, scan, heads, rc=TRC, **LF, bin_sharding=one_rank_sharding())
+    np.testing.assert_array_equal(np_(got), np_(want))
+    # lpad: the dense build's padded field, cut to a box's window.
+    pad = int(math.ceil(TRC.max_dist)) + 1
+    box = tm.lf_score_table(tf.edt, scan, heads, rc=TRC, **LF, origin=(10, 20),
+                            out_shape=(16, 24))
+    field = tm.lf_log_score_field(tf.edt, max_dist=TRC.max_dist, **LF)
+    lpad = torch.nn.functional.pad(field, (pad,) * 4, value=math.log(LF["z_rand"] / TRC.max_dist))
+    win = lpad[10:10 + 16 + 2 * pad, 20:20 + 24 + 2 * pad]
+    got = tm.lf_score_table(tf.edt, scan, heads, rc=TRC, **LF, out_shape=(16, 24), lpad=win)
+    np.testing.assert_array_equal(np_(got), np_(box))
+    with pytest.raises(ValueError, match="lpad shape"):
+        tm.lf_score_table(tf.edt, scan, heads, rc=TRC, **LF, out_shape=(16, 24),
+                          lpad=torch.zeros(3, 3))
+    np.testing.assert_array_equal(
+        np_(tm.particle_log_weights_lf_table(tf, poses, scan, rc=TRC,
+                                             ray_sharding=one_rank_sharding())),
+        np_(tm.particle_log_weights_lf_table(tf, poses, scan, rc=TRC)))
     no_edt = convert.ray_field(room(H, W))
     with pytest.raises(ValueError, match="edt"):
         tm.particle_log_weights_lf_table(no_edt, poses, scan, rc=TRC)

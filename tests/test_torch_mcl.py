@@ -25,10 +25,12 @@ from slam_tpu_torch.core import config as tcfg
 from slam_tpu_torch.core.types import Odometry
 from slam_tpu_torch.models import fake_lidar as tfake
 from slam_tpu_torch.models import mcl as tmcl
+from slam_tpu_torch.ops import measurement as tmeas
 from slam_tpu_torch.ops import rayfield as trf
+from slam_tpu_torch.ops import resample as tres
 from slam_tpu_torch.utils import convert
 from torch_port import (
-    assert_angles_close, jax_noise, np_, room, t_field, t_pose, t_scan,
+    assert_angles_close, jax_noise, np_, one_rank_sharding, room, t_field, t_pose, t_scan,
 )
 
 H, W, MAX_DIST, N = 96, 128, 80.0, 2048
@@ -204,11 +206,32 @@ def test_mcl_wrapper_and_mean_pose():
         step=jnp.int32(0), updates=jnp.int32(0)))
     _assert_pose_close(tmcl.mean_pose(state), jm, 1e-4)
 
-    # Adaptive injection runs now (tests/test_torch_globalloc.py); the
-    # sharded engines' hooks stay unported (item 5).
+    # Adaptive injection runs now (tests/test_torch_globalloc.py), and so
+    # do the sharded engines' hooks (tests/test_torch_parallel.py runs them
+    # over worlds of ranks): a custom resampler and measurement are called
+    # in their place, and a sharding of one rank changes nothing.
     st = tmcl.update(state, scan, field, dataclasses.replace(tc, adaptive=tcfg.AdaptiveConfig()),
                      trc)
     assert torch.isfinite(st.log_w_slow) and torch.isfinite(st.log_w_fast)
-    for hook in ("resample_fn", "measurement_fn", "ray_sharding"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tmcl.update(state, scan, field, tc, trc, **{hook: lambda p: p})
+    calls = []
+
+    def resample_fn(p, *, u0=None, generator=None):
+        calls.append("resample_fn")
+        return tres.resample(p, u0=u0)
+
+    def measurement_fn(poses, z):
+        calls.append("measurement_fn")
+        return tmeas.particle_log_weights(field, poses, z, rc=trc,
+                                          scanner_offset=tc.scanner_offset,
+                                          stddev=tc.meas_stddev, eps=tc.meas_epsilon)
+
+    u0 = torch.tensor(0.5)
+    want = tmcl.update(state, scan, field, tc, trc, u0=u0)
+    for hook, fn in (("resample_fn", resample_fn), ("measurement_fn", measurement_fn),
+                     ("ray_sharding", one_rank_sharding())):
+        got = tmcl.update(state, scan, field, tc, trc, u0=u0, **{hook: fn})
+        for a, b in ((got.particles.pose.x, want.particles.pose.x),
+                     (got.particles.log_weight, want.particles.log_weight),
+                     (got.best_pose.x, want.best_pose.x)):
+            np.testing.assert_array_equal(np_(a), np_(b))
+    assert calls == ["resample_fn", "measurement_fn"]

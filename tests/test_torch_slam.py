@@ -31,7 +31,8 @@ from slam_tpu_torch.ops import edt as tedt
 from slam_tpu_torch.ops import motion as tmotion
 from slam_tpu_torch.utils import convert
 from slam_tpu_torch.utils import metrics as tmetrics
-from torch_port import assert_angles_close, jax_noise, np_, t_pose, t_scan
+from slam_tpu_torch.ops import resample as tres
+from torch_port import assert_angles_close, jax_noise, np_, one_rank_sharding, t_pose, t_scan
 
 H = W = 96
 N, MAX_DIST = 256, 60.0
@@ -228,14 +229,29 @@ def test_init_rebuild_predict_and_wrapper():
 
 
 def test_unported_options_raise():
-    """What stays unported raises, naming its item (`resample_fn`: item
-    14), and a missing EDT cache is a ValueError. Scan matching and the
-    auto tier run now (tests/test_torch_scanmatch.py,
-    tests/test_torch_globalloc.py)."""
+    """The sharded engines' hooks run (tests/test_torch_parallel.py runs
+    them over worlds of ranks): a custom `resample_fn` is called in the
+    resampler's place and a one-rank `ray_sharding` changes nothing. A
+    missing EDT cache is a ValueError. Scan matching and the auto tier
+    run (tests/test_torch_scanmatch.py, tests/test_torch_globalloc.py)."""
     ts = tslam.init(0, _make(tc))
     odom, scan = Odometry.create(*ODOM), t_scan(_scans(1)[0])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tslam.step(ts, odom, scan, _make(tc), resample_fn=lambda p: p)
+    calls = []
+
+    def resample_fn(p, *, u0=None, generator=None):
+        calls.append(u0)
+        return tres.resample(p, u0=u0)
+
+    # The draws injected: each step would advance the shared generator.
+    u0 = torch.tensor(0.25)
+    noise = tuple(torch.randn(N, generator=torch.Generator().manual_seed(k)) for k in range(3))
+    want = tslam.step(ts, odom, scan, _make(tc), u0=u0, noise=noise)
+    for kw in (dict(resample_fn=resample_fn), dict(ray_sharding=one_rank_sharding())):
+        got = tslam.step(ts, odom, scan, _make(tc), u0=u0, noise=noise, **kw)
+        np.testing.assert_array_equal(np_(got.grid), np_(want.grid))
+        np.testing.assert_array_equal(np_(got.mcl.particles.pose.x),
+                                      np_(want.mcl.particles.pose.x))
+    assert len(calls) == 1 and float(calls[0]) == 0.25
     with pytest.raises(ValueError, match="EDT cache"):
         tslam.step(ts, odom, scan, _make(tc, edt_box=80))
     auto = tslam.GridSLAM(_make(tc, mcl={"measurement": "likelihood_field_auto"}), device="cpu")

@@ -9,6 +9,10 @@ comparison. State crosses from JAX to torch as numpy arrays through
 from __future__ import annotations
 
 import math
+import os
+import shutil
+import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from slam_tpu.models.simulate import synthetic_room
+from slam_tpu_torch.parallel import distributed
 from slam_tpu_torch.utils import convert
 
 # The tier-1 run shares 8 cores among 6 workers.
@@ -77,6 +82,81 @@ def jax_noise(key, shape):
     torch tensors."""
     k1, k2, k3 = jax.random.split(key, 3)
     return tuple(convert.tensor(jax.random.normal(k, shape)) for k in (k1, k2, k3))
+
+
+class _OneRankMesh:
+    """A ('p', 'b') mesh of one rank, without a process group: its axes
+    have size 1, so no collective is ever called."""
+
+    shape = {"p": 1, "b": 1}
+
+    def axis(self, name):
+        from slam_tpu_torch.parallel._collectives import Axis
+
+        return Axis(name, None, 1, 0, "gloo")
+
+
+def one_rank_sharding():
+    """A ray sharding over a one-rank mesh: the sharded code paths of the
+    model functions with nothing to exchange."""
+    from slam_tpu_torch.parallel.mesh import Sharding
+
+    return Sharding(_OneRankMesh(), ("p", "b"))
+
+
+# --------------------------------------------------------------------------
+# Worlds of ranks for the parallel/ tests (tests/test_torch_{parallel,
+# mapshard,distributed}.py): each module writes its inputs, starts one world
+# of each size over gloo, computes the JAX side while they run, and waits.
+# --------------------------------------------------------------------------
+
+D = [2, 4]
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_parallel_worker.py")
+# Wall clock of one world (all its scenarios); ranks left then are killed.
+WORLD_LIMIT_S = 300.0
+
+
+def start_worlds(suite: str, inputs: dict, sizes=(2, 4)):
+    """Write `inputs` and start one world of each size in `sizes`; returns
+    a function that waits for them and returns {D: [rank outputs]}."""
+    base = tempfile.mkdtemp(prefix=f"torch_{suite}_")
+    path = os.path.join(base, "inputs.npz")
+    np.savez(path, **inputs)
+    env = dict(os.environ, PYTHONWARNINGS="ignore", OMP_NUM_THREADS="1")
+    handles = {}
+    for d in sizes:
+        out = os.path.join(base, f"d{d}")
+        os.makedirs(out)
+        handles[d] = (out, distributed.start_world(
+            [sys.executable, WORKER, suite, path, out], d, timeout_s=WORLD_LIMIT_S, env=env))
+
+    def wait():
+        try:
+            res = {}
+            for d, (out, h) in handles.items():
+                rcs, _, errs, _ = h.wait()
+                if rcs != [0] * d:
+                    tails = "\n".join(f"rank {r} rc {rc}:\n{e[-3000:]}" for r, (rc, e)
+                                      in enumerate(zip(rcs, errs)) if rc != 0)
+                    raise AssertionError(f"world of {d} ranks failed: {rcs}\n{tails}")
+                res[d] = [dict(np.load(os.path.join(out, f"out_r{r}.npz")))
+                          for r in range(d)]
+            return res
+        finally:
+            for _, h in handles.values():
+                h.wait()  # every rank ended or killed before the files go
+            shutil.rmtree(base, ignore_errors=True)
+
+    return wait
+
+
+def draws(key, n):
+    """JAX's predict noise and resampler uniform of one predict -> update
+    from state key `key`, and the key after it."""
+    key, sub = jax.random.split(key)
+    nxt, k_rs, _ = jax.random.split(key, 3)
+    noise = np.stack([v.numpy() for v in jax_noise(sub, (n,))])
+    return noise, np.asarray(jax.random.uniform(k_rs, ())), nxt
 
 
 def assert_angles_close(a, b, atol):
