@@ -53,15 +53,25 @@ raises, so the exit code is nonzero):
               march on 100k rays from free cells (hit agreement, |ddist| <=
               step + margin); both timed
  13. plan-lattice  the suite's lattice HA* on the floor plan inflated by 7:
-              reset, 5 x (reset_query + solve), query init and path walk
-              timed; rounds, launches, flag reads, profile; the path free
-              and no shorter than the straight line less tol; the same
-              search by the port on the CPU equal bit for bit
+              reset, 5 x (reset_query + solve) through the CUDA graphs of
+              its search blocks and of the query init's A* wavefront (every
+              warm-up and replay under set_sync_debug_mode("error")), each
+              beside the same query by the eager loops on the card: equal
+              bit for bit (state, heuristic, rounds, flag reads, iterations
+              launched, path), also with max_rounds cut inside a block;
+              graph and eager ms, query init, capture ms, the pools' memory,
+              replays, the profiles (device ms, kernels, host-issued
+              launches); the path free and no shorter than the straight line
+              less tol; the same search by the port on the CPU equal bit for
+              bit; solve_many of 4 queries, graph == eager
  14. plan-rrt / plan-continuous / spatial  the suite's RRT* over seeds
-              1234-1238 (success count; every path edge ends in a free cell
-              of the map inflated by 7 and crosses no blocked stretch of a
-              ray step along it; the edges the fixed-step march flags are
-              printed), continuous HA* with the lut edge field, and the
+              1234-1238 through its block's CUDA graph, each seed == the
+              eager loop on the card (tree, rounds, the generator's state;
+              also cut inside a block) (success count; every path edge ends
+              in a free cell of the map inflated by 7 and crosses no blocked
+              stretch of a ray step along it; the edges the fixed-step march
+              flags are printed), continuous HA* with the lut edge field and
+              with the sdf backend (graph == eager the same way), and the
               spatial workload at 1M points (card == CPU)
 
  15. globalloc  `tools/global_loc_bench.py`'s configuration at 1M
@@ -130,6 +140,8 @@ raises, so the exit code is nonzero):
               bit, one step vs GridSLAM), ShardedMCLFleet 16 x 100k ==
               MCLFleet bit for bit, lattice HA* queries spread over the
               ranks; step times labelled as D ranks sharing one card
+ 24. tools      the port's rbpf_fidelity and maze_slam_bench at their
+              defaults: their JSON lines, finite
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device; without one it
@@ -139,6 +151,7 @@ one card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -209,6 +222,11 @@ RRT_MIN_SUCCESS = 4
 # apart on the 50 px edges the rewire radius allows).
 EDGE_SAMPLES = 4096
 LATTICE_QUERIES = 5
+LATTICE_MANY = 4
+# Host-side runtime events that issue work to the card: one a kernel, one a
+# graph replay, one a copy or fill.
+HOST_LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
+                      "cudaMemsetAsync")
 SPATIAL_POINTS = 1_000_000
 SPATIAL_BOXES = 1000
 SPATIAL_QUERIES = 1024
@@ -340,13 +358,13 @@ def profiled(fn, iters: int = 20, warmup: int = 3):
     call) of `fn` over `iters` calls after `warmup` calls: the kernels from
     torch.profiler, the ms from CUDA events around the same calls (the
     profiler's host cost included). A session whose trace comes back
-    without any CUDA kernel (seen once in ~200 sessions of one run) is
-    repeated once."""
+    without any CUDA kernel (seen once in ~200 sessions of one run, and
+    twice in a row in another) is repeated, up to four sessions."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    for _ in range(2):
+    for _ in range(4):
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -492,12 +510,76 @@ def plan_config():
 
 
 def planner_profile(fn) -> dict:
-    """Device ms, launches and the 8 largest kernels of one call of `fn`."""
-    rows = kernel_profile(fn, iters=1, warmup=0)
+    """Of one call of `fn`, from torch.profiler: the device ms and the
+    kernels the card ran (graph replays' kernels included), the 8 largest,
+    and what the host issued (`HOST_LAUNCH_EVENTS`, by name and in all)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows, host = {}, dict.fromkeys(HOST_LAUNCH_EVENTS, 0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0:
+            row = rows.setdefault(e.name, [0.0, 0.0])
+            row[0] += e.device_time / 1e3
+            row[1] += 1
+        elif e.name in host:
+            host[e.name] += 1
     top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:8]
     return {"device_ms_per_solve": sum(r[0] for r in rows.values()),
             "launches_per_solve": sum(r[1] for r in rows.values()),
+            "host_issued_per_solve": sum(host.values()), "host_issued": host,
             "top": [[k[:90], round(v[0], 4), round(v[1], 1)] for k, v in top]}
+
+
+@contextlib.contextmanager
+def sync_error():
+    """A host sync raises inside (torch's sync debug mode)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def graph_stats(cache, before=None) -> dict:
+    """Per block of a planner's graph cache: capture ms, the device memory
+    its graph's pool took, and replays (since `before`, an earlier result
+    of this function)."""
+    out = {}
+    for key, blk in cache.blocks.items():
+        name = key[0] if key[0] != "lattice" or key[3] == () else f"lattice_q{key[3][0]}"
+        out[name] = {"capture_ms": blk.capture_ms, "pool_bytes": blk.pool_bytes,
+                     "replays": blk.replays - ((before or {}).get(name, {}).get("replays", 0))}
+    return out
+
+
+def snapshot(p, fields) -> dict:
+    """What a planner's last solve left: its state's fields (copies) and
+    its counters."""
+    return {"state": {f: getattr(p.state, f).clone() for f in fields}, "rounds": p.rounds,
+            "launched": getattr(p, "launched", None), "host_reads": getattr(p, "host_reads", None)}
+
+
+def hold_solves(graph, eager, fields, what: str, cut_block: int = 0) -> None:
+    """A graph solve == the eager loop's on the card: every state field,
+    rounds, host reads and iterations launched. With `cut_block` (the
+    block's iterations, where max_rounds ended the search) the graph may
+    launch up to a block more, in whole blocks."""
+    for f in fields:
+        check(torch.equal(graph["state"][f], eager["state"][f]),
+              f"{what}: {f} of the graph solve != the eager loop's on the card")
+    for k in ("rounds", "host_reads"):
+        check(graph[k] == eager[k], f"{what}: {k} {graph[k]} (graph) != {eager[k]} (eager)")
+    if graph["launched"] is not None:
+        if cut_block:
+            want = -(-eager["launched"] // cut_block) * cut_block
+        else:
+            want = eager["launched"]
+        check(graph["launched"] == want,
+              f"{what}: launched {graph['launched']} (graph) != {want} (eager {eager['launched']})")
 
 
 def plan_poses(h: int):
@@ -550,11 +632,19 @@ def sdf_phase(dev, blocked_np) -> dict:
 
 def lattice_phase(dev, free_np) -> dict:
     """Phase 13: the suite's lattice HA* on `free_np`: one reset (the
-    tables), then LATTICE_QUERIES x (reset_query + solve); the path checked
-    on the map; the same search by the port on the CPU equal bit for bit."""
+    tables), then LATTICE_QUERIES x (reset_query + solve) through the CUDA
+    graphs (the query init's A* wavefront and the search blocks, every
+    warm-up and replay under `sync_error`), each beside the same query by
+    the eager loops on the card. The graph solve equals the eager one bit
+    for bit (every state field, the heuristic field the wavefront made,
+    rounds, host reads, iterations launched, the path), also with
+    max_rounds cut inside a block; the path is checked on the map; the
+    same search by the port on the CPU equals the card's bit for bit."""
     from slam_tpu_torch.core.types import Pose
     from slam_tpu_torch.planners import HybridAStar
+    from slam_tpu_torch.planners import hastar as hastar_mod
 
+    fields = hastar_mod._LAT_FIELDS
     h, w = free_np.shape
     cfg = plan_config()
     (ax, ay), (bx, by) = plan_poses(h)
@@ -565,16 +655,47 @@ def lattice_phase(dev, free_np) -> dict:
     def reset():
         nonlocal p
         p = HybridAStar(free, a, b, cfg)
+        p._graphs.guard = sync_error
 
     reset_ms = [event_ms(reset) for _ in range(2)]
-    check(p.solve(), "lattice HA*: no path to the goal")
+    check(p.solve(), "lattice HA*: no path to the goal")  # captures the blocks
+    captured = graph_stats(p._graphs)
 
-    def query():
+    def query(max_rounds=None):
         p.reset_query(a, b)
-        p.solve()
+        p.solve(max_rounds)
 
-    init_ms = event_ms(lambda: (p.reset_query(a, b), p._ensure_query_state()))
-    solve_ms = [event_ms(query) for _ in range(LATTICE_QUERIES)]
+    def eager(max_rounds=None):
+        p.reset_query(a, b)
+        p._solve(max_rounds, None)
+
+    def take():
+        return {**snapshot(p, fields), "hfield": p._hfield.clone(), "path": p.recover_path()}
+
+    init_ms = event_ms(lambda: (p.reset_query(a, b), p._ensure_query_state(p._graphs)))
+    init_eager_ms = event_ms(lambda: (p.reset_query(a, b), p._ensure_query_state(None)))
+    solve_ms, eager_ms = [], []
+    for _ in range(LATTICE_QUERIES):
+        eager_ms.append(event_ms(eager))
+        e = take()
+        before = graph_stats(p._graphs)
+        solve_ms.append(event_ms(query))
+        g = take()
+        hold_solves(g, e, fields, "lattice HA*")
+        check(torch.equal(g["hfield"], e["hfield"]),
+              "lattice HA*: the A* wavefront's heuristic (graph) != the eager loop's")
+        check(g["path"] == e["path"], "lattice HA* path: graph != eager")
+    replays = graph_stats(p._graphs, before)
+    # max_rounds inside a block: n_iters = ceil(cut / 2) is not a multiple
+    # of the block's iterations.
+    cut = 8 * (g["rounds"] // 16) + 5
+    eager(cut)
+    e_cut = take()
+    query(cut)
+    g_cut = take()
+    hold_solves(g_cut, e_cut, fields, f"lattice HA* max_rounds {cut}",
+                cut_block=hastar_mod._FLAG_EVERY)
+    query()
     path = []
     walk_ms = event_ms(lambda: path.extend(p.recover_path()))
     check(p.success and len(path) >= 2, "lattice HA*: no path")
@@ -583,13 +704,18 @@ def lattice_phase(dev, free_np) -> dict:
     line = math.hypot(bx - ax, by - ay)
     check(cost >= line - cfg.tol, f"lattice HA* cost {cost} < straight line {line} - tol")
     out = {"map": [h, w], "states": h * w * cfg.theta_res, "ring": p._ring_capacity(),
-           "reset_ms": reset_ms, "solve_ms": spread(solve_ms), "query_init_ms": init_ms,
+           "reset_ms": reset_ms, "solve_ms": spread(solve_ms), "eager_solve_ms": spread(eager_ms),
+           "query_init_ms": init_ms, "query_init_eager_ms": init_eager_ms,
            "path_walk_ms": walk_ms, "rounds": p.rounds, "iterations_launched": p.launched,
            "host_reads": p.host_reads, "cost": cost, "n_expanded": int(p.state.n_expanded),
            "n_lost": int(p.state.n_lost), "path_cells": len(path),
-           "profile": planner_profile(query),
+           "graph_equals_eager": True, "cut": {"max_rounds": cut, "rounds": g_cut["rounds"],
+                                               "launched_graph": g_cut["launched"],
+                                               "launched_eager": e_cut["launched"]},
+           "graphs": captured, "replays_per_query": replays,
+           "profile": planner_profile(query), "profile_eager": planner_profile(eager),
            "query_init_profile": planner_profile(
-               lambda: (p.reset_query(a, b), p._ensure_query_state()))}
+               lambda: (p.reset_query(a, b), p._ensure_query_state(p._graphs)))}
     query()
     t0 = time.perf_counter()
     q = HybridAStar(torch.from_numpy(free_np), a, b, cfg, device="cpu")
@@ -600,6 +726,19 @@ def lattice_phase(dev, free_np) -> dict:
               f"lattice HA* {f}: {dev} != CPU")
     check(q.recover_path() == path, f"lattice HA* path: {dev} != CPU")
     out["cpu_equal"] = True
+    # solve_many: LATTICE_MANY stacked queries through their own capture
+    # == the eager loop == one query at a time.
+    queries = [(a, b)] * LATTICE_MANY
+    many = (p.solve_many(queries), p._fleet_state.gp.clone(), p.launched, p.host_reads)
+    many_e = (p._solve_many(queries, None, None), p._fleet_state.gp.clone(), p.launched,
+              p.host_reads)
+    many_ms = event_ms(lambda: p.solve_many(queries))  # after the capture for Q
+    many_eager_ms = event_ms(lambda: p._solve_many(queries, None, None))
+    check(many[0] == many_e[0] and torch.equal(many[1], many_e[1]) and many[2:] == many_e[2:],
+          "lattice HA* solve_many: graph != eager")
+    check(all(r == (True, cost) for r in many[0]), "lattice HA* solve_many != solve")
+    out["solve_many"] = {"queries": LATTICE_MANY, "ms": many_ms, "eager_ms": many_eager_ms,
+                         "graph_equals_eager": True}
     return out
 
 
@@ -637,77 +776,167 @@ def path_edges(blocked, path):
 
 
 def rrt_phase(dev, free_np) -> dict:
-    """Phase 14a: `suite.py:229`'s RRT* (sdf default) over RRT_SEEDS. Every
-    path edge ends in a free cell of `free_np` (the map inflated by 7) and
-    crosses no blocked stretch of a ray step or more along it. The
-    planner's sphere trace tests a ray at points a step or more apart, as
-    the march does but at other points, so either may pass over a blocked
-    corner that an edge clips by less than a step."""
+    """Phase 14a: `suite.py:229`'s RRT* (sdf default) over RRT_SEEDS,
+    through the CUDA graph of its search block (warm-up and replays under
+    `sync_error`), each seed beside the eager loop on the card: the tree,
+    rounds and the generator's state afterwards equal bit for bit, also
+    with max_rounds cut inside a block (the generator then stands a
+    block's remaining draws further). Every path edge ends in a free cell
+    of `free_np` (the map inflated by 7) and crosses no blocked stretch of
+    a ray step or more along it. The planner's sphere trace tests a ray at
+    points a step or more apart, as the march does but at other points, so
+    either may pass over a blocked corner that an edge clips by less than a
+    step."""
     from slam_tpu_torch.core.config import RRTStarConfig
     from slam_tpu_torch.planners import RRTStar
+    from slam_tpu_torch.planners import rrtstar as rrt_mod
 
+    fields = rrt_mod._RRT_FIELDS
     h, w = free_np.shape
     a, b = plan_poses(h)
     free = torch.from_numpy(free_np).to(dev)
     cfg = RRTStarConfig(reach=20.0, radius=50.0, max_nodes=8192, batch=256)
     p = RRTStar(free, a, b, cfg, seed=999)
-    p.solve(max_rounds=RRT_ROUNDS)
-    ms, wins, rounds, costs, faults, max_run = [], 0, [], [], [], 0.0
+    p._graphs.guard = sync_error
+    p.solve(max_rounds=RRT_ROUNDS)  # captures the block
+    captured = graph_stats(p._graphs)
+
+    def take():
+        return {**snapshot(p, fields), "generator": p.generator.get_state(),
+                "path": p.recover_path()}
+
+    def graph_run(seed, max_rounds=RRT_ROUNDS):
+        p.reset_query(a, b, seed)
+        p.solve(max_rounds=max_rounds)
+
+    def eager_run(seed, max_rounds=RRT_ROUNDS):
+        p.reset_query(a, b, seed)
+        p._solve(max_rounds, 0, None, None)
+
+    ms, eager_ms, wins, rounds, costs, faults, max_run = [], [], 0, [], [], [], 0.0
     for seed in RRT_SEEDS:
-        ms.append(event_ms(lambda: (p.reset_query(a, b, seed), p.solve(max_rounds=RRT_ROUNDS))))
+        eager_ms.append(event_ms(lambda: eager_run(seed)))
+        e = take()
+        before = graph_stats(p._graphs)
+        ms.append(event_ms(lambda: graph_run(seed)))
+        g = take()
+        hold_solves(g, e, fields, f"RRT* seed {seed}")
+        check(torch.equal(g["generator"], e["generator"]) and g["path"] == e["path"],
+              f"RRT* seed {seed}: generator state or path, graph != eager")
         rounds.append(p.rounds)
         if not p.success:
             continue
         wins += 1
         costs.append(p.path_cost())
-        edges, fault, run, end_free = path_edges(~free, p.recover_path())
+        edges, fault, run, end_free = path_edges(~free, g["path"])
         check(bool(end_free.all()), f"RRT* seed {seed}: a path node lies in a blocked cell")
         check(float(run.max()) < p.rc.step,
               f"RRT* seed {seed}: a path edge crosses {float(run.max())} px of blocked cells "
               f"(>= a step, {p.rc.step})")
         max_run = max(max_run, float(run.max()))
-        for e in fault.nonzero()[:, 0].tolist():
-            faults.append({"seed": seed, "x0_y0_x1_y1": edges[e].tolist(),
-                           "blocked_run_px": float(run[e])})
+        for e_ in fault.nonzero()[:, 0].tolist():
+            faults.append({"seed": seed, "x0_y0_x1_y1": edges[e_].tolist(),
+                           "blocked_run_px": float(run[e_])})
     check(wins >= RRT_MIN_SUCCESS,
           f"RRT* {wins} of {len(RRT_SEEDS)} found a path < {RRT_MIN_SUCCESS}")
-    out = {"solve_ms": spread(ms), "success": wins, "seeds": list(RRT_SEEDS), "rounds": rounds,
-           "costs": costs, "nodes": p.size, "max_blocked_run_px": max_run,
-           "march_faults": faults}
-    out["profile_seed_1234"] = planner_profile(
-        lambda: (p.reset_query(a, b, RRT_SEEDS[0]), p.solve(max_rounds=RRT_ROUNDS)))
+    replays = graph_stats(p._graphs, before)
+    # max_rounds inside a block: the graph draws for the block's remaining
+    # gated rounds, so its generator stands that many draws further.
+    cut = 8 * (rounds[0] // 16) + 3
+    eager_run(RRT_SEEDS[0], cut)
+    for _ in range(-cut % rrt_mod._FLAG_EVERY):
+        p._draw(None, 0)
+    e_cut = take()
+    graph_run(RRT_SEEDS[0], cut)
+    g_cut = take()
+    hold_solves(g_cut, e_cut, fields, f"RRT* max_rounds {cut}", cut_block=rrt_mod._FLAG_EVERY)
+    check(torch.equal(g_cut["generator"], e_cut["generator"]),
+          f"RRT* max_rounds {cut}: generator state, graph != eager + the block's draws")
+    out = {"solve_ms": spread(ms), "eager_solve_ms": spread(eager_ms), "success": wins,
+           "seeds": list(RRT_SEEDS), "rounds": rounds, "costs": costs, "nodes": p.size,
+           "max_blocked_run_px": max_run, "march_faults": faults, "graph_equals_eager": True,
+           "cut": {"max_rounds": cut, "rounds": g_cut["rounds"]}, "graphs": captured,
+           "replays_last_seed": replays}
+    out["profile_seed_1234"] = planner_profile(lambda: graph_run(RRT_SEEDS[0]))
+    out["profile_eager_seed_1234"] = planner_profile(lambda: eager_run(RRT_SEEDS[0]))
     return out
 
 
 def continuous_phase(dev, free_np) -> dict:
     """Phase 14b: continuous HA* with the suite's lut edge field
-    (`suite.py:195`), theta_res 5."""
+    (`suite.py:195`), theta_res 5, and with the sdf backend: the graph
+    solve (the A* wavefront and the search blocks, under `sync_error`)
+    beside the eager loops on the card, equal bit for bit (state, rounds,
+    host reads, launched, path), also with max_rounds cut inside a block."""
     from slam_tpu_torch.core.config import RaycastConfig
     from slam_tpu_torch.core.types import Pose
     from slam_tpu_torch.planners import HybridAStar
+    from slam_tpu_torch.planners import hastar as hastar_mod
 
+    fields = hastar_mod._HA_FIELDS
     h, w = free_np.shape
     cfg = dataclasses.replace(plan_config(), mode="continuous", theta_res=5,
                               heuristic_weight=1.0)
-    rc = RaycastConfig(backend="lut", step=1.0, lut_bins=180)
     (ax, ay), (bx, by) = plan_poses(h)
     a, b = Pose.create(ax, ay, 0.0), Pose.create(bx, by, 0.0)
-    p = None
+    out = {}
+    for backend in ("lut", "sdf"):
+        rc = RaycastConfig(backend=backend, step=1.0, lut_bins=180)
+        p = None
 
-    def reset():
-        nonlocal p
-        p = HybridAStar(torch.from_numpy(free_np).to(dev), a, b, cfg, rc)
+        def reset():
+            nonlocal p
+            p = HybridAStar(torch.from_numpy(free_np).to(dev), a, b, cfg, rc)
+            p._graphs.guard = sync_error
 
-    reset_ms = event_ms(reset)
-    ms = [event_ms(lambda: (p.reset_query(a, b), p.solve())) for _ in range(2)]
-    check(p.success, "continuous HA*: no path")
-    path = p.recover_path()
-    check(len(path) >= 2 and all(free_np[i, j] for i, j in path),
-          "continuous HA*: a path cell is blocked")
-    return {"reset_ms": reset_ms, "solve_ms": spread(ms), "rounds": p.rounds,
-            "host_reads": p.host_reads, "cost": p.path_cost(),
-            "n_expanded": int(p.state.n_expanded), "states": h * w * cfg.theta_res,
-            "profile": planner_profile(lambda: (p.reset_query(a, b), p.solve()))}
+        def query(max_rounds=None):
+            p.reset_query(a, b)
+            p.solve(max_rounds)
+
+        def eager(max_rounds=None):
+            p.reset_query(a, b)
+            p._solve(max_rounds, None)
+
+        def take():
+            return {**snapshot(p, fields), "path": p.recover_path()}
+
+        reset_ms = event_ms(reset)
+        query()  # captures the blocks
+        captured = graph_stats(p._graphs)
+        ms, eager_ms = [], []
+        for _ in range(2 if backend == "lut" else 1):
+            eager_ms.append(event_ms(eager))
+            e = take()
+            before = graph_stats(p._graphs)
+            ms.append(event_ms(query))
+            g = take()
+            hold_solves(g, e, fields, f"continuous HA* ({backend})")
+            check(g["path"] == e["path"], f"continuous HA* ({backend}) path: graph != eager")
+        replays = graph_stats(p._graphs, before)
+        check(p.success, f"continuous HA* ({backend}): no path")
+        path = g["path"]
+        check(len(path) >= 2 and all(free_np[i, j] for i, j in path),
+              f"continuous HA* ({backend}): a path cell is blocked")
+        res = {"reset_ms": reset_ms, "solve_ms": spread(ms), "eager_solve_ms": spread(eager_ms),
+               "rounds": p.rounds, "iterations_launched": p.launched,
+               "host_reads": p.host_reads, "cost": p.path_cost(),
+               "n_expanded": int(p.state.n_expanded), "states": h * w * cfg.theta_res,
+               "graph_equals_eager": True, "graphs": captured, "replays_per_query": replays}
+        if backend == "lut":
+            cut = 4 * (g["rounds"] // 8) + 3
+            eager(cut)
+            e_cut = take()
+            query(cut)
+            g_cut = take()
+            hold_solves(g_cut, e_cut, fields, f"continuous HA* max_rounds {cut}",
+                        cut_block=hastar_mod._FLAG_EVERY)
+            res["cut"] = {"max_rounds": cut, "rounds": g_cut["rounds"],
+                          "launched_graph": g_cut["launched"],
+                          "launched_eager": e_cut["launched"]}
+            res["profile"] = planner_profile(query)
+            res["profile_eager"] = planner_profile(eager)
+        out[backend] = res
+    return {**out["lut"], "sdf": out["sdf"]}
 
 
 def spatial_phase(dev) -> dict:
@@ -821,11 +1050,8 @@ def clone_generator(g: torch.Generator) -> torch.Generator:
 
 def no_sync(fn):
     """fn() with a host sync raising (torch's sync debug mode)."""
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with sync_error():
         return fn()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
 
 
 def top_kernels(prof, k: int = 8):
@@ -1855,6 +2081,38 @@ def apps_phase(dev, counts, map_png, workdir) -> dict:
     out["launches"] = launches
     return out
 
+
+
+def tools_phase(dev, counts) -> dict:
+    """Phase 24: the port's `tools/rbpf_fidelity.py` and
+    `benchmarks/maze_slam_bench.py` at their defaults (1000 RBPF maps of the
+    synthetic floor plan x 120 steps; 10k-particle SLAM on the 1024 px
+    fallback maze x 40 steps, likelihood field): their JSON lines, finite,
+    with the launches of the kernels they ran."""
+    import contextlib
+    import io
+
+    from slam_tpu_torch.tools import maze_slam_bench, rbpf_fidelity
+
+    reset_counts, read_counts = counts
+    out = {}
+    for name_, fn, argv in (("rbpf_fidelity", rbpf_fidelity.main, ["--json"]),
+                            ("maze_slam_bench", maze_slam_bench.main, [])):
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fn(argv)
+        secs = time.perf_counter() - t0
+        recs = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+        check(recs and all(math.isfinite(v) for r in recs for v in r.values()
+                           if isinstance(v, (int, float))), f"{name_}: {buf.getvalue()[-500:]}")
+        out[name_] = {"json": recs, "seconds": secs, "launches": read_counts()}
+        say("tools", f"{name_}: {json.dumps(out[name_])}")
+    out["launches"] = {k: out["rbpf_fidelity"]["launches"][k]
+                       + out["maze_slam_bench"]["launches"][k]
+                       for k in out["rbpf_fidelity"]["launches"]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3114,20 +3372,27 @@ def main() -> None:
     par = parallel_phase(dev, counts)
     phase_s["parallel"] = time.perf_counter() - t0
     say("parallel", json.dumps({**par, "device": name, "power_limit": power}))
-    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-23 "
+
+    # 24. the last two tools at their defaults.
+    t0 = time.perf_counter()
+    tl = tools_phase(dev, counts)
+    phase_s["tools"] = time.perf_counter() - t0
+    say("tools", json.dumps({**tl, "device": name, "power_limit": power}))
+    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-24 "
         f"{time.perf_counter() - t_new:.1f} s {json.dumps(phase_s)}")
 
     # Launches: the counts of the main paths' runs (phase 7's mcl.step,
     # phase 9's SLAM step, phase 15's global localization, phase 16's auto
     # tier, phase 18's scan-matched SLAM step, phase 19's RBPF, phase 20's
     # maze steps through both tables, phase 21's fleet steps, phase 22's
-    # apps, phase 23's sharded engines on every rank of every world). K2
+    # apps, phase 23's sharded engines on every rank of every world, phase
+    # 24's tools). K2
     # left the MCL step with this kernel line's third entry; phases 3, 5
     # and 6 still hold it to rows[idx].
     main_launches = {k: launches[k] + slam_launches[k] + gl["launches"][k]
                      + auto["launches_after_step_5"][k] + sm["launches"][k] + rb["launches"][k]
                      + mz["launches"][k] + fl["launches"][k] + ap["launches"][k]
-                     + par["launches"].get(k, 0)
+                     + par["launches"].get(k, 0) + tl["launches"][k]
                      for k in launches}
     lw_fleet = fl["kernel_fleet"]
     lw_maze = mz["maze"]["lut"]["lut_weights_vs_plain"]

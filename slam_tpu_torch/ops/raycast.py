@@ -10,7 +10,11 @@ chunks of `chunk` steps; the loop stops once every ray has resolved.
 
 The JAX package's `while_loop`s become host loops. Both bodies leave a
 resolved ray untouched, so the host reads `all(resolved)` only once per
-chunk of steps (march) or iterations (sphere trace).
+chunk of steps (march) or iterations (sphere trace). With `early_exit`
+False the loop makes no read and runs its whole count (every chunk, all
+`max_iters`): a resolved ray's distance and hit never change again, so
+the result is the early-exit result bit for bit, and the trace can run
+inside a captured CUDA graph (the planners' search blocks).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ def raycast_march(
     chunk: int = 64,
     row_offset: int | None = None,
     full_h: int | None = None,
+    early_exit: bool = True,
 ):
     """March rays through bool[H, W] `blocked`. x, y, theta broadcast to a
     common batch shape. Returns (dist f32[batch], hit bool[batch]).
@@ -71,7 +76,7 @@ def raycast_march(
     dist = torch.full((m,), max_dist, dtype=torch.float32, device=dev)
 
     k0 = 0
-    while k0 < k_end and not bool(resolved.all()):
+    while k0 < k_end and not (early_exit and bool(resolved.all())):
         ks = float(k0) + ks_rel  # [chunk]
         d = ks * step
         px = x[:, None] + ks[None, :] * dx[:, None]
@@ -111,6 +116,7 @@ def raycast_sdf(
     max_dist: float = 500.0,
     margin: float = 1.0,
     max_iters: int | None = None,
+    early_exit: bool = True,
 ):
     """Sphere-trace rays over the f32[H, W] distance transform `edt`.
 
@@ -143,7 +149,7 @@ def raycast_sdf(
     hit = torch.zeros((m,), dtype=torch.bool, device=dev)
     dist = torch.full((m,), max_dist, dtype=torch.float32, device=dev)
     k = 0
-    while k < max_iters and not bool(resolved.all()):
+    while k < max_iters and not (early_exit and bool(resolved.all())):
         for _ in range(min(_SDF_CHUNK, max_iters - k)):
             i, j = gridlib.world_to_cell((h, w), x + t * dx, y + t * dy)
             ic, jc = gridlib.clamp_cell((h, w), i, j)

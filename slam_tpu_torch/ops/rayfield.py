@@ -139,12 +139,14 @@ def dynamic_ray_field(blocked, rc: RaycastConfig) -> RayField:
     )
 
 
-def raycast_field(field: RayField, x, y, theta, rc: RaycastConfig):
-    """(dist, hit) for a ray batch via the configured backend."""
+def raycast_field(field: RayField, x, y, theta, rc: RaycastConfig, early_exit: bool = True):
+    """(dist, hit) for a ray batch via the configured backend. With
+    `early_exit` False the march and the sphere trace run their whole
+    count with no host read (the same result; `ops/raycast.py`)."""
     if rc.backend == "march":
         return raycast_march(
             field.blocked, x, y, theta,
-            step=rc.step, max_dist=rc.max_dist, chunk=rc.chunk,
+            step=rc.step, max_dist=rc.max_dist, chunk=rc.chunk, early_exit=early_exit,
         )
     if rc.backend == "sdf":
         if field.edt is None:
@@ -152,6 +154,7 @@ def raycast_field(field: RayField, x, y, theta, rc: RaycastConfig):
         return raycast_sdf(
             field.edt, x, y, theta,
             step=rc.step, max_dist=rc.max_dist, margin=rc.sdf_margin,
+            early_exit=early_exit,
         )
     if rc.backend == "lut":
         if field.lut is None:

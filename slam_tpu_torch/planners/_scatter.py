@@ -25,7 +25,11 @@ def with_spare(a: torch.Tensor) -> torch.Tensor:
 
 
 def _values(a, idx, v):
-    return torch.as_tensor(v, dtype=a.dtype, device=a.device).expand(idx.shape)
+    if isinstance(v, torch.Tensor):
+        return v.to(device=a.device, dtype=a.dtype).expand(idx.shape)
+    # A fill on the device: a host scalar made a tensor would be a copy to
+    # the card, which a captured search block cannot hold.
+    return torch.full(idx.shape, v, dtype=a.dtype, device=a.device)
 
 
 def set_drop(a: torch.Tensor, idx: torch.Tensor, v) -> torch.Tensor:

@@ -15,7 +15,10 @@ descent (`slam/astar.cpp:108-133`).
 The JAX package's `while_loop` becomes a host loop over chunks of 32
 rounds with one host read of `changed` per chunk. A round after the
 fixpoint changes nothing, so the result is the JAX package's bit for bit:
-min is exact and every sum is one correctly rounded f32 add.
+min is exact and every sum is one correctly rounded f32 add. Given a
+block cache (`planners/_graph.py`, as the planners pass on the card), the
+chunk is a captured CUDA graph over static `free` and `dist` buffers,
+replayed with the same host reads.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from slam_tpu_torch.core.device import entry_device
+from slam_tpu_torch.planners import _graph
 
 INF = 1e30
 SQRT2 = float(np.sqrt(2.0))
@@ -74,13 +78,22 @@ def _init_dist(free: torch.Tensor, start_ij) -> torch.Tensor:
     return torch.where(free, dist, INF)
 
 
-def distance_field(free: torch.Tensor, start_ij) -> torch.Tensor:
+def distance_field(free: torch.Tensor, start_ij, graphs: "_graph.Cache | None" = None
+                   ) -> torch.Tensor:
     """Exact geodesic (8-connected, 1 / sqrt2 costs) distance field from
-    `start_ij` = (i, j) (host ints or a 2-element tensor on `free`'s
-    device), INF on blocked and unreachable cells."""
-    h, w = free.shape
+    `start_ij` = (i, j) (host ints or 0-d tensors on `free`'s device), INF
+    on blocked and unreachable cells. With a block cache `graphs` each
+    chunk of rounds runs as one block (a CUDA graph replay on the card);
+    without one, as eager rounds."""
     free = free.to(torch.bool)
     dist = _init_dist(free, start_ij)
+    if graphs is None:
+        return _relax_eager(free, dist)
+    return _relax_blocks(free, dist, graphs)
+
+
+def _relax_eager(free: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    h, w = free.shape
     rounds = 0
     while rounds < h * w:
         new = relax_round(dist, free, _CHUNK)
@@ -90,6 +103,29 @@ def distance_field(free: torch.Tensor, start_ij) -> torch.Tensor:
         if not changed:
             break
     return dist
+
+
+def _relax_chunk(v):
+    """The block of `_relax_eager`: `_CHUNK` rounds on the buffers `free`
+    and `dist`, and whether they changed `dist`."""
+    new = relax_round(v["dist"], v["free"], _CHUNK)
+    return {"dist": new, "flag": torch.any(new < v["dist"])}
+
+
+def _relax_blocks(free: torch.Tensor, dist: torch.Tensor, graphs: "_graph.Cache") -> torch.Tensor:
+    """`_relax_eager` as replays of `_relax_chunk`, with the same reads."""
+    h, w = free.shape
+    block = graphs.get(("astar", (h, w), _CHUNK), lambda: _graph.Block(
+        _relax_chunk, _graph.buffers({"free": free, "dist": dist,
+                                   "flag": torch.ones((), dtype=torch.bool, device=free.device)})))
+    block.load(free=free, dist=dist)
+    rounds = 0
+    while rounds < h * w:
+        block.run()
+        rounds += _CHUNK
+        if not bool(block.static["flag"]):
+            break
+    return block.static["dist"].clone()
 
 
 def recover_path(
@@ -129,6 +165,7 @@ class AStar:
 
     def __init__(self, free, a: Tuple[int, int], b: Tuple[int, int], device=None):
         self.free = torch.as_tensor(free, dtype=torch.bool, device=entry_device(device))
+        self._graphs = _graph.Cache() if self.free.is_cuda else None
         self.a = tuple(int(v) for v in a)
         self.b = tuple(int(v) for v in b)
         self.dist = _init_dist(self.free, self.a)
@@ -149,7 +186,7 @@ class AStar:
         return done
 
     def solve(self) -> bool:
-        self.dist = distance_field(self.free, self.a)
+        self.dist = distance_field(self.free, self.a, self._graphs)
         self.used_up = True
         self.success = bool(self.dist[self.b[0], self.b[1]] < INF)
         return self.success

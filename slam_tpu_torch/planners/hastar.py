@@ -41,6 +41,15 @@ What differs in form, and why the results stay the JAX package's:
     `(w >> b) & 1`); the bits equal the JAX package's.
   * The feasibility build gathers every (bin, lane) shift of a plane in
     one batched indexing op per sample, not one eager op per shift.
+  * On the card a search is the counterpart of the JAX package's one
+    device program (`_lattice_solve_query_jit`, `_ha_solve_query_jit`,
+    `_lattice_solve_many_jit`): the run of `_FLAG_EVERY` loop iterations
+    between two host reads of the flag is captured once as a CUDA graph
+    (`planners/_graph.py`) and replayed until the flag says done; the
+    query init's A* wavefront is replayed the same way. A device iteration
+    counter inside the gate stops the rounds at `max_rounds`, as the JAX
+    loop's condition does. The eager loop is the CPU path and the
+    reference the graphs are held to; `pathfind` stays eager.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch.core.types import Pose
 from slam_tpu_torch.ops.edt import _sqrt
 from slam_tpu_torch.ops.rayfield import RayField, make_ray_field, raycast_field
+from slam_tpu_torch.planners import _graph
 from slam_tpu_torch.planners import astar as astar_mod
 from slam_tpu_torch.planners._scatter import last_writer, set_drop, set_drop_, with_spare
 
@@ -165,10 +175,13 @@ def _ha_round(
     rc: RaycastConfig,
     active: Optional[torch.Tensor] = None,
     inplace: bool = False,
+    early_exit: bool = True,
 ) -> HAState:
     """One continuous-mode expansion round; with `active` False (a 0-d
     bool tensor) it changes nothing. `inplace` commits into the state's
-    own arrays (the copies `_ha_solve` makes, with spare slots)."""
+    own arrays (the copies `_ha_solve` makes, with spare slots);
+    `early_exit` False runs the edge rays' whole count with no host read
+    (the same result; the form a captured block needs)."""
     h, w = field.blocked.shape
     shape = (h, w)
     dev = st.g.device
@@ -213,8 +226,10 @@ def _ha_round(
     at_goal = (d2goal <= cfg.tol * cfg.tol) & bin_ok & pop_valid
     first = torch.argmin(torch.where(at_goal, fpop, INF))
     goal_better = at_goal.any() & (st.goal_idx < 0)
-    goal_idx = torch.where(goal_better, pop[first], st.goal_idx)
-    goal_cost = torch.where(goal_better, gg[first], st.goal_cost)
+    # A 0-d index tensor would be read on the host: gather instead.
+    first = first.reshape(1)
+    goal_idx = torch.where(goal_better, pop.gather(0, first)[0], st.goal_idx)
+    goal_cost = torch.where(goal_better, gg.gather(0, first)[0], st.goal_cost)
 
     # Successor fan [batch, 2, B] (`slam/hastar.cpp:88-112`).
     vels, turn, ecost = _fan_tables(cfg, dev)
@@ -234,7 +249,8 @@ def _ha_round(
     djc = torch.clamp(dj, 0, w - 1).long()
     dst_free = ~field.blocked[dic, djc] & inb
     hit_d, hit = raycast_field(
-        field, gx[:, None, None].expand_as(nx), gy[:, None, None].expand_as(nx), ang, rc
+        field, gx[:, None, None].expand_as(nx), gy[:, None, None].expand_as(nx), ang, rc,
+        early_exit,
     )
     clear = ~hit | (hit_d >= edge_len)
     ok = dst_free & clear & pop_valid[:, None, None]
@@ -626,10 +642,11 @@ def _weight_h(hfield, cfg):
     return torch.where(hfield < INF, hfield * cfg.heuristic_weight, INF)
 
 
-def _coarse_geodesic_cells(free, bx, by, cfg, shape):
+def _coarse_geodesic_cells(free, bx, by, cfg, shape, graphs=None):
     """Per-cell [H*W] goal-distance heuristic: the A* wavefront on a
     `coarse`-downsampled grid (max-pooled free space, an admissible
-    underestimate), tiled back to full resolution."""
+    underestimate), tiled back to full resolution; its chunks run as
+    blocks of `graphs` when given (`astar.distance_field`)."""
     h, w = shape
     f4 = max(1, cfg.coarse)
     ph = (-h) % f4
@@ -638,7 +655,7 @@ def _coarse_geodesic_cells(free, bx, by, cfg, shape):
     free_c = fpad.reshape((h + ph) // f4, f4, (w + pw) // f4, f4).any(3).any(1)
     gi = torch.clamp(torch.floor(h - by - 1.0).to(torch.int32), 0, h - 1) // f4
     gj = torch.clamp(torch.floor(bx).to(torch.int32), 0, w - 1) // f4
-    dc = astar_mod.distance_field(free_c, (gi.long(), gj.long()))
+    dc = astar_mod.distance_field(free_c, (gi.long(), gj.long()), graphs)
     h2d = (dc * f4).repeat_interleave(f4, 0).repeat_interleave(f4, 1)[:h, :w]
     return torch.clamp(h2d, max=INF).reshape(-1)
 
@@ -647,9 +664,10 @@ def _scalar(v, dtype, dev):
     return torch.tensor(v, dtype=dtype, device=dev)
 
 
-def _lattice_query_init(free, a_xyt, b_xyt, cfg, shape, cap):
+def _lattice_query_init(free, a_xyt, b_xyt, cfg, shape, cap, graphs=None):
     """A fresh lattice query: start / goal indexing, the heuristic (the
-    coarse geodesic wavefront, host-looped), and the initial state."""
+    coarse geodesic wavefront, host-looped; as blocks of `graphs` when
+    given), and the initial state."""
     h, w = shape
     k = cfg.theta_res
     s = h * w * k
@@ -658,7 +676,7 @@ def _lattice_query_init(free, a_xyt, b_xyt, cfg, shape, cap):
     target_bin = (_pose_to_cuboid(shape, k, b_xyt[0], b_xyt[1], b_xyt[2]) % k).to(torch.int32)
     goal = b_xyt[:2]
     if cfg.heuristic == "geodesic":
-        hfield = _coarse_geodesic_cells(free, b_xyt[0], b_xyt[1], cfg, shape)
+        hfield = _coarse_geodesic_cells(free, b_xyt[0], b_xyt[1], cfg, shape, graphs)
     else:
         ii = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
         jj = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
@@ -684,6 +702,16 @@ def _lattice_query_init(free, a_xyt, b_xyt, cfg, shape, cap):
     return goal, target_bin, hfield, state
 
 
+def _lattice_flag(st):
+    """The lattice loop's condition without its round bound, per query."""
+    return (st.goal_idx < 0) & (st.o_f < INF).any(-1)
+
+
+def _ha_flag(st):
+    """The continuous loop's condition without its round bound."""
+    return (st.goal_idx < 0) & (st.open_f < INF).any()
+
+
 def _lattice_solve(
     st, feasw, off_t, di_t, dj_t, cost_q, edge_t, goal, target_bin, hfield,
     max_rounds, cfg, shape,
@@ -699,7 +727,7 @@ def _lattice_solve(
     rounds = torch.zeros_like(st.goal_idx)
     it = reads = 0
     while it < -(-max_rounds // 2):
-        active = (st.goal_idx < 0) & (st.o_f < INF).any(-1)
+        active = _lattice_flag(st)
         if it % _FLAG_EVERY == 0:
             reads += 1
             if not bool(active.any()):
@@ -714,9 +742,68 @@ def _lattice_solve(
     return st, rounds, it, reads
 
 
-def _ha_query_init(free, a_xyt, b_xyt, cfg, shape):
+_LAT_FIELDS = tuple(f.name for f in dataclasses.fields(LatticeState))
+_HA_FIELDS = tuple(f.name for f in dataclasses.fields(HAState))
+
+
+def _counter(v, dev):
+    return torch.full((), v, dtype=torch.int32, device=dev)
+
+
+def _lattice_block(v, feasw, off_t, di_t, dj_t, cost_q, edge_t, cfg, shape):
+    """`_FLAG_EVERY` iterations of `_lattice_solve`'s loop on the block
+    buffers `v` (the state's fields, goal, target_bin, hfield, rounds, the
+    iteration counter `it` and its `limit`). The counter is in the gate, so
+    iterations past `limit` change nothing, as the JAX loop stops at
+    `max_rounds`. Returns the new state, rounds, counter and `flag` (the
+    condition the host reads before the next block)."""
+    st = LatticeState(**{f: v[f] for f in _LAT_FIELDS})
+    rounds, it = v["rounds"], v["it"]
+    for _ in range(_FLAG_EVERY):
+        active = _lattice_flag(st) & (it < v["limit"])
+        for _ in range(2):
+            st = _lattice_round(
+                st, feasw, off_t, di_t, dj_t, cost_q, edge_t, v["goal"], v["target_bin"],
+                v["hfield"], cfg, shape, active, inplace=True,
+            )
+        rounds = rounds + 2 * active.to(torch.int32)
+        it = it + 1
+    return {**{f: getattr(st, f) for f in _LAT_FIELDS}, "rounds": rounds, "it": it,
+            "flag": _lattice_flag(st)}
+
+
+def _lattice_solve_blocks(
+    st, feasw, off_t, di_t, dj_t, cost_q, edge_t, goal, target_bin, hfield,
+    max_rounds, cfg, shape, graphs,
+):
+    """`_lattice_solve` as runs of `_lattice_block` from the cache
+    `graphs` (a CUDA graph replay each on the card): the same state,
+    rounds and host reads. `launched` counts whole blocks, so where
+    `max_rounds` ends the search it exceeds the eager loop's count by up to
+    `_FLAG_EVERY - 1` gated iterations. Works on single or query-stacked
+    states; each query count Q has its own capture."""
+    dev = st.gp.device
+    n_iters = -(-max_rounds // 2)
+    init = {**{f: getattr(st, f) for f in _LAT_FIELDS}, "goal": goal, "target_bin": target_bin,
+            "hfield": hfield, "rounds": torch.zeros_like(st.goal_idx), "it": _counter(0, dev),
+            "limit": _counter(n_iters, dev), "flag": _lattice_flag(st)}
+    block = graphs.get(
+        ("lattice", shape, cfg, tuple(st.gp.shape[:-1]), _FLAG_EVERY),
+        lambda: _graph.Block(functools.partial(_lattice_block, feasw=feasw, off_t=off_t,
+                                               di_t=di_t, dj_t=dj_t, cost_q=cost_q,
+                                               edge_t=edge_t, cfg=cfg, shape=shape),
+                             _graph.buffers(init, spare=("o_idx", "o_f"))),
+    )
+    block.load(**init)
+    launched, reads = _graph.replay_until(block, n_iters, _FLAG_EVERY)
+    out = LatticeState(**{f: block.static[f].clone() for f in _LAT_FIELDS})
+    return out, block.static["rounds"].clone(), launched, reads
+
+
+def _ha_query_init(free, a_xyt, b_xyt, cfg, shape, graphs=None):
     """A fresh continuous-mode query: start / goal indexing, the
-    heuristic and the initial state."""
+    heuristic (its wavefront as blocks of `graphs` when given) and the
+    initial state."""
     h, w = shape
     k = cfg.theta_res
     s = h * w * k
@@ -726,7 +813,8 @@ def _ha_query_init(free, a_xyt, b_xyt, cfg, shape):
     goal = b_xyt[:2]
     start_l = start_idx.long()
     if cfg.heuristic == "geodesic":
-        cells = _weight_h(_coarse_geodesic_cells(free, b_xyt[0], b_xyt[1], cfg, shape), cfg)
+        cells = _weight_h(
+            _coarse_geodesic_cells(free, b_xyt[0], b_xyt[1], cfg, shape, graphs), cfg)
         hfield = cells.repeat_interleave(k)
         h_start = hfield[start_l]
     else:
@@ -763,7 +851,7 @@ def _ha_solve(st, field, goal, target_bin, hfield, max_rounds, cfg, rc):
     rounds = torch.zeros_like(st.goal_idx)
     r = reads = 0
     while r < max_rounds:
-        active = (st.goal_idx < 0) & (st.open_f < INF).any()
+        active = _ha_flag(st)
         if r % _FLAG_EVERY == 0:
             reads += 1
             if not bool(active):
@@ -772,6 +860,42 @@ def _ha_solve(st, field, goal, target_bin, hfield, max_rounds, cfg, rc):
         rounds = rounds + active.to(torch.int32)
         r += 1
     return st, rounds, r, reads
+
+
+def _ha_block(v, field, cfg, rc):
+    """`_FLAG_EVERY` rounds of `_ha_solve`'s loop on the block buffers `v`
+    (as `_lattice_block`: the counter `it` gates rounds past `limit`); the
+    edge rays run their whole count, with no host read."""
+    st = HAState(**{f: v[f] for f in _HA_FIELDS})
+    rounds, it = v["rounds"], v["it"]
+    for _ in range(_FLAG_EVERY):
+        active = _ha_flag(st) & (it < v["limit"])
+        st = _ha_round(st, field, v["goal"], v["target_bin"], v["hfield"], cfg, rc, active,
+                       inplace=True, early_exit=False)
+        rounds = rounds + active.to(torch.int32)
+        it = it + 1
+    return {**{f: getattr(st, f) for f in _HA_FIELDS}, "rounds": rounds, "it": it,
+            "flag": _ha_flag(st)}
+
+
+def _ha_solve_blocks(st, field, goal, target_bin, hfield, max_rounds, cfg, rc, graphs):
+    """`_ha_solve` as runs of `_ha_block` from the cache `graphs`, with
+    the same state, rounds and host reads (`launched` as in
+    `_lattice_solve_blocks`)."""
+    dev = st.g.device
+    _fan_tables(cfg, dev)  # built outside the block: a host-to-device copy
+    init = {**{f: getattr(st, f) for f in _HA_FIELDS}, "goal": goal, "target_bin": target_bin,
+            "hfield": hfield, "rounds": torch.zeros_like(st.goal_idx), "it": _counter(0, dev),
+            "limit": _counter(max_rounds, dev), "flag": _ha_flag(st)}
+    block = graphs.get(
+        ("continuous", tuple(field.blocked.shape), cfg, rc, _FLAG_EVERY),
+        lambda: _graph.Block(functools.partial(_ha_block, field=field, cfg=cfg, rc=rc),
+                             _graph.buffers(init, spare=("parent", "px", "py", "pth", "open_f"))),
+    )
+    block.load(**init)
+    launched, reads = _graph.replay_until(block, max_rounds, _FLAG_EVERY)
+    out = HAState(**{f: block.static[f].clone() for f in _HA_FIELDS})
+    return out, block.static["rounds"].clone(), launched, reads
 
 
 def _pose_xyt(p: Pose, dev) -> torch.Tensor:
@@ -798,6 +922,8 @@ class HybridAStar:
         # Collision rays only need to cover one steering arc (length = v).
         self.rc = dataclasses.replace(rc, max_dist=min(rc.max_dist, cfg.velocity + 2.0))
         self.device = entry_device(device)
+        # The search blocks of this map (CUDA graphs on the card).
+        self._graphs = _graph.Cache()
         self.reset(free, a, b)
 
     def _pose_to_cuboid(self, x, y, theta):
@@ -809,6 +935,7 @@ class HybridAStar:
         free = torch.as_tensor(free, dtype=torch.bool, device=self.device)
         self.shape = tuple(free.shape)
         self._free = free
+        self._graphs.clear()
         if self.cfg.mode == "lattice":
             # No raycasts: feasibility is the precomputed lane-bit table.
             self.field = RayField(blocked=~free)
@@ -858,17 +985,22 @@ class HybridAStar:
         cap = max(cap, self.cfg.batch)
         return -(-cap // self.cfg.batch) * self.cfg.batch
 
-    def _ensure_query_state(self):
+    @property
+    def _card_graphs(self) -> Optional[_graph.Cache]:
+        """The block cache on the card; None (the eager loops) elsewhere."""
+        return self._graphs if self.device.type == "cuda" else None
+
+    def _ensure_query_state(self, graphs: Optional[_graph.Cache] = None):
         if self.state is not None:
             return
         a_xyt, b_xyt = self._pending
         if self.cfg.mode == "lattice":
             self._goal, self._target_bin, self._hfield, self.state = _lattice_query_init(
-                self._free, a_xyt, b_xyt, self.cfg, self.shape, self._ring_capacity()
+                self._free, a_xyt, b_xyt, self.cfg, self.shape, self._ring_capacity(), graphs
             )
         else:
             self._goal, self._target_bin, self._hfield, self.state = _ha_query_init(
-                self._free, a_xyt, b_xyt, self.cfg, self.shape
+                self._free, a_xyt, b_xyt, self.cfg, self.shape, graphs
             )
 
     def _lattice_args(self):
@@ -923,18 +1055,29 @@ class HybridAStar:
             )
 
     def solve(self, max_rounds: Optional[int] = None) -> bool:
+        """The whole search: on the card the query init and the search run
+        as CUDA graph replays, elsewhere as eager loops (the same result)."""
+        return self._solve(max_rounds, self._card_graphs)
+
+    def _solve(self, max_rounds: Optional[int], graphs: Optional[_graph.Cache]) -> bool:
+        """`solve` through the blocks of `graphs`, or the eager loops when
+        None (the reference a check on the card holds the graphs to)."""
         max_rounds = max_rounds or self.cfg.max_rounds
-        self._ensure_query_state()
+        self._ensure_query_state(graphs)
         if self.cfg.mode == "lattice":
-            self.state, rounds, self.launched, reads = _lattice_solve(
-                self.state, *self._lattice_args(), self._goal, self._target_bin,
-                self._hfield, max_rounds, self.cfg, self.shape,
-            )
+            args = (self.state, *self._lattice_args(), self._goal, self._target_bin,
+                    self._hfield, max_rounds, self.cfg, self.shape)
+            if graphs is None:
+                self.state, rounds, self.launched, reads = _lattice_solve(*args)
+            else:
+                self.state, rounds, self.launched, reads = _lattice_solve_blocks(*args, graphs)
         else:
-            self.state, rounds, self.launched, reads = _ha_solve(
-                self.state, self.field, self._goal, self._target_bin, self._hfield,
-                max_rounds, self.cfg, self.rc,
-            )
+            args = (self.state, self.field, self._goal, self._target_bin, self._hfield,
+                    max_rounds, self.cfg, self.rc)
+            if graphs is None:
+                self.state, rounds, self.launched, reads = _ha_solve(*args)
+            else:
+                self.state, rounds, self.launched, reads = _ha_solve_blocks(*args, graphs)
         self.rounds, goal_idx = torch.stack([rounds, self.state.goal_idx]).tolist()
         self.host_reads = reads + 1
         if goal_idx >= 0:
@@ -960,11 +1103,16 @@ class HybridAStar:
             raise ValueError("solve_many requires mode='lattice'")
         if query_sharding is not None:
             return self._solve_many_sharded(queries, max_rounds, query_sharding)
+        return self._solve_many(queries, max_rounds, self._card_graphs)
+
+    def _solve_many(self, queries, max_rounds, graphs: Optional[_graph.Cache]):
+        """`solve_many` on one rank, through the blocks of `graphs` (one
+        capture per query count) or the eager loop when None."""
         max_rounds = max_rounds or self.cfg.max_rounds
         states, goals, tbins, hfields = [], [], [], []
         for a, b in queries:
             self.reset_query(a, b)
-            self._ensure_query_state()
+            self._ensure_query_state(graphs)
             states.append(self.state)
             goals.append(self._goal)
             tbins.append(self._target_bin)
@@ -973,10 +1121,13 @@ class HybridAStar:
             f.name: torch.stack([getattr(s, f.name) for s in states])
             for f in dataclasses.fields(LatticeState)
         })
-        out, _, _, _ = _lattice_solve(
-            stacked, *self._lattice_args(), torch.stack(goals), torch.stack(tbins),
-            torch.stack(hfields), max_rounds, self.cfg, self.shape,
-        )
+        args = (stacked, *self._lattice_args(), torch.stack(goals), torch.stack(tbins),
+                torch.stack(hfields), max_rounds, self.cfg, self.shape)
+        if graphs is None:
+            out, _, self.launched, reads = _lattice_solve(*args)
+        else:
+            out, _, self.launched, reads = _lattice_solve_blocks(*args, graphs)
+        self.host_reads = reads + 2
         goal_idx = out.goal_idx.cpu().numpy()
         goal_cost = out.goal_cost.cpu().numpy()
         self._fleet_state = out

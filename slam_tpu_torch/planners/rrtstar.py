@@ -19,6 +19,15 @@ Differences of form:
     grow the tree, so each round runs gated by an `active` flag (the
     loop's condition evaluated on the device); an inactive round commits
     nothing. The host reads the flag once every `_FLAG_EVERY` rounds.
+  * On the card `solve` is the counterpart of the JAX package's one
+    device program (`_rrt_solve_query_jit`): the `_FLAG_EVERY` rounds
+    between two host reads of the flag are captured once as a CUDA graph
+    (`planners/_graph.py`) that draws from the planner's generator
+    (registered with the graph, so a replay draws what the eager rounds
+    would) and replayed until the flag says done; a device round counter
+    inside the gate stops the search at `max_rounds`. The eager loop is
+    the CPU path and the reference the graph is held to; `pathfind`
+    stays eager.
   * Ties: `top_k` returns equal values lowest index first, which
     `torch.topk` does not promise, so the neighbours come from a stable
     sort. The rewire writes each re-parented node from one candidate,
@@ -29,6 +38,7 @@ Differences of form:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -38,6 +48,7 @@ from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch.ops import spatial
 from slam_tpu_torch.ops.edt import _sqrt
 from slam_tpu_torch.ops.rayfield import RayField, make_ray_field, raycast_field
+from slam_tpu_torch.planners import _graph
 from slam_tpu_torch.planners._scatter import last_writer, set_drop
 
 INF = 1e30
@@ -61,9 +72,11 @@ class RRTState:
         return dataclasses.replace(self, **changes)
 
 
-def _edges_clear(field: RayField, rc: RaycastConfig, x0, y0, x1, y1):
+def _edges_clear(field: RayField, rc: RaycastConfig, x0, y0, x1, y1, early_exit: bool = True):
     """Straight-line feasibility of a batch of edges: the endpoint is free
-    and in bounds and no obstacle lies strictly before it."""
+    and in bounds and no obstacle lies strictly before it. `early_exit`
+    False traces the rays' whole count with no host read (the same
+    result)."""
     h, w = field.blocked.shape
     dx = x1 - x0
     dy = y1 - y0
@@ -75,7 +88,7 @@ def _edges_clear(field: RayField, rc: RaycastConfig, x0, y0, x1, y1):
     ic = torch.clamp(i, 0, h - 1).long()
     jc = torch.clamp(j, 0, w - 1).long()
     dst_free = ~field.blocked[ic, jc] & inb
-    hd, hit = raycast_field(field, x0, y0, ang, rc)
+    hd, hit = raycast_field(field, x0, y0, ang, rc, early_exit)
     return dst_free & (~hit | (hd >= d)) & (d > 0)
 
 
@@ -89,9 +102,11 @@ def _rrt_round(
     sx: torch.Tensor,
     sy: torch.Tensor,
     active: Optional[torch.Tensor] = None,
+    early_exit: bool = True,
 ) -> RRTState:
     """One batched round on the samples (sx, sy) f32[batch]; with
-    `active` False (a 0-d bool tensor) it changes nothing."""
+    `active` False (a 0-d bool tensor) it changes nothing. `early_exit`
+    False: the edge rays run their whole count (a captured block's form)."""
     k = cfg.batch
     m = neighbor_cap
     n = cfg.max_nodes
@@ -127,6 +142,7 @@ def _rrt_round(
         field, rc,
         torch.cat([rx, nbx.reshape(-1), cx]), torch.cat([ry, nby.reshape(-1), cy]),
         torch.cat([cx, cxm, bx.expand(k)]), torch.cat([cy, cym, by.expand(k)]),
+        early_exit,
     )
     ok, nbr_clear, goal_clear = clear.split([k, k * m, k])
     if active is not None:
@@ -169,8 +185,9 @@ def _rrt_round(
     dgoal = _sqrt((cx - bx) ** 2 + (cy - by) ** 2)
     can_goal = ok & (dgoal <= cfg.reach) & goal_clear
     total = torch.where(can_goal, new_cost + dgoal, INF)
-    gbest = torch.argmin(total)
-    gcost = total[gbest]
+    # A 0-d index tensor would be read on the host: gather instead.
+    gbest = torch.argmin(total).reshape(1)
+    gcost = total.gather(0, gbest)[0]
     better = gcost < st.best_goal_cost
     return RRTState(
         x=x,
@@ -179,7 +196,7 @@ def _rrt_round(
         parent=parent,
         valid=valid,
         size=size,
-        best_goal_node=torch.where(better, slots[gbest], st.best_goal_node),
+        best_goal_node=torch.where(better, slots.gather(0, gbest)[0], st.best_goal_node),
         best_goal_cost=torch.where(better, gcost, st.best_goal_cost),
     )
 
@@ -205,21 +222,108 @@ def _rrt_query_init(a_xy, n: int, device) -> RRTState:
     )
 
 
+def _rrt_flag(st, min_nodes, max_nodes: int):
+    """The loop's condition without its round bound."""
+    want_more = (st.best_goal_node < 0) | (st.size < min_nodes)
+    return want_more & (st.size < max_nodes)
+
+
 def _rrt_solve(st, field, goal, max_rounds, min_nodes, cfg, rc, neighbor_cap, draw):
     """The JAX loop: rounds until a goal connection exists AND the tree
     holds `min_nodes` (`apps/rrt_planner.cpp:50`), the node budget is
     spent, or `max_rounds` pass. `draw(r)` gives round r's samples.
-    Returns (state, rounds run: an i32 tensor counted on the device)."""
+    Returns (state, rounds run: an i32 tensor counted on the device,
+    rounds launched, host reads of the flag)."""
     rounds = torch.zeros((), dtype=torch.int32, device=st.size.device)
-    for r in range(max_rounds):
-        want_more = (st.best_goal_node < 0) | (st.size < min_nodes)
-        active = want_more & (st.size < cfg.max_nodes)
-        if r % _FLAG_EVERY == 0 and not bool(active):
-            break
+    r = reads = 0
+    while r < max_rounds:
+        active = _rrt_flag(st, min_nodes, cfg.max_nodes)
+        if r % _FLAG_EVERY == 0:
+            reads += 1
+            if not bool(active):
+                break
         sx, sy = draw(r)
         st = _rrt_round(st, field, goal, cfg, rc, neighbor_cap, sx, sy, active)
         rounds = rounds + active.to(torch.int32)
-    return st, rounds
+        r += 1
+    return st, rounds, r, reads
+
+
+_RRT_FIELDS = tuple(f.name for f in dataclasses.fields(RRTState))
+
+
+def _uniform_draw(generator, shape, k: int, dev):
+    """One round's uniform samples over a map of `shape` from `generator`."""
+    h, w = shape
+    u = torch.rand((2, k), generator=generator, device=dev)
+    return u[0] * float(w), u[1] * float(h)
+
+
+def _rrt_block(v, field, cfg, rc, neighbor_cap, shape, generator):
+    """`_FLAG_EVERY` rounds of `_rrt_solve`'s loop on the block buffers
+    `v` (the state's fields, goal, rounds, min_nodes, the round counter
+    `it` and its `limit`; with `generator` None, the injected draws
+    `samples` f32[_FLAG_EVERY, 2, batch]). The counter is in the gate, so
+    rounds past `limit` commit nothing; every round draws, as the eager
+    loop's do. The edge rays run their whole count, with no host read."""
+    st = RRTState(**{f: v[f] for f in _RRT_FIELDS})
+    rounds, it = v["rounds"], v["it"]
+    for r in range(_FLAG_EVERY):
+        active = _rrt_flag(st, v["min_nodes"], cfg.max_nodes) & (it < v["limit"])
+        if generator is None:
+            sx, sy = v["samples"][r, 0], v["samples"][r, 1]
+        else:
+            sx, sy = _uniform_draw(generator, shape, cfg.batch, st.x.device)
+        st = _rrt_round(st, field, v["goal"], cfg, rc, neighbor_cap, sx, sy, active,
+                        early_exit=False)
+        rounds = rounds + active.to(torch.int32)
+        it = it + 1
+    return {**{f: getattr(st, f) for f in _RRT_FIELDS}, "rounds": rounds, "it": it,
+            "flag": _rrt_flag(st, v["min_nodes"], cfg.max_nodes)}
+
+
+def _rrt_solve_blocks(st, field, goal, max_rounds, min_nodes, cfg, rc, neighbor_cap, shape,
+                      generator, samples, graphs):
+    """`_rrt_solve` as runs of `_rrt_block` from the cache `graphs` (a
+    CUDA graph replay each on the card): the same state, rounds and draws.
+    `samples` (f32[R, 2, batch] on the device, R >= max_rounds) injects the
+    draws, copied block by block into the block's buffer before its run;
+    else the block draws from `generator`. Where `max_rounds` ends the
+    search, the last block runs (and draws for) up to `_FLAG_EVERY - 1`
+    gated rounds past it. Returns as `_rrt_solve`, rounds launched counted
+    in whole blocks."""
+    dev = st.size.device
+    init = {**{f: getattr(st, f) for f in _RRT_FIELDS}, "goal": goal,
+            "rounds": torch.zeros_like(st.size),
+            "min_nodes": torch.full((), min_nodes, dtype=torch.int32, device=dev),
+            "it": torch.zeros((), dtype=torch.int32, device=dev),
+            "limit": torch.full((), max_rounds, dtype=torch.int32, device=dev),
+            "flag": _rrt_flag(st, min_nodes, cfg.max_nodes)}
+    if samples is not None:
+        rows = -(-max_rounds // _FLAG_EVERY) * _FLAG_EVERY
+        samples = torch.nn.functional.pad(samples[:max_rounds],
+                                          (0, 0, 0, 0, 0, rows - min(max_rounds, len(samples))))
+        init["samples"] = samples[:_FLAG_EVERY]
+    gen = None if samples is not None else generator
+    block = graphs.get(
+        ("rrt", shape, cfg, rc, neighbor_cap, gen is None, _FLAG_EVERY),
+        lambda: _graph.Block(functools.partial(_rrt_block, field=field, cfg=cfg, rc=rc,
+                                               neighbor_cap=neighbor_cap, shape=shape,
+                                               generator=gen),
+                             _graph.buffers(init), generators=() if gen is None else (gen,)),
+    )
+    block.load(**init)
+    it = reads = 0
+    while it < max_rounds:
+        reads += 1
+        if not bool(block.static["flag"]):
+            break
+        if samples is not None:
+            block.load(samples=samples[it:it + _FLAG_EVERY])
+        block.run()
+        it += _FLAG_EVERY
+    out = RRTState(**{f: block.static[f].clone() for f in _RRT_FIELDS})
+    return out, block.static["rounds"].clone(), it, reads
 
 
 class RRTStar:
@@ -250,6 +354,10 @@ class RRTStar:
         self.device = free.device
         self.shape = tuple(free.shape)
         self.field = make_ray_field(~free, self.rc)
+        # One generator for the planner's life (a query reseeds it): the
+        # search block's CUDA graph is registered with it.
+        self.generator = torch.Generator(device=self.device)
+        self._graphs = _graph.Cache()
         self.reset_query(a, b, seed)
 
     def reset_query(self, a, b, seed: int = 0):
@@ -260,10 +368,12 @@ class RRTStar:
         self._goal = torch.tensor(self.b, dtype=torch.float32, device=self.device)
         self.success = False
         self.used_up = False
-        self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.state = _rrt_query_init(self.a, self.cfg.max_nodes, self.device)
-        self.rounds = 0
+        # Rounds run since the query began; of the last solve, rounds
+        # launched (gated ones included) and host reads (the loop's flag
+        # reads and the final reads of rounds, goal node and size).
+        self.rounds = self.launched = self.host_reads = 0
 
     def _draw(self, samples, r: int):
         """Round r's samples: row r of the injected (sx, sy) f32[R, batch]
@@ -272,10 +382,7 @@ class RRTStar:
             sx, sy = samples
             return (torch.as_tensor(sx[r], dtype=torch.float32, device=self.device),
                     torch.as_tensor(sy[r], dtype=torch.float32, device=self.device))
-        h, w = self.shape
-        k = self.cfg.batch
-        u = torch.rand((2, k), generator=self.generator, device=self.device)
-        return u[0] * float(w), u[1] * float(h)
+        return _uniform_draw(self.generator, self.shape, self.cfg.batch, self.device)
 
     @property
     def size(self) -> int:
@@ -306,12 +413,30 @@ class RRTStar:
     def solve(self, max_rounds: int = 256, min_nodes: int = 0, samples=None) -> bool:
         """Search until a goal connection exists and the tree holds
         `min_nodes`, the budget is spent or `max_rounds` pass. `samples` =
-        (sx, sy) f32[max_rounds, batch] injects every round's draws."""
-        self.state, rounds = _rrt_solve(
-            self.state, self.field, self._goal, max_rounds, min_nodes, self.cfg,
-            self.rc, self.neighbor_cap, lambda r: self._draw(samples, r),
-        )
+        (sx, sy) f32[max_rounds, batch] injects every round's draws. On the
+        card the search runs as CUDA graph replays, elsewhere as an eager
+        loop (the same result)."""
+        graphs = self._graphs if self.device.type == "cuda" else None
+        return self._solve(max_rounds, min_nodes, samples, graphs)
+
+    def _solve(self, max_rounds: int, min_nodes: int, samples, graphs) -> bool:
+        """`solve` through the blocks of `graphs`, or the eager loop when
+        None (the reference a check on the card holds the graph to)."""
+        if graphs is None:
+            self.state, rounds, self.launched, reads = _rrt_solve(
+                self.state, self.field, self._goal, max_rounds, min_nodes, self.cfg,
+                self.rc, self.neighbor_cap, lambda r: self._draw(samples, r),
+            )
+        else:
+            if samples is not None:
+                samples = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                                       for v in samples], 1)
+            self.state, rounds, self.launched, reads = _rrt_solve_blocks(
+                self.state, self.field, self._goal, max_rounds, min_nodes, self.cfg,
+                self.rc, self.neighbor_cap, self.shape, self.generator, samples, graphs,
+            )
         self.rounds += int(rounds)
+        self.host_reads = reads + 3
         self._latch()
         return self.success
 

@@ -20,6 +20,13 @@ def load_binary_map(path, threshold: int = 128) -> np.ndarray:
     return (g > threshold).astype(np.int32)
 
 
+def load_prob_map(path, threshold: int = 128) -> np.ndarray:
+    """f32[H, W] probability-of-free map, 0.0 or 1.0 after binarization
+    (the planners' CV_64F convention, `slam/astar.h:14-17`; a copy of
+    `slam_tpu/utils/maps.py:load_prob_map`)."""
+    return load_binary_map(path, threshold).astype(np.float32)
+
+
 def synthetic_floor_plan() -> np.ndarray:
     """bool[599, 1297] blocked mask: the synthetic stand-in for the
     reference's floor plan that `bench.py:floor_plan_blocked` uses when
