@@ -7,7 +7,8 @@ RRT*, the spatial queries) with the sdf ray backend, and the filter's
 features: 1M-particle global localization, the auto measurement tier,
 kidnap recovery, scan matching and the per-particle-map RBPF; the maze
 through the compressed ray table (CDDT), the multi-robot fleet through one
-batched launch of the fused kernel, and the apps.
+batched launch of the fused kernel, and the apps; each filter step as one
+CUDA graph replay through its entry point against the eager step.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,10 @@ raises, so the exit code is nonzero):
   1. device   name, torch/CUDA versions, nvidia-smi name and power limit
   2. build    nvcc builds csrc/*.cu for sm_90a, one process a source (timed)
   3. K2       row gather == rows[idx] exactly (f32/bf16/u8, edge indices)
-  4. K1       motion sampler: moments, seed reproducibility, ragged N
+  4. K1       motion sampler: moments, seed reproducibility, ragged N; the
+              odometry read from device memory: device fields == host
+              fields, and poses == the fused kernel's prologue bit for bit
+              for the same seed and device odometry
   5. LUT      360-bin bf16 table of the synthetic floor plan on the card;
               raycast_lut vs raycast_march; K2 on the real table rows
   6. weights  K1 through predict's wrapper vs the plain sampler by moments,
@@ -38,7 +42,8 @@ raises, so the exit code is nonzero):
   8. track    40 steps of tracking a moving pose with 100k particles
               through mcl.step
   9. slam       `benchmarks/suite.py slam`'s configuration end to end
-              through GridSLAM at 1M particles (init, 4 warm-up steps, 5
+              through GridSLAM (one CUDA graph replay a step, a block per
+              resample-gate phase) at 1M particles (init, 4 warm-up steps, 5
               blocks of 20 steps, CUDA-event timed, under
               set_sync_debug_mode("error"): a host sync in the step raises),
               with per-phase times, the profile and K1 at N = 1M
@@ -92,7 +97,10 @@ raises, so the exit code is nonzero):
               dispatcher steps under the sync check, the cloud dispersed
               after 20: ms/step, host reads of the predicate, the tiers;
               profiles of a table and a direct step; mcl.update's auto
-              route (both tiers computed) timed beside the forced tiers
+              route (one host read of the predicate, one tier computed) ==
+              the forced tier bit for bit on the converged and the
+              dispersed 1M cloud, as the free function and through
+              MCL.update's graphs, timed beside the forced tiers
  17. kidnap     tests/test_mcl.py:347-392's kidnap recovery on the card over
               8 seeds, the test's bounds on one
  18. scanmatch  refine_pose card vs CPU (1e-4 px, 1e-5 rad; subcell off pins
@@ -142,6 +150,21 @@ raises, so the exit code is nonzero):
               ranks; step times labelled as D ranks sharing one card
  24. tools      the port's rbpf_fidelity and maze_slam_bench at their
               defaults: their JSON lines, finite
+ 25. graphs     each filter step through its entry point's CUDA graph
+              (`models/_graph.py`) against the eager free function, at
+              full width: the 100k MCL step and 1M global localization
+              (`MCL.step`), the 1M SLAM step and the scan-matched one
+              (`GridSLAM.step`), the fleet of 16 x 100k (`MCLFleet.step`),
+              the 2400 px maze's 10k step through the CDDT and the dense
+              u8 table, grid_slam's sdf-beam SLAM step at 1000 particles:
+              20 steps each with a new odometry and scan at each, every
+              replay under set_sync_debug_mode("error"), graph == eager
+              bit for bit after every step (states, counters, generators)
+              and in kernel launches (plus the warm-ups); graph and eager
+              ms/step in turns, device ms, kernels and host-issued
+              launches a step (each hand-written kernel's runs in the
+              profile == its wrapper's count), capture ms, pool memory,
+              state copies a step
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device; without one it
@@ -227,6 +250,16 @@ LATTICE_MANY = 4
 # graph replay, one a copy or fill.
 HOST_LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
                       "cudaMemsetAsync")
+# `traced_kernels`' spin kernels each side of the profiled calls: their
+# count, their lengths in cycles, and the length in us that tells them
+# apart (~1 us against ~50 us on an H100).
+PAD_SPINS = 64
+LEAD_SPIN_CYCLES = 2_000
+TRAIL_SPIN_CYCLES = 100_000
+SPIN_SPLIT_US = 20.0
+# The hand-written kernels by wrapper count, as the profiler names them.
+KERNEL_NAMES = {"gather_rows": "gather_rows_kernel", "motion_odometry": "motion_odometry_kernel",
+                "lut_weights": "lut_weights_kernel"}
 SPATIAL_POINTS = 1_000_000
 SPATIAL_BOXES = 1000
 SPATIAL_QUERIES = 1024
@@ -300,6 +333,12 @@ FLEET_CHECK_R = 16
 FLEET_ITERS = 10
 FLEET_SEED = 7
 FLEET_APP_ATE_PX = 10.0
+# Phase 25: each filter step's CUDA graph against the eager step: steps
+# compared bit for bit per case (a new odometry and scan at each), steps a
+# timed turn (two turns a way) and steps profiled a way.
+GRAPH_STEPS = 20
+GRAPH_ITERS = 20
+GRAPH_PROFILE = 5
 # Phase 22: the apps. GRID_SLAM_ATE_PX is the JAX app test's bound
 # (`tests/test_apps.py:27`); the checkpoint runs take CKPT_STEPS steps.
 GRID_SLAM_ATE_PX = 30.0
@@ -353,35 +392,71 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def traced_kernels(fn, host: bool = False):
+    """The CUDA kernels (torch.profiler events) that `fn` ran, and with
+    `host` also the launches and copies the host issued in it
+    (`HOST_LAUNCH_EVENTS`, by name; the spins' own launches taken off): a
+    (kernels, issued) pair then. A trace can lose kernels at the edges of
+    its session (a 20-launch session of K1 at 1M read 0.0039 ms, under its
+    bytes bound; the whole script's phase 25 sessions lost ~20 kernels; a
+    session can come back with none), so the session runs PAD_SPINS short
+    `torch.cuda._sleep` kernels before `fn` and PAD_SPINS long ones after,
+    and only the kernels between the last short spin and the first long
+    one in the trace count. A session whose trace kept no spin of either
+    group is repeated, up to four sessions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    for _ in range(4):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            for _ in range(PAD_SPINS):
+                torch.cuda._sleep(LEAD_SPIN_CYCLES)
+            fn()
+            for _ in range(PAD_SPINS):
+                torch.cuda._sleep(TRAIL_SPIN_CYCLES)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0]
+        spins = [e for e in kernels if "spin_kernel" in e.name]
+        lead = [e.time_range.start for e in spins if e.device_time < SPIN_SPLIT_US]
+        trail = [e.time_range.start for e in spins if e.device_time >= SPIN_SPLIT_US]
+        if lead and trail:
+            break
+    check(lead and trail, "the profiler's trace kept no spin kernel before or after the calls")
+    lo, hi = max(lead), min(trail)
+    inside = [e for e in kernels if lo < e.time_range.start < hi and "spin_kernel" not in e.name]
+    if not host:
+        return inside
+    issued = dict.fromkeys(HOST_LAUNCH_EVENTS, 0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA and e.name in issued:
+            issued[e.name] += 1
+    issued["cudaLaunchKernel"] -= 2 * PAD_SPINS
+    return inside, issued
+
+
 def profiled(fn, iters: int = 20, warmup: int = 3):
     """({kernel name: [device ms per call, launches per call]}, ms per
     call) of `fn` over `iters` calls after `warmup` calls: the kernels from
-    torch.profiler, the ms from CUDA events around the same calls (the
-    profiler's host cost included). A session whose trace comes back
-    without any CUDA kernel (seen once in ~200 sessions of one run, and
-    twice in a row in another) is repeated, up to four sessions."""
-    from torch.profiler import ProfilerActivity, profile
-
+    torch.profiler (`traced_kernels`), the ms from CUDA events around the
+    same calls (the profiler's host cost included)."""
     for _ in range(warmup):
         fn()
-    for _ in range(4):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            start.record()
-            for _ in range(iters):
-                fn()
-            stop.record()
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0:
-                row = by_name.setdefault(e.name, [0.0, 0.0])
-                row[0] += e.device_time / 1e3 / iters
-                row[1] += 1 / iters
-        if by_name:
-            break
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def calls():
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+
+    by_name = {}
+    for e in traced_kernels(calls):
+        row = by_name.setdefault(e.name, [0.0, 0.0])
+        row[0] += e.device_time / 1e3 / iters
+        row[1] += 1 / iters
     check(by_name, "the profiler saw no CUDA kernels")
     return by_name, start.elapsed_time(stop) / iters
 
@@ -389,6 +464,16 @@ def profiled(fn, iters: int = 20, warmup: int = 3):
 def kernel_profile(fn, iters: int = 20, warmup: int = 3):
     """The kernels of `profiled`."""
     return profiled(fn, iters, warmup)[0]
+
+
+def own_kernel_ms(fn, name: str, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms per call of the kernels of `fn` whose name holds `name`
+    (a wrapper's own kernel, without the copies or stacks that prepare
+    its inputs)."""
+    rows = kernel_profile(fn, iters, warmup)
+    found = [r[0] for k, r in rows.items() if name in k]
+    check(found, f"no kernel named {name} in the profile")
+    return sum(found)
 
 
 def step_profile(fn, iters: int, warmup: int = 0) -> dict:
@@ -510,25 +595,22 @@ def plan_config():
 
 
 def planner_profile(fn) -> dict:
-    """Of one call of `fn`, from torch.profiler: the device ms and the
-    kernels the card ran (graph replays' kernels included), the 8 largest,
-    and what the host issued (`HOST_LAUNCH_EVENTS`, by name and in all)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows, host = {}, dict.fromkeys(HOST_LAUNCH_EVENTS, 0)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0:
-            row = rows.setdefault(e.name, [0.0, 0.0])
-            row[0] += e.device_time / 1e3
-            row[1] += 1
-        elif e.name in host:
-            host[e.name] += 1
+    """Of one call of `fn`, from torch.profiler (`traced_kernels`): the
+    device ms and the kernels the card ran (graph replays' kernels
+    included), the 8 largest, the runs of each hand-written kernel
+    (`KERNEL_NAMES`), and what the host issued (`HOST_LAUNCH_EVENTS`, by
+    name and in all)."""
+    kernels, host = traced_kernels(fn, host=True)
+    rows = {}
+    for e in kernels:
+        row = rows.setdefault(e.name, [0.0, 0.0])
+        row[0] += e.device_time / 1e3
+        row[1] += 1
     top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:8]
     return {"device_ms_per_solve": sum(r[0] for r in rows.values()),
+            "hand_written_kernels_ran": {
+                w: int(sum(r[1] for k, r in rows.items() if kname in k))
+                for w, kname in KERNEL_NAMES.items()},
             "launches_per_solve": sum(r[1] for r in rows.values()),
             "host_issued_per_solve": sum(host.values()), "host_issued": host,
             "top": [[k[:90], round(v[0], 4), round(v[1], 1)] for k, v in top]}
@@ -1146,14 +1228,20 @@ def globalloc_phase(dev, blocked_np, field, counts) -> dict:
                  eps=cfg.meas_epsilon, lut_beam_stride=cfg.lut_beam_stride)
     launches = {"gather_rows": 0, "motion_odometry": 0, "lut_weights": 0}
 
+    engine = mcl_mod.MCL(cfg, rc, device=dev)
+    engine.graphs.guard = sync_error
+
     def drive(st, scans):
-        """GL_STEPS steps under the sync check; their launch counts."""
+        """GL_STEPS steps through the tool's graphed step, every replay
+        under the sync check; their launch counts (a new cloud's
+        generator is a new block: one warm-up launch)."""
         torch.cuda.synchronize()
         reset_counts()
-        st, stats, ms = glb.run(st, field, cmds, scans, cfg, rc, guard=no_sync)
-        c = read_counts()
-        check(c["lut_weights"] == GL_STEPS and c["motion_odometry"] == 0 and c["gather_rows"] == 0,
-              f"global localization launches {c} for {GL_STEPS} steps")
+        st, stats, ms = glb.run(st, field, cmds, scans, cfg, rc, engine=engine)
+        c, w = read_counts(), warmup_counts()
+        check(c["lut_weights"] == GL_STEPS + w["lut_weights"] and c["motion_odometry"] == 0
+              and c["gather_rows"] == 0 and w["lut_weights"] >= 1,
+              f"global localization launches {c} (warm-ups {w}) for {GL_STEPS} steps")
         for k_ in launches:
             launches[k_] += c[k_]
         return st, stats, ms
@@ -1286,6 +1374,7 @@ def autotier_phase(dev, slam_scans, slam_odom, counts) -> dict:
                                    ("grid", a.grid, f.grid), ("est_x", a.est_pose.x, f.est_pose.x)):
                     check(torch.equal(x, y), f"auto step != forced {forced} step ({label}, {name})")
                 equal[label] = {"tier": fresh._auto.tiers[0], "forced": forced}
+            converged_5 = st
             reset_counts()  # the comparison steps launched K1 too
         if k == AUTO_DISPERSE_AT:
             st = dispersed(st, 7)
@@ -1297,9 +1386,10 @@ def autotier_phase(dev, slam_scans, slam_odom, counts) -> dict:
         stop_e.record()
         step_ms.append((start_e, stop_e))
     torch.cuda.synchronize()
-    c = read_counts()
+    c, w = read_counts(), warmup_counts()
     steps_after = AUTO_STEPS - 5
-    check(c["motion_odometry"] == steps_after, f"autotier K1 launches {c} != {steps_after}")
+    check(c["motion_odometry"] == steps_after + w["motion_odometry"],
+          f"autotier K1 launches {c} != {steps_after} + warm-ups {w}")
     d = engine._auto
     ms = [a.elapsed_time(b) for a, b in step_ms]
     lag = AUTO_DISPERSE_AT + 2 * d.check_every
@@ -1312,11 +1402,14 @@ def autotier_phase(dev, slam_scans, slam_odom, counts) -> dict:
 
     # Each tier's step profiled: the forced-table step on the converged
     # state, the forced-direct step on a dispersed one (what the
-    # dispatcher calls). Then mcl.update's own auto route, which computes
-    # both tiers and selects on the device, beside the two forced tiers on
-    # the same predicted states and field.
+    # dispatcher calls; the converged state is step 5's). Then mcl.update's
+    # own auto route, which reads the predicate once and computes one tier
+    # (JAX's lax.cond), beside the
+    # two forced tiers on the same predicted states and field: the free
+    # function and `MCL.update` (the predicate's block, one host read, the
+    # tier's graph) each equal to the forced tier bit for bit.
     profiles, update_ms = {}, {}
-    for label, s0, forced in (("table", st, "likelihood_field_table"),
+    for label, s0, forced in (("table", converged_5, "likelihood_field_table"),
                               ("direct", dispersed(st, 11), "likelihood_field")):
         box = [s0, 0]
 
@@ -1329,6 +1422,20 @@ def autotier_phase(dev, slam_scans, slam_odom, counts) -> dict:
         lf_field = RayField(blocked=blocked, edt=edtlib.edt_capped(
             blocked, 5.0 * base.mcl.meas_stddev + 2.0))
         pst = mcl_mod.predict(s0.mcl, slam_odom, base.motion.alphas)
+
+        def fresh_pst():
+            return pst.replace(generator=clone_generator(pst.generator))
+
+        auto_mcl = cfgs["likelihood_field_auto"].mcl
+        want = mcl_mod.update(fresh_pst(), slam_scans[0], lf_field, cfgs[forced].mcl,
+                              base.raycast)
+        eng = mcl_mod.MCL(auto_mcl, base.raycast, device=dev)
+        eng.graphs.guard = sync_error
+        for way, got in (("free function", mcl_mod.update(fresh_pst(), slam_scans[0], lf_field,
+                                                           auto_mcl, base.raycast)),
+                         ("MCL.update", eng.update(fresh_pst(), slam_scans[0], lf_field))):
+            diff = state_difference(got, want)
+            check(diff is None, f"auto mcl.update ({way}) != forced {forced} ({label}): {diff}")
         update_ms[label] = {}
         for m_, c_ in cfgs.items():
             dev_ms, n_launch = device_ms(lambda: mcl_mod.update(
@@ -1336,6 +1443,14 @@ def autotier_phase(dev, slam_scans, slam_odom, counts) -> dict:
             update_ms[label][m_] = {"device_ms": dev_ms, "launches": n_launch, "ms": statistics.median(
                 event_ms(lambda: mcl_mod.update(pst, slam_scans[0], lf_field, c_.mcl, base.raycast))
                 for _ in range(5))}
+        eng.update(pst, slam_scans[0], lf_field)  # its generator's blocks, captured
+        prof = planner_profile(lambda: [eng.update(pst, slam_scans[0], lf_field)
+                                        for _ in range(5)])
+        update_ms[label]["MCL.update auto (graphs)"] = {
+            "device_ms": prof["device_ms_per_solve"] / 5, "launches": prof["launches_per_solve"] / 5,
+            "host_issued": prof["host_issued_per_solve"] / 5, "ms": statistics.median(
+                event_ms(lambda: eng.update(pst, slam_scans[0], lf_field)) for _ in range(5)),
+            "equal_to_forced": forced}
     return {"equal_bit_for_bit": equal, "steps": AUTO_STEPS, "dispersed_at": AUTO_DISPERSE_AT,
             "check_every": d.check_every, "host_reads": d.host_reads, "tiers": d.tiers,
             "ms_per_step": spread(ms), "ms_table": spread([m for m, t in zip(ms, d.tiers)
@@ -1467,8 +1582,9 @@ def scanmatch_phase(dev, blocked_np, slam_scans, slam_odom, counts, slam_med) ->
         stop.record()
         stop.synchronize()
         block_ms.append(start.elapsed_time(stop) / SM_ITERS)
-    c = read_counts()
-    check(c["motion_odometry"] == n_steps, f"scan-matched SLAM K1 launches {c} != {n_steps}")
+    c, w = read_counts(), warmup_counts()
+    check(c["motion_odometry"] == n_steps + w["motion_odometry"],
+          f"scan-matched SLAM K1 launches {c} != {n_steps} + warm-ups {w}")
     for v in (st.est_pose.x, st.est_pose.y, st.grid):
         check(bool(torch.isfinite(v).all()), "scan-matched SLAM: non-finite state")
     box = [st, n_steps]
@@ -1626,7 +1742,7 @@ def maze_phase(dev, counts) -> dict:
                             device=dev)
         ate = mb.localization_ate(blocked_np, field, backend, start, MAZE_PARTICLES,
                                   steps=MAZE_STEPS, device=dev)
-        c = read_counts()
+        c, warm = read_counts(), warmup_counts()
         for k_ in launches:
             launches[k_] += c[k_]
         lidar, rc, cfg = mb.configs(backend, MAZE_PARTICLES)
@@ -1660,7 +1776,7 @@ def maze_phase(dev, counts) -> dict:
         prof = step_profile(advance, iters=5, warmup=1)
         check(bool(torch.isfinite(pose.x).all()), f"maze {backend}: non-finite poses")
         check(ate < MAZE_ATE_PX, f"maze {backend}: ATE {ate} px >= {MAZE_ATE_PX}")
-        return {"ms_per_step": ms, "ate_px": ate, "launches": c, **prof,
+        return {"ms_per_step": ms, "ate_px": ate, "launches": c, "warm_ups": warm, **prof,
                 **({"lut_weights_vs_plain": held} if held else {})}
 
     # The MAZE_SIZE maze: CDDT on the card and on the CPU, dense u8 beside.
@@ -1713,10 +1829,13 @@ def maze_phase(dev, counts) -> dict:
     # predict -> update is K1 then the weigh-only kernel. The cddt route:
     # K1, then the queries in plain torch.
     c_lut, c_cddt = out["maze"]["lut"]["launches"], out["maze"]["cddt"]["launches"]
-    check(c_lut["lut_weights"] == 23 + MAZE_STEPS and c_lut["motion_odometry"] == MAZE_STEPS,
-          f"maze lut route launches {c_lut}")
-    check(c_cddt["motion_odometry"] == 23 + MAZE_STEPS and c_cddt["lut_weights"] == 0,
-          f"maze cddt route launches {c_cddt}")
+    w_lut, w_cddt = out["maze"]["lut"]["warm_ups"], out["maze"]["cddt"]["warm_ups"]
+    check(c_lut["lut_weights"] == 23 + MAZE_STEPS + w_lut["lut_weights"]
+          and c_lut["motion_odometry"] == MAZE_STEPS, f"maze lut route launches {c_lut}")
+    check(c_cddt["motion_odometry"] == 23 + MAZE_STEPS + w_cddt["motion_odometry"]
+          and c_cddt["lut_weights"] == 0, f"maze cddt route launches {c_cddt}")
+    # Phase 25 steps the 10k filter through both tables again.
+    out["graph_inputs"] = {"fields": {"lut": field_l, "cddt": field_c}, "start": start}
     del field_l, field_c
     torch.cuda.empty_cache()
 
@@ -1880,8 +1999,10 @@ def fleet_phase(dev, blocked_np, field, counts, map_png, workdir) -> dict:
         ms, states = fb.time_fleet(fl, field, poses, odoms, scans, FLEET_ITERS)
         c = read_counts()
         steps = FLEET_ITERS + 3
-        check(c == {"gather_rows": 0, "motion_odometry": 0, "lut_weights": steps},
-              f"fleet R={r}: launches {c} for {steps} fleet steps")
+        w = warmup_counts()  # MCLFleet.step replays a graph: one block, one warm-up
+        check(c == {"gather_rows": 0, "motion_odometry": 0,
+                    "lut_weights": steps + w["lut_weights"]} and w["lut_weights"] == 1,
+              f"fleet R={r}: launches {c} for {steps} fleet steps (warm-ups {w})")
         for k_ in launches:
             launches[k_] += c[k_]
         box = [states]
@@ -1964,7 +2085,9 @@ def fleet_phase(dev, blocked_np, field, counts, map_png, workdir) -> dict:
                                  "seconds": app_s, "launches": c}
     check(len(ates) == 8 and mean_ate < FLEET_APP_ATE_PX,
           f"fleet_localization: ATEs {ates} (mean bound {FLEET_APP_ATE_PX} px)")
-    check(c["lut_weights"] == 100, f"fleet_localization launches {c} for 100 fleet steps")
+    w = warmup_counts()
+    check(c["lut_weights"] == 100 + w["lut_weights"],
+          f"fleet_localization launches {c} for 100 fleet steps + warm-ups {w}")
     say("fleet", f"fleet_localization (8 robots x 10k, 100 steps): {json.dumps(out['fleet_localization'])}")
     out["launches"] = launches
     return out
@@ -2006,8 +2129,9 @@ def apps_phase(dev, counts, map_png, workdir) -> dict:
                                            "200", "--out", gif])
     out["grid_slam"] = {"particles": 1000, "steps": 200, "ate_px": ate, "seconds": secs,
                         "gif_bytes": os.path.getsize(gif), "launches": c}
-    check(ate < GRID_SLAM_ATE_PX and c["motion_odometry"] == 200,
-          f"grid_slam: ATE {ate} px (bound {GRID_SLAM_ATE_PX}), launches {c}")
+    w = warmup_counts()
+    check(ate < GRID_SLAM_ATE_PX and c["motion_odometry"] == 200 + w["motion_odometry"],
+          f"grid_slam: ATE {ate} px (bound {GRID_SLAM_ATE_PX}), launches {c} (warm-ups {w})")
     say("apps", f"grid_slam quick start: {json.dumps(out['grid_slam'])}")
 
     # --checkpoint-dir: CKPT_STEPS steps in one run, and in two runs cut at
@@ -2643,6 +2767,306 @@ def parallel_phase(dev, counts) -> dict:
     return out
 
 
+def warmup_counts() -> dict:
+    """The kernel wrappers' launches made by graph warm-ups since the last
+    reset (a block's one eager run before its capture; `core/graph.py`)."""
+    from slam_tpu_torch.ops import lut_weights_cuda, motion_cuda, pano_cuda
+
+    return {"gather_rows": pano_cuda.gather_rows.warmup_launches,
+            "motion_odometry": motion_cuda.sample_motion_model_odometry_fused.warmup_launches,
+            "lut_weights": lut_weights_cuda.launch.warmup_launches}
+
+
+def state_difference(a, b):
+    """The first field where two filter states differ (their tensors bit
+    for bit, their counters, their generators' states), or None."""
+    from slam_tpu_torch.models import _graph
+
+    la, ha, lb, hb = {}, {}, {}, {}
+    _graph._flatten(a, "", la, ha)
+    _graph._flatten(b, "", lb, hb)
+    if la.keys() != lb.keys():
+        return "layout"
+    for k, x in la.items():
+        y = lb[k]
+        if x.shape != y.shape:
+            return f"{k} shape"
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            return k
+    for k, v in ha.items():
+        if _graph._is_count(v) and hb[k] != v:
+            return k
+    for g, h in zip(_graph.generators(ha), _graph.generators(hb)):
+        if not torch.equal(g.get_state(), h.get_state()):
+            return "generator state"
+    return None
+
+
+def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
+    """Phase 25: each filter step through its entry point's CUDA graph
+    (`models/_graph.py`, one replay a step) against the eager free
+    function, at the full widths of phases 7-21: the 100k MCL step
+    (`MCL.step`, the fused route), global localization at 1M (`MCL.step`
+    from init_uniform), the 1M SLAM step and the scan-matched one
+    (`GridSLAM.step`, a block per resample-gate phase), the fleet of 16 x
+    100k (`MCLFleet.step`), the 2400 px maze's 10k step through the
+    CDDT and the dense u8 table (`MCL.step`), and `apps/grid_slam.py`'s
+    SLAM step (1000 particles, the beam model sphere-traced: the graph
+    traces the whole count, eager stops early). Per case, GRAPH_STEPS steps
+    with a new odometry and scan at each, every replay under
+    set_sync_debug_mode("error"): graph == eager bit for bit after every
+    step (every tensor of the state, the counters, the generators'
+    states), and the graph's kernel launches == eager's plus its
+    warm-ups; then graph and eager timed in turns (CUDA events), each
+    profiled (device ms, kernels and host-issued launches a step; the
+    runs of each
+    hand-written kernel the profiler saw == the launches its wrapper
+    counted over the same steps, which under graphs it counts from the
+    capture's tally at each replay), the blocks' capture ms and pool
+    memory, the state copies a step."""
+    from slam_tpu_torch.core.config import (
+        LidarConfig, MapConfig, MCLConfig, MotionConfig, RaycastConfig, ScanMatchConfig,
+        SLAMConfig, beam_bin_stride,
+    )
+    from slam_tpu_torch.core.types import Odometry, Pose, Scan
+    from slam_tpu_torch.models import fake_lidar, fleet
+    from slam_tpu_torch.models import mcl as mcl_mod
+    from slam_tpu_torch.models import slam as slam_mod
+    from slam_tpu_torch.models.simulate import forward_arc_commands
+    from slam_tpu_torch.ops import measurement
+    from slam_tpu_torch.tools import fleet_bench as fb
+    from slam_tpu_torch.tools import global_loc_bench as glb
+    from slam_tpu_torch.tools import maze_bench as mb
+
+    reset_counts, read_counts = counts
+    blocked = torch.from_numpy(blocked_np).to(dev)
+    n_in = GRAPH_STEPS
+
+    def scans_along(b, truths, offset, lidar):
+        return [fake_lidar.scan(b, measurement.sensor_pose(Pose.create(*t, device=dev), offset),
+                                lidar, RaycastConfig(max_dist=500.0)) for t in truths]
+
+    def odoms(base, dk):
+        return [Odometry.create(base[0] + dk[0] * k, base[1] + dk[1] * k, base[2] + dk[2] * k)
+                for k in range(n_in)]
+
+    cases = {}
+    # The 100k MCL step: phase 6-7's configuration.
+    lidar = LidarConfig(start=0.0, stop=math.pi, max_dist=500.0, n_rays=90)
+    rc = RaycastConfig(step=0.5, max_dist=500.0, backend="lut")
+    cfg = MCLConfig(n_particles=N_PARTICLES, meas_stddev=5.0, scanner_offset=(0.0, 30.0, 0.0),
+                    lut_beam_stride=beam_bin_stride(lidar, rc))
+    mcl_scans = scans_along(blocked, [(400.0 + k, 400.0, math.pi + 0.01 * k)
+                                      for k in range(n_in)], cfg.scanner_offset, lidar)
+    mcl_odom = odoms((2.5, 0.02, 0.02), (0.001, 0.001, 0.0))
+    bench_alphas = (0.0005, 0.0005, 0.01, 0.01)
+    eng = mcl_mod.MCL(cfg, rc, device=dev)
+    pose0 = Pose.create(400.0, 400.0, math.pi, device=dev)
+    cases["mcl_100k"] = dict(
+        graphs=eng.graphs,
+        init=lambda: mcl_mod.init(mcl_mod.make_generator(0, dev), N_PARTICLES, pose0),
+        graph=lambda st, k, e=eng: e.step(st, mcl_odom[k], bench_alphas, mcl_scans[k], field),
+        eager=lambda st, k: mcl_mod.step(st, mcl_odom[k], bench_alphas, mcl_scans[k], field,
+                                         cfg, rc))
+
+    # Global localization at 1M: phase 15's configuration, seed 0's scans.
+    gl_lidar, gl_rc, gl_scan_rc, gl_cfg = glb.configs(GL_PARTICLES)
+    cmds = forward_arc_commands(n_in, trans=2.5, rot=0.04)
+    _, gl_scans = glb.truth_and_scans(blocked, gl_lidar, gl_scan_rc, gl_cfg, 0, cmds)
+    gl_odom = [Odometry.create(float(c.rot1) + 0.001 * k, float(c.trans), float(c.rot2))
+               for k, c in enumerate(cmds)]
+    gl_eng = mcl_mod.MCL(gl_cfg, gl_rc, device=dev)
+    cases["globalloc_1m"] = dict(
+        graphs=gl_eng.graphs,
+        init=lambda: mcl_mod.init_uniform(mcl_mod.make_generator(0, dev), GL_PARTICLES, blocked),
+        graph=lambda st, k: gl_eng.step(st, gl_odom[k], glb.ALPHAS, gl_scans[k], field),
+        eager=lambda st, k: mcl_mod.step(st, gl_odom[k], glb.ALPHAS, gl_scans[k], field,
+                                         gl_cfg, gl_rc))
+
+    # The 1M SLAM step and the scan-matched one: phases 9 and 18.
+    slam_truths = [(400.0 - 2.5 * k, 400.0 + 0.1 * k, math.pi + 0.005 * k) for k in range(n_in)]
+    for name, scfg in (("slam_1m", slam_config()),
+                       ("scanmatch_slam_1m", dataclasses.replace(
+                           slam_config(), scanmatch=ScanMatchConfig()))):
+        s_eng = slam_mod.GridSLAM(scfg, seed=0, device=dev)
+        s_scans = scans_along(blocked, slam_truths, scfg.mcl.scanner_offset, scfg.lidar)
+        s_odom = odoms((0.02, 2.5, 0.02), (0.001, 0.0, -0.001))
+        start = Pose.create(400.0, 400.0, math.pi, device=dev)
+        cases[name] = dict(
+            graphs=s_eng.graphs,
+            init=lambda e=s_eng, p=start: e.init(p),
+            graph=lambda st, k, e=s_eng, z=s_scans, o=s_odom: e.step(st, o[k], z[k]),
+            eager=lambda st, k, c=scfg, z=s_scans, o=s_odom: slam_mod.step(st, o[k], z[k], c))
+
+    # The fleet of 16 x 100k: phase 21's configuration; robot q's scan at
+    # step k is robot (q - k)'s start scan.
+    f_lidar, f_rc, f_cfg = fb.configs(FLEET_N)
+    r = FLEET_CHECK_R
+    f_poses, _, f_scans0 = fb.fleet_inputs(blocked, r, f_lidar, f_cfg,
+                                           np.random.default_rng(FLEET_SEED))
+    f_odom = [Odometry.create(*(np.float32(v) + np.float32(0.001 * k)
+                                + np.float32(0.0005) * np.arange(r, dtype=np.float32)
+                                for v in fb.ODOM)) for k in range(n_in)]
+    f_scans = [Scan(angles=f_scans0.angles, dists=torch.roll(f_scans0.dists, k, 0))
+               for k in range(n_in)]
+    fl = fleet.MCLFleet(r, f_cfg, f_rc, seed=0, device=dev)
+    cases["fleet_16x100k"] = dict(
+        graphs=fl.graphs, init=lambda: fl.init(f_poses),
+        graph=lambda st, k: fl.step(st, f_odom[k], f_scans[k], field, fb.ALPHAS),
+        eager=lambda st, k: fleet.fleet_step(st, f_odom[k], f_scans[k], field, fb.ALPHAS,
+                                             f_cfg, f_rc))
+
+    # The 2400 px maze's 10k step through both tables: phase 20's.
+    for backend in ("cddt", "lut"):
+        m_lidar, m_rc, m_cfg = mb.configs(backend, MAZE_PARTICLES)
+        m_field = maze["fields"][backend]
+        sx, sy, sth = maze["start"]
+        m_truths = [(sx + 0.2 * k, sy + 0.2 * k, sth + 0.03 * k) for k in range(n_in)]
+        m_scans = [fake_lidar.scan(m_field.blocked, Pose.create(*t, device=dev), m_lidar,
+                                   RaycastConfig(max_dist=500.0)) for t in m_truths]
+        m_odom = odoms((0.05, 1.0, 0.05), (0.001, 0.01, 0.0))
+        m_eng = mcl_mod.MCL(m_cfg, m_rc, device=dev)
+        m_start = Pose.create(sx, sy, sth, device=dev)
+        name = "maze_cddt_10k" if backend == "cddt" else "maze_u8_10k"
+        cases[name] = dict(
+            graphs=m_eng.graphs,
+            init=lambda p=m_start: mcl_mod.init(mcl_mod.make_generator(0, dev), MAZE_PARTICLES,
+                                                p),
+            graph=lambda st, k, e=m_eng, f=m_field, z=m_scans, o=m_odom: e.step(
+                st, o[k], mb.ALPHAS, z[k], f),
+            eager=lambda st, k, c=m_cfg, rc_=m_rc, f=m_field, z=m_scans, o=m_odom: mcl_mod.step(
+                st, o[k], mb.ALPHAS, z[k], f, c, rc_))
+
+    # `apps/grid_slam.py`'s SLAM step at phase 22's 1000 particles on the
+    # plan: its defaults (the beam model, 60 rays to 200 px, sphere-traced
+    # over the EDT rebuilt each step).
+    h, w = blocked_np.shape
+    a_cfg = SLAMConfig(
+        mcl=MCLConfig(n_particles=1000, meas_stddev=5.0, measurement="beam"),
+        map=MapConfig(height=h, width=w),
+        lidar=LidarConfig(n_rays=60, max_dist=200.0, stddev=5.0),
+        motion=MotionConfig(alphas=(5e-4, 5e-4, 1e-2, 1e-2)),
+        raycast=RaycastConfig(step=1.0, max_dist=200.0, backend="sdf"))
+    a_eng = slam_mod.GridSLAM(a_cfg, seed=0, device=dev)
+    a_start = Pose.create(w / 2.0, h / 2.0, math.pi / 2, device=dev)
+    a_scans = [fake_lidar.scan(blocked, Pose.create(w / 2.0 + 0.5 * k, h / 2.0 + 2.0 * k,
+                                                    math.pi / 2 + 0.01 * k, device=dev),
+                               a_cfg.lidar, RaycastConfig(step=1.0, max_dist=200.0))
+               for k in range(n_in)]
+    a_odom = odoms((0.01, 2.0, 0.0), (0.0005, 0.0, 0.0))
+    cases["grid_slam_sdf_1k"] = dict(
+        graphs=a_eng.graphs, init=lambda: a_eng.init(a_start),
+        graph=lambda st, k: a_eng.step(st, a_odom[k], a_scans[k]),
+        eager=lambda st, k: slam_mod.step(st, a_odom[k], a_scans[k], a_cfg))
+
+    # Whether this torch can record `torch.cond` as a CUDA conditional node
+    # in a capture (JAX's lax.cond on the device); without it the auto tier
+    # reads its predicate once on the host (`MCL.update`).
+    import importlib.util
+
+    cond_module = importlib.util.find_spec(
+        "torch._higher_order_ops.cudagraph_conditional_nodes") is not None
+    out = {"steps": n_in, "cases": {}, "torch": torch.__version__, "conditional_nodes": {
+        "CUDAGraph.begin_capture_to_if_node": hasattr(torch.cuda.CUDAGraph,
+                                                      "begin_capture_to_if_node"),
+        "cudagraph_conditional_nodes module": cond_module}}
+    launches = {"gather_rows": 0, "motion_odometry": 0, "lut_weights": 0}
+    for name, c in cases.items():
+        g = c["graphs"]
+        g.guard = sync_error  # the warm-up and every replay
+        torch.cuda.synchronize()
+        reset_counts()
+        sg, se = c["init"](), c["init"]()
+        n_graph = dict.fromkeys(launches, 0)
+        n_eager = dict.fromkeys(launches, 0)
+        for k in range(n_in):
+            before = read_counts()
+            sg = c["graph"](sg, k)
+            mid = read_counts()
+            se = c["eager"](se, k)
+            after = read_counts()
+            for k_ in launches:
+                n_graph[k_] += mid[k_] - before[k_]
+                n_eager[k_] += after[k_] - mid[k_]
+            diff = state_difference(sg, se)
+            check(diff is None, f"graphs {name}: step {k}: graph != eager on the card ({diff})")
+        warm = warmup_counts()
+        for k_ in launches:
+            check(n_graph[k_] == n_eager[k_] + warm[k_],
+                  f"graphs {name}: the graph path launched {n_graph} kernels, eager {n_eager} "
+                  f"(+ warm-ups {warm})")
+        check(sum(n_graph.values()) > 0, f"graphs {name}: no hand-written kernel launched")
+        stats = g.stats()
+        copies0, bytes0 = g.copies, g.copy_bytes
+
+        # Timed in turns from the compared states, inputs cycling.
+        box = {"graph": [sg, 0], "eager": [se, 0]}
+
+        def advance(way):
+            b = box[way]
+            b[0] = c[way](b[0], b[1] % n_in)
+            b[1] += 1
+
+        ms = {"graph": [], "eager": []}
+        for _ in range(2):
+            for way in ("graph", "eager"):
+                torch.cuda.synchronize()
+                ms[way].append(event_ms(lambda: [advance(way) for _ in range(GRAPH_ITERS)])
+                               / GRAPH_ITERS)
+        # Profiled over GRAPH_PROFILE steps a way; the wrappers' counts over
+        # the same steps (under graphs, the capture's tally added at each
+        # replay) held to the runs of their kernels in the trace.
+        prof, ran = {}, {}
+        for way in ("graph", "eager"):
+            counts_at = {}
+
+            def counted_steps():
+                counts_at["before"] = read_counts()
+                for _ in range(GRAPH_PROFILE):
+                    advance(way)
+                counts_at["after"] = read_counts()
+
+            prof[way] = planner_profile(counted_steps)
+            runs = prof[way]["hand_written_kernels_ran"]
+            counted = {k_: counts_at["after"][k_] - counts_at["before"][k_] for k_ in launches}
+            ran[way] = {"counted": counted, "profiled": runs}
+            check(runs == counted,
+                  f"graphs {name}: {way}: the profiler saw {runs} runs of the hand-written "
+                  f"kernels, their wrappers counted {counted}")
+        n_prof = GRAPH_PROFILE
+        res = {way: {"ms_per_step": spread(ms[way]),
+                     "device_ms_per_step": prof[way]["device_ms_per_solve"] / n_prof,
+                     "kernels_per_step": prof[way]["launches_per_solve"] / n_prof,
+                     "host_issued_per_step": prof[way]["host_issued_per_solve"] / n_prof,
+                     "host_issued": {k_: v / n_prof for k_, v in prof[way]["host_issued"].items()},
+                     "top": [[k_, ms_ / n_prof, n_ / n_prof]
+                             for k_, ms_, n_ in prof[way]["top"][:4]]}
+               for way in ("graph", "eager")}
+        steps_timed = box["graph"][1]
+        c_after = read_counts()
+        for k_ in launches:
+            launches[k_] += c_after[k_]
+        res.update(blocks=stats["blocks"],
+                   pool_bytes=sum(b["pool_bytes"] for b in stats["blocks"].values()),
+                   capture_ms=sum(b["capture_ms"] for b in stats["blocks"].values()),
+                   state_copies_per_step=(g.copies - copies0) / steps_timed,
+                   state_copy_bytes_per_step=(g.copy_bytes - bytes0) / steps_timed,
+                   launches_compared={"graph": n_graph, "eager": n_eager, "warm_ups": warm},
+                   kernels_profiled=ran,
+                   graph_equals_eager=True)
+        out["cases"][name] = res
+        say("graphs", f"{name}: graph == eager bit for bit over {n_in} steps; "
+            f"{json.dumps(res)}")
+        g.guard = contextlib.nullcontext
+        del sg, se, box
+        c.clear()
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2653,7 +3077,7 @@ def main() -> None:
         RaycastConfig,
         beam_bin_stride,
     )
-    from slam_tpu_torch.core.types import Odometry, Pose
+    from slam_tpu_torch.core.types import Odometry, Pose, Scan
     from slam_tpu_torch.models import fake_lidar
     from slam_tpu_torch.models import mcl as mcl_mod
     from slam_tpu_torch.ops import _build, lut_weights_cuda, measurement, motion, motion_cuda
@@ -2671,6 +3095,7 @@ def main() -> None:
 
     def reset_counts():
         gather.launches = sampler.launches = fused.launches = 0
+        gather.warmup_launches = sampler.warmup_launches = fused.warmup_launches = 0
 
     def read_counts():
         return {"gather_rows": gather.launches, "motion_odometry": sampler.launches,
@@ -2755,23 +3180,45 @@ def main() -> None:
           "K1 ragged N")
     check(bool((out_r.x[-5:] != ragged.x[-5:]).all()), "K1 ragged tail untouched")
     check(float(out_r.theta.abs().max()) <= math.pi, "K1 theta not wrapped")
+    # K1 reads its odometry from device memory: device fields give the
+    # host fields' poses, and the fused kernel's prologue gives K1's poses
+    # for the same seed and device odometry, bit for bit (a weigh-free use
+    # of the fused kernel: a blank 8 x 8 table, two beams).
+    tiny_lut = torch.zeros((8, 8, 360), dtype=torch.bfloat16, device=dev)
+    tiny_scan = Scan(angles=torch.zeros(2, device=dev), dists=torch.ones(2, device=dev))
+    for od, al in ((odom, alphas), (odd_odom, odd_alphas)):
+        for poses in (pose, ragged):
+            rows = motion_cuda.odometry_rows(od, dev)
+            k1_host = motion_cuda.launch(seed(7), od, poses, al)
+            k1_dev = motion_cuda.launch(seed(7), Odometry(rot1=rows[0, 0], trans=rows[0, 1],
+                                                          rot2=rows[0, 2]), poses, al)
+            pf, _ = fused(tiny_lut, 360, poses, tiny_scan, beam_stride=1,
+                          displacement=(0.0, 0.0, 0.0), max_dist=10.0, stddev=1.0, eps=0.1,
+                          motion=(seed(7), rows, al))
+            for f in ("x", "y", "theta"):
+                a, b, c = (getattr(q, f).view(torch.int32) for q in (k1_host, k1_dev, pf))
+                check(torch.equal(a, b), f"K1 with device odometry != host odometry ({f})")
+                check(torch.equal(a, c), f"K1 != the fused kernel's prologue ({f}, N="
+                      f"{poses.x.numel()})")
     say("K1", f"theta mean {th.mean():.6f} (want 0.8 +- {5 * want_std / math.sqrt(n):.6f}), "
         f"std/want {th.std() / want_std:.4f}; seed 7 reproduces, 8 differs; "
-        f"N=100003 ok; max moment diff vs plain {k1_err:.3e}")
+        f"N=100003 ok; max moment diff vs plain {k1_err:.3e}; the odometry read on the "
+        "device: poses == the fused kernel's prologue bit for bit (two odometries, N=65536 "
+        "and 100003)")
 
     big = Pose.create(torch.full((N_PARTICLES,), 400.0), torch.full((N_PARTICLES,), 400.0),
                       torch.full((N_PARTICLES,), math.pi), device=dev)
     bench_odom = Odometry.create(2.5, 0.02, 0.02)
     bench_alphas = (0.0005, 0.0005, 0.01, 0.01)
     seed1 = seed(1)
-
     def k1():
         return motion_cuda.launch(seed1, bench_odom, big, bench_alphas)
 
     def k1_plain():
         return motion.sample_motion_model_odometry(bench_odom, big, bench_alphas, generator=g)
 
-    k1_ms, _ = device_ms(k1)
+    # The kernel alone: the launch also stages its odometry row (a 12 B copy).
+    k1_ms = own_kernel_ms(k1, "motion_odometry_kernel")
     k1_plain_ms, k1_plain_n = device_ms(k1_plain)
     say("K1", f"N={N_PARTICLES}: device time kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms "
         f"({k1_plain_n:.0f} kernels); per call incl. host {cuda_ms(k1):.4f} ms vs "
@@ -3129,10 +3576,13 @@ def main() -> None:
         stop.record()
         stop.synchronize()
         block_ms.append(start.elapsed_time(stop))
-    slam_launches = read_counts()
+    slam_launches, slam_warm = read_counts(), warmup_counts()
     slam_steps = n_steps
-    check(slam_launches["motion_odometry"] == slam_steps,
-          f"K1 launches {slam_launches} != {slam_steps} SLAM steps")
+    # GridSLAM replays a graph a step: one block (one warm-up launch) per
+    # phase of the resample gate.
+    check(slam_launches["motion_odometry"] == slam_steps + slam_warm["motion_odometry"]
+          and slam_warm["motion_odometry"] == mcfg.resample_every,
+          f"K1 launches {slam_launches} != {slam_steps} SLAM steps + warm-ups {slam_warm}")
     p = st.mcl.particles
     for v in (p.pose.x, p.pose.y, p.pose.theta, p.log_weight, st.grid, st.est_pose.x,
               st.est_pose.y, st.est_pose.theta):
@@ -3214,8 +3664,9 @@ def main() -> None:
                                             generator=g),
         "SLAM cloud, N=1M"))
     seed1m = seed(2)
-    k1_1m_ms, _ = device_ms(lambda: motion_cuda.launch(seed1m, slam_odom, pp,
-                                                       slam_cfg.motion.alphas))
+    k1_1m_ms = own_kernel_ms(lambda: motion_cuda.launch(seed1m, slam_odom, pp,
+                                                        slam_cfg.motion.alphas),
+                             "motion_odometry_kernel")
     k1_1m_plain_ms, _ = device_ms(lambda: motion.sample_motion_model_odometry(
         slam_odom, pp, slam_cfg.motion.alphas, generator=g))
     say("slam", json.dumps({
@@ -3354,6 +3805,7 @@ def main() -> None:
         Image.fromarray(np.where(blocked_np, 0, 255).astype(np.uint8)).save(map_png)
         t0 = time.perf_counter()
         mz = maze_phase(dev, counts)
+        maze_inputs = mz.pop("graph_inputs")
         phase_s["maze"] = time.perf_counter() - t0
         say("maze", json.dumps({**mz, "device": name, "power_limit": power}))
         t0 = time.perf_counter()
@@ -3378,7 +3830,14 @@ def main() -> None:
     tl = tools_phase(dev, counts)
     phase_s["tools"] = time.perf_counter() - t0
     say("tools", json.dumps({**tl, "device": name, "power_limit": power}))
-    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-24 "
+
+    # 25. each filter step as one CUDA graph replay, against the eager step.
+    t0 = time.perf_counter()
+    gr = graphs_phase(dev, blocked_np, field, maze_inputs, counts)
+    del maze_inputs
+    phase_s["graphs"] = time.perf_counter() - t0
+    say("graphs", json.dumps({**gr, "device": name, "power_limit": power}))
+    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-25 "
         f"{time.perf_counter() - t_new:.1f} s {json.dumps(phase_s)}")
 
     # Launches: the counts of the main paths' runs (phase 7's mcl.step,
@@ -3386,13 +3845,14 @@ def main() -> None:
     # tier, phase 18's scan-matched SLAM step, phase 19's RBPF, phase 20's
     # maze steps through both tables, phase 21's fleet steps, phase 22's
     # apps, phase 23's sharded engines on every rank of every world, phase
-    # 24's tools). K2
+    # 24's tools, phase 25's graphed and eager steps; a graph replay counts
+    # the launches its capture recorded, a warm-up its own). K2
     # left the MCL step with this kernel line's third entry; phases 3, 5
     # and 6 still hold it to rows[idx].
     main_launches = {k: launches[k] + slam_launches[k] + gl["launches"][k]
                      + auto["launches_after_step_5"][k] + sm["launches"][k] + rb["launches"][k]
                      + mz["launches"][k] + fl["launches"][k] + ap["launches"][k]
-                     + par["launches"].get(k, 0) + tl["launches"][k]
+                     + par["launches"].get(k, 0) + tl["launches"][k] + gr["launches"][k]
                      for k in launches}
     lw_fleet = fl["kernel_fleet"]
     lw_maze = mz["maze"]["lut"]["lut_weights_vs_plain"]

@@ -8,7 +8,9 @@ returns a copy with fields swapped; `to(device)` moves every tensor.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 
@@ -120,8 +122,18 @@ class Box:
         self.stop_j = stop_j
 
 
+@functools.lru_cache(maxsize=256)
+def f32_host(op, v: float) -> float:
+    """`op(v)` (a torch function) in float32 on the CPU, read back through
+    a numpy buffer: a host constant of a step, which reads no tensor, so a
+    step's CUDA graph and its host-read checks see nothing of it."""
+    out = np.zeros((), np.float32)
+    op(torch.tensor(float(v), dtype=torch.float32), out=torch.from_numpy(out))
+    return float(out)
+
+
 def log_f32(n: float) -> float:
     """log(n) rounded as float32 arithmetic rounds it (the JAX package
     takes `jnp.log(n)` in f32; a float64 log can differ in the last bit)."""
-    return float(torch.log(torch.tensor(float(n), dtype=torch.float32)))
+    return f32_host(torch.log, float(n))
 

@@ -12,10 +12,17 @@
 //
 // What bounds it: device memory. Each particle reads 12 B and writes 12 B;
 // the ~10 transcendentals per particle are far below the card's FP32 rate.
-// So the design is one thread per particle, no shared memory, coalesced
-// 4 B loads and stores, a bounds check in place of the TPU's padding to
-// 256x128 tiles, and the seed read from device memory so the caller never
-// syncs with the host to draw it.
+// So the design is one thread per particle, coalesced 4 B loads and
+// stores, a bounds check in place of the TPU's padding to 256x128 tiles,
+// and the seed and the odometry read from device memory, as the TPU kernel
+// reads its parameters from a ref (motion_pallas.py:88-97): the caller
+// never syncs with the host to draw the seed, and a CUDA graph of a filter
+// step replays with each step's odometry. Thread 0 of each block derives
+// the stddevs from the odometry row with slam_motion::odom_params into
+// shared memory while the block loads its poses and draws its normals, as
+// the fused kernel's prologue derives them (lut_weights.cu), one rounded
+// operation at a time, so they equal ops/motion_cuda.py:host_params bit
+// for bit.
 //
 // `i0` is the global index of the launch's first particle: particle i
 // draws Philox counter i0 + i. A rank that holds particles [i0, i0 + n)
@@ -32,30 +39,53 @@ namespace {
 constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads) motion_odometry_kernel(
-    const long long* __restrict__ seed, slam_motion::OdomParams mp,
-    const float* __restrict__ x, const float* __restrict__ y,
+    const long long* __restrict__ seed, const float* __restrict__ odo,
+    slam_motion::Alphas al, const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ th, float* __restrict__ ox,
     float* __restrict__ oy, float* __restrict__ oth, long long n, long long i0) {
+  // The stddevs once a block: thread 0 derives them into shared memory
+  // while every thread loads its pose and draws its normals, then the
+  // block reads them.
+  __shared__ slam_motion::OdomParams mp;
+  float o0 = 0.0f, o1 = 0.0f, o2 = 0.0f;
+  if (threadIdx.x == 0) {
+    o0 = odo[0];
+    o1 = odo[1];
+    o2 = odo[2];
+  }
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  slam_motion::sample_odometry(static_cast<unsigned long long>(seed[0]), i0 + i,
-                               mp, x[i], y[i], th[i], ox + i, oy + i, oth + i);
+  const bool live = i < n;
+  slam_motion::Noise nz{};
+  float xi = 0.0f, yi = 0.0f, hi = 0.0f;
+  if (live) {
+    xi = x[i];
+    yi = y[i];
+    hi = th[i];
+    nz = slam_motion::odometry_noise(static_cast<unsigned long long>(seed[0]), i0 + i);
+  }
+  if (threadIdx.x == 0) mp = slam_motion::odom_params(o0, o1, o2, al);
+  __syncthreads();
+  if (!live) return;
+  slam_motion::apply_odometry(mp, nz, xi, yi, hi, ox + i, oy + i, oth + i);
 }
 
 }  // namespace
 
-extern "C" int motion_odometry_launch(const void* seed, float r1, float t,
-                                      float r2, float std_r1, float std_t,
-                                      float std_r2, const void* x,
-                                      const void* y, const void* th, void* ox,
-                                      void* oy, void* oth, long long n,
-                                      long long i0, void* stream) {
+// seed: int64 [1]; odo: f32 [3] (rot1, trans, rot2), both on the device;
+// a0-a3: the motion model's alphas.
+extern "C" int motion_odometry_launch(const void* seed, const void* odo,
+                                      float a0, float a1, float a2, float a3,
+                                      const void* x, const void* y,
+                                      const void* th, void* ox, void* oy,
+                                      void* oth, long long n, long long i0,
+                                      void* stream) {
   if (n <= 0) return 0;
   const long long blocks = (n + kThreads - 1) / kThreads;
-  const slam_motion::OdomParams mp{r1, t, r2, std_r1, std_t, std_r2};
+  const slam_motion::Alphas al{a0, a1, a2, a3};
   motion_odometry_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(seed), mp, static_cast<const float*>(x),
+      static_cast<const long long*>(seed), static_cast<const float*>(odo), al,
+      static_cast<const float*>(x),
       static_cast<const float*>(y), static_cast<const float*>(th),
       static_cast<float*>(ox), static_cast<float*>(oy),
       static_cast<float*>(oth), n, i0);

@@ -26,6 +26,7 @@ from slam_tpu_torch.core.config import MCLConfig, RaycastConfig
 from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan, log_f32
 from slam_tpu_torch.models import mcl as mcl_mod
+from slam_tpu_torch.models._graph import StepGraphs
 from slam_tpu_torch.ops import resample
 from slam_tpu_torch.ops.motion_cuda import sample_motion_model_odometry_fused
 
@@ -83,12 +84,12 @@ def _stack(poses) -> Pose:
 
 
 def fleet_step(states, odoms: Odometry, scans: Scan, field, alphas, cfg: MCLConfig,
-               rc: RaycastConfig, u0=None, noise=None, inject=None):
+               rc: RaycastConfig, u0=None, noise=None, inject=None, early_exit: bool = True):
     """One predict -> update step of every robot. `odoms` has [R] fields
     (host or device), `scans` [R, B]; the map / `field` is shared. `u0`
     ([R], the systematic resampler's draws), `noise` (CPU only, robot q's
     three normal draws at noise[q]) and `inject` ((u, i, j, theta), each
-    [R, N]) inject the draws, as in `mcl.step`."""
+    [R, N]) inject the draws, as in `mcl.step`; `early_exit` as there."""
     gens = states.generator
     pose = states.particles.pose
     r, n = pose.x.shape
@@ -110,7 +111,8 @@ def fleet_step(states, odoms: Odometry, scans: Scan, field, alphas, cfg: MCLConf
                 odom, _row(pose, q), alphas, generator=gens[q],
                 noise=None if noise is None else noise[q])
             lw_q, f = mcl_mod._weigh(
-                pq, Scan(angles=scans.angles[q], dists=scans.dists[q]), field, cfg, rc)
+                pq, Scan(angles=scans.angles[q], dists=scans.dists[q]), field, cfg, rc,
+                early_exit=early_exit)
             poses.append(pq)
             lws.append(lw_q)
         new_pose, lw, blocked = _stack(poses), torch.stack(lws), f.blocked
@@ -135,7 +137,12 @@ def fleet_step(states, odoms: Odometry, scans: Scan, field, alphas, cfg: MCLConf
 
 class MCLFleet:
     """R reference-API filters advanced in lockstep on one device: the CUDA
-    card unless the caller asks for another (`device="cpu"`)."""
+    card unless the caller asks for another (`device="cpu"`). `step` runs
+    as one block of `graphs` (`models/_graph.py`): one CUDA graph replay a
+    fleet step on the card, as the JAX class jits it (`slam_tpu/models/
+    fleet.py:61`), registering the R generators; the beam measurement's
+    rays run their whole count (`early_exit=False`). A step of the auto
+    tier reads its predicate on the host, one a robot, and runs eagerly."""
 
     def __init__(self, n_robots: int, cfg: MCLConfig, rc: RaycastConfig = RaycastConfig(),
                  seed: int = 0, device=None):
@@ -144,12 +151,20 @@ class MCLFleet:
         self.rc = rc
         self._seed = seed
         self.device = entry_device(device)
+        self.graphs = StepGraphs()
 
     def init(self, poses: Pose):
         return init_fleet(self._seed, self.n_robots, self.cfg.n_particles, poses.to(self.device))
 
     def step(self, states, odoms: Odometry, scans: Scan, field, alphas):
-        return fleet_step(states, odoms, scans, field, alphas, self.cfg, self.rc)
+        cfg, rc = self.cfg, self.rc
+        if cfg.measurement == "likelihood_field_auto":
+            return fleet_step(states, odoms, scans, field, alphas, cfg, rc)
+        alphas = tuple(float(a) for a in alphas)
+        return self.graphs.run(
+            lambda s, o, z: fleet_step(s, o, z, field, alphas, cfg, rc, early_exit=False),
+            states, odoms, scans,
+            key=("fleet", cfg, rc, alphas, id(field)), gates=(cfg.resample_every,))
 
 
 def mean_poses(states) -> Pose:

@@ -14,9 +14,10 @@
 Functions of an explicit `MCLState`; randomness comes from the state's
 `torch.Generator` (on the particles' device), or is injected (`noise=`,
 `u0=`, `inject=`) so tests can feed in JAX's own draws. No step syncs with
-the host: the data-dependent choices (uninformative-measurement fallback,
-ESS gate, the auto tier, the injection ratio) are `torch.where`
-selections, and the every-k resample gate counts updates on the host.
+the host but the auto tier's one read: the data-dependent choices
+(uninformative-measurement fallback, ESS gate, the injection ratio) are
+`torch.where` selections, and the every-k resample gate counts updates on
+the host.
 
 Sharding (`slam_tpu_torch/parallel/`): each rank runs these functions on
 its own particle shard. With a `ray_sharding` (a `parallel.mesh.Sharding`
@@ -31,12 +32,16 @@ map-sharded engine weighs against a distributed grid).
 
 Measurements: "beam" (raycast or fused LUT route), "likelihood_field"
 (direct), "likelihood_field_table" (boxed correlative table) and
-"likelihood_field_auto", which computes BOTH of the last two and selects
-per update by `measurement.lf_auto_converged` on the device (JAX's
-`lax.cond` has no torch counterpart without a host read; the host-lagged
-alternative is `models/slam.py:AutoTierDispatcher`). `MCLConfig.adaptive`
-adds augmented-MCL injection over free space (`init_uniform` is the
-global-localization start).
+"likelihood_field_auto", which computes ONE of the last two, as JAX's
+`lax.cond` does, picked by `measurement.lf_auto_converged`: the update
+reads the predicate on the host once (the one host read of a step; the
+host-lagged alternative without it is `models/slam.py:
+AutoTierDispatcher`). `MCLConfig.adaptive` adds augmented-MCL injection
+over free space (`init_uniform` is the global-localization start).
+
+The `MCL` class runs each `predict`, `update` and `step` as one CUDA graph
+replay on the card (`models/_graph.py`), as the JAX class jits them; the
+functions here stay eager and are the graphs' reference.
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ import torch
 from slam_tpu_torch.core import stats
 from slam_tpu_torch.core.config import MCLConfig, RaycastConfig
 from slam_tpu_torch.core.device import entry_device
-from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan, log_f32
+from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan, f32_host, log_f32
+from slam_tpu_torch.models._graph import StepGraphs
 from slam_tpu_torch.ops import edt as edtlib
 from slam_tpu_torch.ops import lut_weights_cuda, measurement, rayfield, resample
 from slam_tpu_torch.ops.motion_cuda import (
@@ -233,11 +239,12 @@ LF_MEASUREMENTS = ("likelihood_field", "likelihood_field_table", "likelihood_fie
 
 
 def _weigh(pp: Pose, scan: Scan, field, cfg: MCLConfig, rc: RaycastConfig,
-           ray_sharding=None):
+           ray_sharding=None, early_exit: bool = True):
     """(measurement log weights f32[N] of poses `pp`, the field as a
     RayField): update's first half. `ray_sharding` splits the beams (or
     the table's heading bins) over its 'b' axis and takes the cloud
-    statistics over its 'p' axis."""
+    statistics over its 'p' axis; `early_exit` is the beam measurement's
+    (`measurement.particle_log_weights`)."""
     if cfg.measurement in LF_MEASUREMENTS:
         if not isinstance(field, rayfield.RayField):
             # A raw mask (SLAM mode): the capped transform the LF pdf
@@ -268,19 +275,31 @@ def _weigh(pp: Pose, scan: Scan, field, cfg: MCLConfig, rc: RaycastConfig,
         if cfg.measurement == "likelihood_field":
             return direct(), field
         # Auto tier: the boxed table on a converged cloud, the direct field
-        # on a dispersed one. Both are computed and the predicate selects
-        # on the device, so the weights equal the forced tier's exactly.
-        converged = measurement.lf_auto_converged(
-            pp, cfg, field.edt.shape, scanner_offset=cfg.scanner_offset,
-            ray_sharding=ray_sharding)
-        return torch.where(converged, table(), direct()), field
+        # on a dispersed one. One host read of the predicate, then one tier,
+        # as JAX's lax.cond computes one: the weights are the forced tier's.
+        converged = bool(auto_converged(pp, field, cfg, ray_sharding))
+        return (table() if converged else direct()), field
     field = rayfield.as_ray_field(field, rc)
     return measurement.particle_log_weights(
         field, pp, scan,
         rc=rc, scanner_offset=cfg.scanner_offset, stddev=cfg.meas_stddev,
         eps=cfg.meas_epsilon, lut_beam_stride=cfg.lut_beam_stride,
-        ray_sharding=ray_sharding,
+        ray_sharding=ray_sharding, early_exit=early_exit,
     ), field
+
+
+def auto_converged(pp: Pose, field, cfg: MCLConfig, ray_sharding=None) -> torch.Tensor:
+    """The auto tier's predicate of poses `pp` on `field` (a RayField or a
+    raw mask), a bool 0-d tensor on their device."""
+    shape = field.edt.shape if isinstance(field, rayfield.RayField) else field.shape
+    return measurement.lf_auto_converged(pp, cfg, tuple(shape), scanner_offset=cfg.scanner_offset,
+                                         ray_sharding=ray_sharding)
+
+
+def auto_tier(cfg: MCLConfig, converged: bool) -> MCLConfig:
+    """`cfg` with the tier the auto measurement picks forced."""
+    return dataclasses.replace(cfg, measurement="likelihood_field_table" if converged
+                               else "likelihood_field")
 
 
 def adaptive_emas(log_w_slow, log_w_fast, lw, adaptive, ax=None):
@@ -301,7 +320,7 @@ def adaptive_emas(log_w_slow, log_w_fast, lw, adaptive, ax=None):
     first = torch.isnan(log_w_slow)
     out = []
     for prev, a in ((log_w_slow, adaptive.alpha_slow), (log_w_fast, adaptive.alpha_fast)):
-        keep = float(torch.log1p(torch.tensor(-a, dtype=torch.float32)))
+        keep = f32_host(torch.log1p, -a)
         out.append(torch.where(first, log_w_avg, torch.logaddexp(
             keep + prev, log_f32(a) + log_w_avg)))
     ratio = torch.clamp(1.0 - torch.exp(out[1] - out[0]), 0.0, adaptive.max_ratio)
@@ -388,6 +407,7 @@ def update(
     measurement_fn=None,
     u0=None,
     inject=None,
+    early_exit: bool = True,
 ) -> MCLState:
     """Weight against one scan, then (conditionally) resample and inject.
 
@@ -397,7 +417,9 @@ def update(
     u0=, generator=)` replaces the resampler, `measurement_fn(poses, scan)
     -> lw` the measurement (`field` is then unused). `u0` injects the
     systematic resampler's uniform draw, `inject` the adaptive injection's
-    draws."""
+    draws. `early_exit` False casts the beam measurement's rays by the
+    march or the sphere trace to their whole count with no host read, to
+    the same weights (the entry points' graphed steps)."""
     if measurement_fn is not None:
         if cfg.adaptive is not None:
             raise ValueError(
@@ -407,7 +429,7 @@ def update(
         lw = measurement_fn(state.particles.pose, scan)
         return _finish(state, lw, cfg, u0, None, inject, ray_sharding=ray_sharding,
                        resample_fn=resample_fn)
-    lw, field = _weigh(state.particles.pose, scan, field, cfg, rc, ray_sharding)
+    lw, field = _weigh(state.particles.pose, scan, field, cfg, rc, ray_sharding, early_exit)
     return _finish(state, lw, cfg, u0, field.blocked, inject, ray_sharding=ray_sharding,
                    resample_fn=resample_fn)
 
@@ -451,6 +473,7 @@ def step(
     inject=None,
     ray_sharding=None,
     resample_fn=None,
+    early_exit: bool = True,
 ) -> MCLState:
     """predict -> update in one call (`bench.py:111-114`'s jitted step).
 
@@ -460,12 +483,12 @@ def step(
     K1 (same generator state, same poses); then the rest of `update`.
     Elsewhere it is exactly `update(predict(...))`. `noise` (CPU only),
     `u0` and `inject` inject the draws, as in `predict` and `update`;
-    `ray_sharding` and `resample_fn` as in `update` (the fused launch then
-    counts Philox from the shard's first global index)."""
+    `ray_sharding`, `resample_fn` and `early_exit` as in `update` (the
+    fused launch then counts Philox from the shard's first global index)."""
     if not _fused_route(state.particles.pose, field, cfg, rc):
         return update(predict(state, odom, alphas, noise=noise, ray_sharding=ray_sharding),
                       scan, field, cfg, rc, ray_sharding=ray_sharding,
-                      resample_fn=resample_fn, u0=u0, inject=inject)
+                      resample_fn=resample_fn, u0=u0, inject=inject, early_exit=early_exit)
     if noise is not None:
         raise ValueError(
             "injected noise is a CPU-path argument; the CUDA kernel draws its own"
@@ -499,7 +522,16 @@ def mean_pose(state: MCLState, ray_sharding=None) -> Pose:
 class MCL:
     """Wrapper mirroring the reference's class API (`slam/mcl.h:12-46`)
     with explicit state on `device`: the CUDA card unless the caller asks
-    for another (`device="cpu"`)."""
+    for another (`device="cpu"`).
+
+    `predict`, `update` and `step` each run as one block of `graphs`
+    (`models/_graph.py`): one CUDA graph replay a call on the card, as the
+    JAX class jits `predict` and `update` (`slam_tpu/models/mcl.py:
+    408-409`) and `bench.py:109-112` its step; the same block code eagerly
+    on the CPU. The auto measurement tier makes one block compute its
+    predicate, reads it on the host and replays the chosen tier's update.
+    A block casts the beam measurement's rays to their whole count
+    (`early_exit=False`): the free functions' weights, with no host read."""
 
     def __init__(
         self,
@@ -512,6 +544,7 @@ class MCL:
         self.rc = rc
         self._seed = seed
         self.device = entry_device(device)
+        self.graphs = StepGraphs()
 
     def init(self, h: int, w: int) -> MCLState:
         return init(
@@ -521,10 +554,42 @@ class MCL:
         )
 
     def predict(self, state, odom: Odometry, alphas) -> MCLState:
-        return predict(state, odom, alphas)
+        alphas = tuple(float(a) for a in alphas)
+        return self.graphs.run(lambda s, o, _: predict(s, o, alphas), state, odom,
+                               key=("predict", alphas))
+
+    def _tier(self, state, scan: Scan, field) -> MCLConfig:
+        """The config of this update's tier: the auto tier's choice read
+        through one block (the predicate's), else the config."""
+        cfg = self.cfg
+        if cfg.measurement != "likelihood_field_auto":
+            return cfg
+        converged = self.graphs.read_flag(
+            lambda s, _: auto_converged(s.particles.pose, field, cfg), state, scan,
+            key=("auto", cfg, id(field)))
+        return auto_tier(cfg, converged)
 
     def update(self, state, scan: Scan, field) -> MCLState:
-        return update(state, scan, field, self.cfg, self.rc)
+        cfg = self._tier(state, scan, field)
+        return self.graphs.run(
+            lambda s, _, z: update(s, z, field, cfg, self.rc, early_exit=False), state,
+            scan=scan, key=("update", cfg, self.rc, id(field)),
+            gates=(cfg.resample_every,))
+
+    def step(self, state, odom: Odometry, alphas, scan: Scan, field) -> MCLState:
+        """predict -> update as one block (`step`: on the card with the
+        beam measurement on the LUT route, one fused kernel launch for
+        both). With the auto tier: `predict`, then `update`, whose
+        predicate is read between the two."""
+        alphas = tuple(float(a) for a in alphas)
+        if self.cfg.measurement == "likelihood_field_auto":
+            return self.update(self.predict(state, odom, alphas), scan, field)
+        cfg = self.cfg
+        return self.graphs.run(lambda s, o, z: step(s, o, alphas, z, field, cfg, self.rc,
+                                                    early_exit=False),
+                               state, odom, scan,
+                               key=("step", cfg, self.rc, alphas, id(field)),
+                               gates=(cfg.resample_every,))
 
     @staticmethod
     def sensor_position(pose: Pose, scanner_offset) -> Pose:

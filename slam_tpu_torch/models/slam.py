@@ -7,14 +7,17 @@ particles weight against the same frozen grid, then the grid updates once
 (the JAX package's docstring has the design against the reference's
 per-particle maps).
 
-Functions of an explicit `SLAMState` on one device; `GridSLAM` wraps them.
-The every-k gates (resample, map update) count on the host. With
-`SLAMConfig.edt_box` unset (the production setting) the step makes no host
-sync; with it set, the incremental EDT refresh reads two flags a step
-(`ops/edt.py:edt_refresh`). `SLAMConfig.scanmatch` refines the output
-estimate on the device (`ops/scanmatch.py`), and ``likelihood_field_auto``
-runs through `GridSLAM`'s host-lagged `AutoTierDispatcher` (in `step`
-itself, through `mcl.update`'s both-tiers selection).
+Functions of an explicit `SLAMState` on one device; `GridSLAM` wraps them
+and runs each step as one CUDA graph replay on the card
+(`models/_graph.py`), as the JAX class jits its step. The every-k gates
+(resample, map update) count on the host. With `SLAMConfig.edt_box` unset
+(the production setting) the step makes no host sync; with it set, the
+incremental EDT refresh reads two flags a step (`ops/edt.py:edt_refresh`),
+so `GridSLAM` keeps that step eager. `SLAMConfig.scanmatch` refines the
+output estimate on the device (`ops/scanmatch.py`), and
+``likelihood_field_auto`` runs through `GridSLAM`'s host-lagged
+`AutoTierDispatcher` (in `step` itself, through `mcl.update`'s one read of
+the predicate).
 
 Under a `ray_sharding` (`slam_tpu_torch/parallel/sharded.py`) each rank
 steps its particle shard with the sharded `mcl` functions; the map pose
@@ -34,6 +37,7 @@ from slam_tpu_torch.core.config import SLAMConfig
 from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch.core.types import Odometry, Pose, Scan
 from slam_tpu_torch.models import mcl as mcl_mod
+from slam_tpu_torch.models._graph import StepGraphs
 from slam_tpu_torch.ops import edt as edtlib
 from slam_tpu_torch.ops import mapping, measurement, rayfield, scanmatch
 
@@ -114,11 +118,13 @@ def step(
     resample_fn=None,
     noise=None,
     u0=None,
+    early_exit: bool = True,
 ) -> SLAMState:
     """One full SLAM step (predict + update + [refine] + map + resample).
     `noise` (CPU only) and `u0` inject the motion draws and the
-    resampler's uniform. `ray_sharding` and `resample_fn` are
-    `mcl.update`'s: the state is one particle shard of a sharded filter."""
+    resampler's uniform. `ray_sharding`, `resample_fn` and `early_exit`
+    are `mcl.update`'s: the state is one particle shard of a sharded
+    filter; the beam measurement's rays run their whole count."""
     st = mcl_mod.predict(state.mcl, odom, cfg.motion.alphas, noise=noise,
                          ray_sharding=ray_sharding)
     blocked = gridlib.blocked_from_logodds(state.grid)
@@ -143,7 +149,7 @@ def step(
 
     st = mcl_mod.update(
         st, scan, lf_field if lf_meas else blocked, cfg.mcl, cfg.raycast,
-        ray_sharding=ray_sharding, resample_fn=resample_fn, u0=u0,
+        ray_sharding=ray_sharding, resample_fn=resample_fn, u0=u0, early_exit=early_exit,
     )
 
     # The map follows `map_pose`'s estimator; the output estimate is the
@@ -282,16 +288,33 @@ class AutoTierDispatcher:
 class GridSLAM:
     """The SLAM engine on an explicit `device` (the CUDA card unless the
     caller asks for another, `device="cpu"`); cfg held fixed.
-    ``likelihood_field_auto`` runs through `AutoTierDispatcher`."""
+    ``likelihood_field_auto`` runs through `AutoTierDispatcher`.
+
+    `step` and `predict` each run as one block of `graphs`
+    (`models/_graph.py`): one CUDA graph replay a call on the card, as the
+    JAX class jits them (`slam_tpu/models/slam.py:336-340`), one block per
+    phase of the resample and map gates; the dispatcher's forced-tier steps
+    too; a block casts the beam measurement's rays to their whole count
+    (`early_exit=False`, no host read). A step with `edt_box` reads the
+    host itself (`ops/edt.py:edt_refresh`) and runs eagerly."""
 
     def __init__(self, cfg: SLAMConfig, seed: int = 0, device=None):
         self.cfg = cfg
         self._seed = seed
         self.device = entry_device(device)
+        self.graphs = StepGraphs()
         self._auto = None
         if cfg.mcl.measurement == "likelihood_field_auto":
             self._auto = AutoTierDispatcher(
-                cfg, lambda c: (lambda s, o, z: step(s, o, z, c)))
+                cfg, lambda c: (lambda s, o, z: self._step(s, o, z, c)))
+
+    def _step(self, state: SLAMState, odom: Odometry, scan: Scan, cfg: SLAMConfig) -> SLAMState:
+        if cfg.edt_box is not None:
+            return step(state, odom, scan, cfg)
+        return self.graphs.run(lambda s, o, z: step(s, o, z, cfg, early_exit=False),
+                               state, odom, scan,
+                               key=("step", cfg),
+                               gates=(cfg.mcl.resample_every, cfg.map_every))
 
     def init(self, pose: Optional[Pose] = None) -> SLAMState:
         if self._auto is not None:
@@ -304,10 +327,12 @@ class GridSLAM:
     def step(self, state: SLAMState, odom: Odometry, scan: Scan) -> SLAMState:
         if self._auto is not None:
             return self._auto.step(state, odom, scan)
-        return step(state, odom, scan, self.cfg)
+        return self._step(state, odom, scan, self.cfg)
 
     def predict(self, state: SLAMState, odom: Odometry) -> SLAMState:
-        return predict_only(state, odom, self.cfg)
+        cfg = self.cfg
+        return self.graphs.run(lambda s, o, _: predict_only(s, o, cfg), state, odom,
+                               key=("predict", cfg))
 
     def prob_map(self, state: SLAMState) -> torch.Tensor:
         """P(occupied) in [0, 1] from the log-odds grid."""

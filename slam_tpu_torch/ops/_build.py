@@ -38,10 +38,10 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # (seed*, r1, t, r2, std_r1, std_t, std_r2, x*, y*, th*, ox*, oy*, oth*,
-    #  n, i0, stream)
+    # (seed*, odo*, a0, a1, a2, a3, x*, y*, th*, ox*, oy*, oth*, n, i0,
+    #  stream)
     "motion_odometry_launch": (
-        [_P] + [ctypes.c_float] * 6 + [_P] * 6 + [ctypes.c_longlong] * 2 + [_P]
+        [_P] * 2 + [ctypes.c_float] * 4 + [_P] * 6 + [ctypes.c_longlong] * 2 + [_P]
     ),
     # (rows*, idx*, out*, n, row_bytes, vec_bytes, stream)
     "gather_rows_launch": (

@@ -161,7 +161,9 @@ def raycast_cddt(table: CDDTTable, x, y, theta, *, max_dist: float = 500.0, shap
             f"(needs max_dist * 1.25 < {_PAD - d})"
         )
     dev = table.starts.device
-    cap = torch.tensor(max_dist * 1.25, dtype=torch.float32, device=dev)
+    # Filled on the device: a Python number made a CUDA tensor is a host
+    # copy, which a CUDA graph of the step cannot hold.
+    cap = torch.full((), max_dist * 1.25, dtype=torch.float32, device=dev)
     ci, cj, cd = (h - 1) / 2.0, (w - 1) / 2.0, (d - 1) / 2.0
 
     x, y, theta = torch.broadcast_tensors(
@@ -198,7 +200,7 @@ def raycast_cddt(table: CDDTTable, x, y, theta, *, max_dist: float = 500.0, shap
         s_rows = starts[row].to(torch.int32)  # [..., K]
         e_rows = ends[row].to(torch.int32)
         vk = v[..., None]
-        pad = torch.tensor(_PAD, dtype=torch.int32, device=dev)
+        pad = torch.full((), _PAD, dtype=torch.int32, device=dev)
         df = torch.where(e_rows >= vk, torch.clamp(s_rows - vk, min=0), pad)
         db = torch.where(s_rows <= vk, torch.clamp(vk - e_rows, min=0), pad)
         dist = torch.minimum(

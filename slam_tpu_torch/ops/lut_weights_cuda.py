@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from slam_tpu_torch.core.graph import count_launch
 from slam_tpu_torch.core.stats import _SQRT_2PI
 from slam_tpu_torch.core.types import Pose, Scan
 from slam_tpu_torch.ops import _build
@@ -141,9 +142,10 @@ def launch(
             *(float(p) for p in params), lw.data_ptr(), n, int(i0), r, stream,
         )
     _build.check(code, "lut_weights_launch")
-    launch.launches += 1
+    count_launch(launch)
     return out, lw
 
 
 # Kernel launches since the last reset.
 launch.launches = 0
+launch.warmup_launches = 0

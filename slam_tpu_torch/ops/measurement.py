@@ -254,6 +254,7 @@ def particle_log_weights(
     eps: float = 0.1,
     lut_beam_stride=None,
     ray_sharding=None,
+    early_exit: bool = True,
 ):
     """Log measurement likelihood f32[N] of every particle given one scan
     (the log of `slam/mcl.cpp:69-75`'s product of beam weights).
@@ -261,7 +262,9 @@ def particle_log_weights(
     `field` is a `RayField` or a raw bool[H, W] blocked mask. With the lut
     backend and a `lut_beam_stride`, the fused panorama route; otherwise one
     raycast per (particle, beam) through `raycast_field`, the beams split
-    over the 'b' axis of `ray_sharding`."""
+    over the 'b' axis of `ray_sharding`. `early_exit` False runs the march
+    and the sphere trace to their whole count with no host read (the same
+    weights; a CUDA graph of a step casts so)."""
     field = as_ray_field(field, rc)
     if lut_beam_stride is not None and rc.backend == "lut" and field.lut is not None:
         return particle_log_weights_lut_fused(
@@ -273,7 +276,7 @@ def particle_log_weights(
     angles = sp.theta[:, None] + scan.angles[None, :]  # [N, B]
     px = sp.x[:, None].expand(angles.shape)
     py = sp.y[:, None].expand(angles.shape)
-    pred, hit = raycast_field(field, px, py, angles, rc)
+    pred, hit = raycast_field(field, px, py, angles, rc, early_exit)
     lw = beam_log_weights(
         pred, hit, scan.dists[None, :],
         stddev=stddev, max_dist=rc.max_dist, eps=eps,

@@ -3,9 +3,10 @@
 Port of the TPU Pallas kernel `slam_tpu/ops/motion_pallas.py:
 sample_motion_model_odometry_pallas`. The wrapper decides by the tensor's
 device: poses on a CUDA device go to the kernel (which draws its own
-Philox noise from a seed); poses on the CPU go to the plain PyTorch
-version `ops/motion.py:sample_motion_model_odometry` with noise from the
-generator (or injected). A failed build or launch raises.
+Philox noise from a seed and reads the odometry from device memory, as the
+TPU kernel reads its parameters from a ref); poses on the CPU go to the
+plain PyTorch version `ops/motion.py:sample_motion_model_odometry` with
+noise from the generator (or injected). A failed build or launch raises.
 
 The kernel is held to the plain version by moments and seed
 reproducibility, not bitwise: its noise stream is its own.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from slam_tpu_torch.core.graph import count_launch
 from slam_tpu_torch.core.types import Odometry, Pose
 from slam_tpu_torch.ops import _build
 from slam_tpu_torch.ops.motion import sample_motion_model_odometry
@@ -23,7 +25,9 @@ from slam_tpu_torch.ops.motion import sample_motion_model_odometry
 
 def host_params(odom: Odometry, alphas):
     """(r1, t, r2, std_r1, std_t, std_r2) in float32, computed on the host
-    exactly as `motion_pallas.py:82-97` does."""
+    exactly as `motion_pallas.py:82-97` does: the reference that the
+    kernels' device-side `odom_params` (`csrc/motion_odometry.cuh`) equals
+    bit for bit. No step path calls it."""
     a = np.asarray([float(v) for v in alphas], np.float32)
     r1, t, r2 = (np.float32(float(v)) for v in (odom.rot1, odom.trans, odom.rot2))
     return (
@@ -38,10 +42,11 @@ def host_params(odom: Odometry, alphas):
 
 def odometry_rows(odom: Odometry, device) -> torch.Tensor:
     """f32 [R, 3] (rot1, trans, rot2) on `device` of an Odometry with
-    scalar (R = 1) or [R] fields on the host or the device: the fused
-    kernel's odometry, from which it computes the stddevs as `host_params`
-    does. Host odometry is copied over without a host sync (a pageable
-    source: the copy returns once its bytes are staged)."""
+    scalar (R = 1) or [R] fields on the host or the device: both kernels'
+    odometry, from which they compute the stddevs as `host_params` does.
+    Host odometry is copied over without a host sync (a pageable source:
+    the copy returns once its bytes are staged); a CUDA graph of a step
+    passes device fields (`models/_graph.py`), which stay on the card."""
     rows = torch.stack([torch.as_tensor(v, dtype=torch.float32)
                         for v in (odom.rot1, odom.trans, odom.rot2)], dim=-1)
     return rows.reshape(-1, 3).to(device, non_blocking=True).contiguous()
@@ -75,12 +80,16 @@ def kernel_inputs(pose: Pose, seed, dev):
 
 def launch(seed: torch.Tensor, odom: Odometry, pose: Pose, alphas, i0: int = 0) -> Pose:
     """Run the CUDA kernel: poses f32[N] on one CUDA device, `seed` an
-    int64[1] on that device; particle i draws Philox counter `i0` + i (the
-    global index of a particle shard's first particle). Returns the
-    sampled poses, theta wrapped."""
+    int64[1] on that device, `odom` one odometry (host or device fields:
+    `odometry_rows` puts it on the device, where the kernel reads it);
+    particle i draws Philox counter `i0` + i (the global index of a
+    particle shard's first particle). Returns the sampled poses, theta
+    wrapped."""
     dev = pose.x.device
     x, y, th = kernel_inputs(pose, seed, dev)
-    params = [float(p) for p in host_params(odom, alphas)]
+    odo = odometry_rows(odom, dev)
+    if odo.shape != (1, 3):
+        raise ValueError(f"K1 samples one odometry, got rows {tuple(odo.shape)}")
     ox, oy, oth = (torch.empty_like(x) for _ in range(3))
     if x.numel() == 0:
         return Pose(x=ox, y=oy, theta=oth)
@@ -88,13 +97,13 @@ def launch(seed: torch.Tensor, odom: Odometry, pose: Pose, alphas, i0: int = 0) 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.motion_odometry_launch(
-            seed.data_ptr(), *params,
+            seed.data_ptr(), odo.data_ptr(), *(float(a) for a in alphas),
             x.data_ptr(), y.data_ptr(), th.data_ptr(),
             ox.data_ptr(), oy.data_ptr(), oth.data_ptr(),
             x.numel(), int(i0), stream,
         )
     _build.check(code, "motion_odometry_launch")
-    sample_motion_model_odometry_fused.launches += 1
+    count_launch(sample_motion_model_odometry_fused)
     return Pose(x=ox, y=oy, theta=oth)
 
 
@@ -132,3 +141,4 @@ def sample_motion_model_odometry_fused(
 
 # Kernel launches since the last reset (the CPU path does not count).
 sample_motion_model_odometry_fused.launches = 0
+sample_motion_model_odometry_fused.warmup_launches = 0

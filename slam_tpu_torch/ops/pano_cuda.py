@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from slam_tpu_torch.core.graph import count_launch
 from slam_tpu_torch.ops import _build
 
 
@@ -45,7 +46,7 @@ def launch(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             stream,
         )
     _build.check(code, "gather_rows_launch")
-    gather_rows.launches += 1
+    count_launch(gather_rows)
     return out
 
 
@@ -58,3 +59,4 @@ def gather_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 # Kernel launches since the last reset (the CPU path does not count).
 gather_rows.launches = 0
+gather_rows.warmup_launches = 0

@@ -3,7 +3,9 @@
 
 Particles start uniform over the plan's free cells with uniform headings
 (`mcl.init_uniform`) and weigh against the known map through the 360-bin
-bf16 LUT (on CUDA, one launch of `csrc/lut_weights.cu` a step). The truth
+bf16 LUT (on CUDA, one launch of `csrc/lut_weights.cu` a step, each step
+one CUDA graph replay through `mcl.MCL.step`, as the JAX tool jits its
+step). The truth
 starts at (400, 400, pi) and follows `forward_arc_commands(steps, 2.5,
 0.04)` through the noisy motion model with a generator of its own (seed +
 100). Per seed it reports, as the JAX tool does, the step at which the
@@ -96,13 +98,19 @@ def plant(state: mcl_mod.MCLState, noise: torch.Tensor) -> mcl_mod.MCLState:
     return state.replace(particles=state.particles.replace(pose=Pose(x=x, y=y, theta=th)))
 
 
-def run(state, field, cmds, scans, cfg, rc, guard=None):
-    """`mcl.step` over the commands and scans: (final state, f32 [T, 4]
+def run(state, field, cmds, scans, cfg, rc, engine=None):
+    """The step over the commands and scans: (final state, f32 [T, 4]
     per-step (mean x, mean y, std x, std y) on the state's device, the
-    per-step ms). On CUDA the times come from CUDA events and the loop
-    makes no host read; `guard(fn)` wraps each step call (for example a
-    sync check)."""
-    guard = guard or (lambda fn: fn())
+    per-step ms). The step is `engine.step` (an `mcl.MCL` of `cfg`, `rc`:
+    one CUDA graph replay a step on the card, as the JAX tool jits it)
+    when given, else the eager `mcl.step`. On CUDA the times come from
+    CUDA events and the loop makes no host read."""
+    if engine is not None:
+        def step(st, odom, scan):
+            return engine.step(st, odom, ALPHAS, scan, field)
+    else:
+        def step(st, odom, scan):
+            return mcl_mod.step(st, odom, ALPHAS, scan, field, cfg, rc)
     dev = state.particles.pose.x.device
     stats = torch.empty((len(cmds), 4), device=dev)
     marks = []
@@ -113,7 +121,7 @@ def run(state, field, cmds, scans, cfg, rc, guard=None):
             start.record()
         else:
             start = time.perf_counter()
-        state = guard(lambda: mcl_mod.step(state, odom, ALPHAS, scan, field, cfg, rc))
+        state = step(state, odom, scan)
         if dev.type == "cuda":
             stop.record()
         else:
@@ -163,6 +171,7 @@ def main() -> None:
     blocked = torch.from_numpy(synthetic_floor_plan()).to(dev)
     lidar, rc, scan_rc, cfg = configs(args.particles)
     field = rayfield.make_ray_field(blocked, rc)
+    engine = mcl_mod.MCL(cfg, rc, device=dev)
     cmds = forward_arc_commands(args.steps, trans=2.5, rot=0.04)
     runs = []
     for seed in range(args.seeds):
@@ -172,7 +181,7 @@ def main() -> None:
             st = plant(st, torch.randn((3, args.plant), generator=mcl_mod.make_generator(
                 seed + 200, dev), device=dev))
         near = near_start(st.particles.pose)
-        st, stats, ms = run(st, field, cmds, scans, cfg, rc)
+        st, stats, ms = run(st, field, cmds, scans, cfg, rc, engine=engine)
         runs.append({"seed": seed, **summarize(stats, truths), "near_start": near,
                      "median_step_ms": float(np.median(ms))})
         print(json.dumps(runs[-1]), flush=True)

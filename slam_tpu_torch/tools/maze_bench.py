@@ -13,7 +13,8 @@ over pi, max_dist 500 and 360 bins, through one of two ray tables:
 
 Prints the JAX tool's JSON lines (metric names unchanged):
 
-  <name>_mcl_step_ms_10k[_cddt]     predict -> update step latency
+  <name>_mcl_step_ms_10k[_cddt]     predict -> update step latency (one
+                                    CUDA graph replay a step on the card)
   <name>_localization_ate_px[_cddt] closed-loop tracking ATE (60 steps)
   <name>_<backend>_build_s          one-off table build time
 
@@ -130,7 +131,8 @@ def build_field(blocked, backend: str, bins: int = 360, dtype: str = "u8", devic
 
 def step_ms(blocked, field, backend: str, start, particles: int = 10_000, iters: int = 20,
             warmup: int = 3, device=None, bins: int = 360, dtype: str = "u8"):
-    """ms per predict -> update step (`mcl.step`) from `start` against one
+    """ms per predict -> update step (`mcl.MCL.step`: one CUDA graph replay
+    on the card, as the JAX tool jits its step) from `start` against one
     scan taken there, after `warmup` steps: CUDA events on the card, the
     host clock on the CPU. Returns (ms, the final state)."""
     dev = entry_device(device)
@@ -140,20 +142,25 @@ def step_ms(blocked, field, backend: str, start, particles: int = 10_000, iters:
     scan = fake_lidar.scan(b, pose, lidar, RaycastConfig(max_dist=500.0))
     odom = Odometry.create(0.05, 1.0, 0.05)
     state = mcl_mod.init(mcl_mod.make_generator(0, dev), particles, pose)
+    engine = mcl_mod.MCL(cfg, rc, device=dev)
+
+    def step(st):
+        return engine.step(st, odom, ALPHAS, scan, field)
+
     for _ in range(warmup):
-        state = mcl_mod.step(state, odom, ALPHAS, scan, field, cfg, rc)
+        state = step(state)
     _sync(dev)
     if dev.type == "cuda":
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0.record()
         for _ in range(iters):
-            state = mcl_mod.step(state, odom, ALPHAS, scan, field, cfg, rc)
+            state = step(state)
         t1.record()
         t1.synchronize()
         return t0.elapsed_time(t1) / iters, state
     t0 = time.perf_counter()
     for _ in range(iters):
-        state = mcl_mod.step(state, odom, ALPHAS, scan, field, cfg, rc)
+        state = step(state)
     return (time.perf_counter() - t0) / iters * 1e3, state
 
 

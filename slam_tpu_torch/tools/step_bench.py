@@ -12,11 +12,16 @@ timed alone, for A/B runs of two trees of the package on one card.
                `mcl.step` (phase 15): 1M particles from `init_uniform`,
                seed 0, 60 steps
 
-Each case prints one JSON line: ms per step (CUDA events; median, min and
-max over the blocks, or over the 60 steps), device ms and launches per
-step (torch.profiler), and the device ms of one `resample` call on the
-case's own weights (the last state's; for globalloc the uniform cloud's
-weights after step 1, as dispersed as the step ever sees).
+Each case prints one JSON line with the step run two ways in the same
+call, through the entry point's CUDA graph (`mcl.MCL.step`,
+`slam.GridSLAM.step`: one replay a step, `graph`) and through the eager
+free function (`mcl.step`, `slam.step`: `eager`): ms per step (CUDA
+events; median, min and max over the blocks, or over the 60 steps), device
+ms and launches per step (torch.profiler); and the device ms of one
+`resample` call on the case's own weights (the last state's; for globalloc
+the uniform cloud's weights after step 1, as dispersed as the step ever
+sees). A tree whose package predates the graphed entry points reports
+`graph` as null.
 
     env PYTHONPATH=<tree> python slam_tpu_torch/tools/step_bench.py --label NAME
 
@@ -29,6 +34,7 @@ with small `--particles` / `--big-particles` is a functional check.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import math
 import statistics
@@ -115,6 +121,28 @@ def resample_ms(particles, dev, seed: int) -> float:
     return device_ms(lambda: resample.resample(particles, "systematic", generator=g), dev)[0]
 
 
+def both_ways(make_advance, dev, blocks, iters, warmup) -> dict:
+    """{"graph": ..., "eager": ...}: for each way, `make_advance(graphed)`
+    (None when the tree lacks the graphed entry point) run `warmup` steps,
+    then timed in `blocks` blocks of `iters` steps and profiled; the last
+    state's box under "box"."""
+    out = {}
+    for way in ("graph", "eager"):
+        made = make_advance(way == "graph")
+        if made is None:
+            out[way] = None
+            continue
+        advance, box = made
+        for _ in range(warmup):
+            advance()
+        ms = blocks_ms(advance, dev, blocks, iters)
+        dms, launches = device_ms(advance, dev, iters, warmup=0)
+        out[way] = {"ms_per_step": spread(ms), "device_ms_per_step": dms,
+                    "launches_per_step": launches}
+        out["box"] = box
+    return out
+
+
 def mcl_case(dev, blocked, field, n, blocks, iters) -> dict:
     lidar = LidarConfig(start=0.0, stop=math.pi, max_dist=500.0, n_rays=90)
     rc = RaycastConfig(step=0.5, max_dist=500.0, backend="lut")
@@ -124,18 +152,24 @@ def mcl_case(dev, blocked, field, n, blocks, iters) -> dict:
     scan = fake_lidar.scan(blocked, measurement.sensor_pose(pose0, cfg.scanner_offset), lidar,
                            RaycastConfig(max_dist=500.0))
     odom = Odometry.create(*BENCH_ODOM)
-    box = [mcl_mod.init(mcl_mod.make_generator(0, dev), n, pose0)]
 
-    def advance():
-        box[0] = mcl_mod.step(box[0], odom, BENCH_ALPHAS, scan, field, cfg, rc)
+    def make(graphed):
+        box = [mcl_mod.init(mcl_mod.make_generator(0, dev), n, pose0)]
+        if graphed:
+            if not hasattr(mcl_mod.MCL, "step"):
+                return None
+            engine = mcl_mod.MCL(cfg, rc, device=dev)
 
-    for _ in range(3):
-        advance()
-    ms = blocks_ms(advance, dev, blocks, iters)
-    dms, launches = device_ms(advance, dev, iters)
-    return {"particles": n, "ms_per_step": spread(ms), "device_ms_per_step": dms,
-            "launches_per_step": launches, "resample_device_ms": resample_ms(
-                box[0].particles, dev, 1)}
+            def advance():
+                box[0] = engine.step(box[0], odom, BENCH_ALPHAS, scan, field)
+        else:
+            def advance():
+                box[0] = mcl_mod.step(box[0], odom, BENCH_ALPHAS, scan, field, cfg, rc)
+        return advance, box
+
+    res = both_ways(make, dev, blocks, iters, warmup=3)
+    box = res.pop("box")
+    return {"particles": n, **res, "resample_device_ms": resample_ms(box[0].particles, dev, 1)}
 
 
 def slam_case(dev, blocked, n, blocks, iters) -> dict:
@@ -154,19 +188,26 @@ def slam_case(dev, blocked, n, blocks, iters) -> dict:
                        Pose.create(403.0, 403.0, math.pi + 0.05, device=dev))]
     odom = Odometry.create(*SLAM_ODOM)
     engine = slam_mod.GridSLAM(cfg, seed=0, device=dev)
-    box = [engine.init(Pose.create(400.0, 400.0, math.pi, device=dev)), 0]
 
-    def advance():
-        box[0] = engine.step(box[0], odom, scans[box[1] % 2])
-        box[1] += 1
+    def make(graphed):
+        if graphed and not hasattr(engine, "graphs"):
+            return None
+        box = [engine.init(Pose.create(400.0, 400.0, math.pi, device=dev)), 0]
 
-    for _ in range(4):
-        advance()
-    ms = blocks_ms(advance, dev, blocks, iters)
-    dms, launches = device_ms(advance, dev, iters, warmup=4)
-    return {"particles": n, "ms_per_step": spread(ms), "device_ms_per_step": dms,
-            "launches_per_step": launches, "resample_device_ms": resample_ms(
-                box[0].mcl.particles, dev, 2)}
+        def advance():
+            if graphed:
+                box[0] = engine.step(box[0], odom, scans[box[1] % 2])
+            else:
+                box[0] = slam_mod.step(box[0], odom, scans[box[1] % 2], cfg)
+            box[1] += 1
+
+        return advance, box
+
+    # 20 steps hold 5 resamples, as in the timed blocks.
+    res = both_ways(make, dev, blocks, iters, warmup=4)
+    box = res.pop("box")
+    return {"particles": n, **res, "resample_device_ms": resample_ms(
+        box[0].mcl.particles, dev, 2)}
 
 
 def globalloc_case(dev, blocked, field, n, steps) -> dict:
@@ -177,12 +218,30 @@ def globalloc_case(dev, blocked, field, n, steps) -> dict:
     # The uniform cloud's weights after one step, before the resampler.
     one = mcl_mod.step(st0, cmds[0], glb.ALPHAS, scans[0], field,
                        _no_resample(cfg), rc)
-    st, _, ms = glb.run(st0, field, cmds, scans, cfg, rc)
-    dms, launches = device_ms(
-        lambda: mcl_mod.step(st, cmds[-1], glb.ALPHAS, scans[-1], field, cfg, rc), dev, 10)
-    return {"particles": n, "steps": steps, "ms_per_step": spread(ms), "step_1_ms": ms[0],
-            "converged_device_ms_per_step": dms, "launches_per_step": launches,
-            "resample_device_ms_uniform_step_1": resample_ms(one.particles, dev, 3)}
+    out = {"particles": n, "steps": steps}
+    for way in ("graph", "eager"):
+        engine, kw = None, {}
+        if way == "graph":
+            if "engine" not in inspect.signature(glb.run).parameters:
+                out[way] = None
+                continue
+            engine = mcl_mod.MCL(cfg, rc, device=dev)
+            kw = {"engine": engine}
+        st0 = mcl_mod.init_uniform(mcl_mod.make_generator(0, dev), n, blocked)
+        st, _, ms = glb.run(st0, field, cmds, scans, cfg, rc, **kw)
+        box = [st]
+
+        def advance():
+            if engine is not None:
+                box[0] = engine.step(box[0], cmds[-1], glb.ALPHAS, scans[-1], field)
+            else:
+                box[0] = mcl_mod.step(box[0], cmds[-1], glb.ALPHAS, scans[-1], field, cfg, rc)
+
+        dms, launches = device_ms(advance, dev, 10)
+        out[way] = {"ms_per_step": spread(ms), "step_1_ms": ms[0],
+                    "converged_device_ms_per_step": dms, "launches_per_step": launches}
+    out["resample_device_ms_uniform_step_1"] = resample_ms(one.particles, dev, 3)
+    return out
 
 
 def _no_resample(cfg: MCLConfig) -> MCLConfig:

@@ -238,7 +238,8 @@ def test_lf_auto_converged_matches(box):
 def test_auto_update_equals_forced_tiers():
     """`measurement="likelihood_field_auto"` in mcl.update scores a
     converged cloud exactly as the forced boxed table and a dispersed one
-    exactly as the forced direct field (torch.where over both), and each
+    exactly as the forced direct field (one tier, after one read of the
+    predicate), and each
     within a relative 1e-5 / absolute 1e-3 of the JAX auto path's weights
     (sums of ~20 beam scores in another order, and the table's lerp
     fraction moved by sin/cos/atan2 ulps: measured max |diff| 7.8e-4)."""

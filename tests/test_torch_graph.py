@@ -13,8 +13,6 @@ code runs eagerly through the same solve loops.
     count is JAX's, and every field equals the eager loop's.
 """
 
-import contextlib
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,61 +33,9 @@ from test_planners import wall_map
 from test_torch_hastar import A, B, BASE, HA_FIELDS, LAT_FIELDS, WALL, _pair
 from test_torch_rrtstar import KW, jax_draws
 from test_torch_sdf import MASKS, _rays
-from torch_port import np_
+from torch_port import HostSync, no_host_reads, np_
 
 RRT_A, RRT_B = (12.0, 32.0), (52.0, 32.0)
-
-
-class HostSync(RuntimeError):
-    pass
-
-
-def _raise(*_a, **_k):
-    raise HostSync("a host read of a tensor inside a search block")
-
-
-def _host_index(idx) -> bool:
-    """An index the C++ side reads on the host: a 0-d integer tensor (made
-    a Python int) or a bool mask (`nonzero`)."""
-    items = idx if isinstance(idx, tuple) else (idx,)
-    return any(isinstance(i, torch.Tensor) and (i.dtype == torch.bool or i.dim() == 0)
-               for i in items)
-
-
-@contextlib.contextmanager
-def no_host_reads():
-    """Every host read of a tensor raises inside: `__bool__`, `item`,
-    `tolist`, `cpu`, `numpy`, `nonzero`, int / float / index conversion,
-    and indexing by a 0-d tensor or a bool mask."""
-    get, put = torch.Tensor.__getitem__, torch.Tensor.__setitem__
-
-    def checked_get(self, idx):
-        if _host_index(idx):
-            _raise()
-        return get(self, idx)
-
-    def checked_put(self, idx, v):
-        if _host_index(idx):
-            _raise()
-        return put(self, idx, v)
-
-    patches = {name: _raise for name in ("__bool__", "item", "tolist", "cpu", "numpy",
-                                         "nonzero", "__int__", "__float__", "__index__")}
-    patches.update(__getitem__=checked_get, __setitem__=checked_put)
-    saved = {name: torch.Tensor.__dict__.get(name) for name in patches}
-    saved_nonzero = torch.nonzero
-    try:
-        for name, fn in patches.items():
-            setattr(torch.Tensor, name, fn)
-        torch.nonzero = _raise
-        yield
-    finally:
-        for name, fn in saved.items():
-            if fn is None:
-                delattr(torch.Tensor, name)
-            else:
-                setattr(torch.Tensor, name, fn)
-        torch.nonzero = saved_nonzero
 
 
 def test_guard_catches_host_reads():

@@ -8,6 +8,7 @@ comparison. State crosses from JAX to torch as numpy arrays through
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import shutil
@@ -25,6 +26,58 @@ from slam_tpu_torch.utils import convert
 
 # The tier-1 run shares 8 cores among 6 workers.
 torch.set_num_threads(2)
+
+
+class HostSync(RuntimeError):
+    pass
+
+
+def _raise(*_a, **_k):
+    raise HostSync("a host read of a tensor inside a graphed block")
+
+
+def _host_index(idx) -> bool:
+    """An index the C++ side reads on the host: a 0-d integer tensor (made
+    a Python int) or a bool mask (`nonzero`)."""
+    items = idx if isinstance(idx, tuple) else (idx,)
+    return any(isinstance(i, torch.Tensor) and (i.dtype == torch.bool or i.dim() == 0)
+               for i in items)
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Every host read of a tensor raises inside: `__bool__`, `item`,
+    `tolist`, `cpu`, `numpy`, `nonzero`, int / float / index conversion,
+    and indexing by a 0-d tensor or a bool mask."""
+    get, put = torch.Tensor.__getitem__, torch.Tensor.__setitem__
+
+    def checked_get(self, idx):
+        if _host_index(idx):
+            _raise()
+        return get(self, idx)
+
+    def checked_put(self, idx, v):
+        if _host_index(idx):
+            _raise()
+        return put(self, idx, v)
+
+    patches = {name: _raise for name in ("__bool__", "item", "tolist", "cpu", "numpy",
+                                         "nonzero", "__int__", "__float__", "__index__")}
+    patches.update(__getitem__=checked_get, __setitem__=checked_put)
+    saved = {name: torch.Tensor.__dict__.get(name) for name in patches}
+    saved_nonzero = torch.nonzero
+    try:
+        for name, fn in patches.items():
+            setattr(torch.Tensor, name, fn)
+        torch.nonzero = _raise
+        yield
+    finally:
+        for name, fn in saved.items():
+            if fn is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, fn)
+        torch.nonzero = saved_nonzero
 
 
 def np_(a) -> np.ndarray:
