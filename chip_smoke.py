@@ -8,7 +8,8 @@ features: 1M-particle global localization, the auto measurement tier,
 kidnap recovery, scan matching and the per-particle-map RBPF; the maze
 through the compressed ray table (CDDT), the multi-robot fleet through one
 batched launch of the fused kernel, and the apps; each filter step as one
-CUDA graph replay through its entry point against the eager step.
+CUDA graph replay through its entry point against the eager step, with
+the JAX package's device branches as CUDA graph conditional nodes.
 
     python3 chip_smoke.py
 
@@ -23,7 +24,9 @@ raises, so the exit code is nonzero):
               fields, and poses == the fused kernel's prologue bit for bit
               for the same seed and device odometry
   5. LUT      360-bin bf16 table of the synthetic floor plan on the card;
-              raycast_lut vs raycast_march; K2 on the real table rows
+              raycast_lut vs raycast_march; K2 on the real table rows; the
+              card's bf16 and u8 tables == the CPU's build bit for bit, and
+              raycast_lut card == CPU
   6. weights  K1 through predict's wrapper vs the plain sampler by moments,
               and LUT weights through K2's rows == through plain indexing,
               bit for bit, on the bench cloud after 3 warm-up steps and on
@@ -66,9 +69,11 @@ raises, so the exit code is nonzero):
               launched, path), also with max_rounds cut inside a block;
               graph and eager ms, query init, capture ms, the pools' memory,
               replays, the profiles (device ms, kernels, host-issued
-              launches); the path free and no shorter than the straight line
-              less tol; the same search by the port on the CPU equal bit for
-              bit; solve_many of 4 queries, graph == eager
+              launches); the search as a chain (one host read a replay) and
+              as single-block replays (a host read before each), both == eager, ms and host
+              reads a query each way; the path free and no shorter than the
+              straight line less tol; the same search by the port on the CPU
+              equal bit for bit; solve_many of 4 queries, graph == eager
  14. plan-rrt / plan-continuous / spatial  the suite's RRT* over seeds
               1234-1238 through its block's CUDA graph, each seed == the
               eager loop on the card (tree, rounds, the generator's state;
@@ -77,7 +82,9 @@ raises, so the exit code is nonzero):
               stretch of a ray step along it; the edges the fixed-step march
               flags are printed), continuous HA* with the lut edge field and
               with the sdf backend (graph == eager the same way), and the
-              spatial workload at 1M points (card == CPU)
+              spatial workload at 1M points (card == CPU); RRT* seed 1234
+              and continuous HA* (lut) as chains and as single-block
+              replays, ms and host reads a query each way
 
  15. globalloc  `tools/global_loc_bench.py`'s configuration at 1M
               particles through mcl.step, driven by the port's
@@ -97,7 +104,8 @@ raises, so the exit code is nonzero):
               dispatcher steps under the sync check, the cloud dispersed
               after 20: ms/step, host reads of the predicate, the tiers;
               profiles of a table and a direct step; mcl.update's auto
-              route (one host read of the predicate, one tier computed) ==
+              route (eagerly one host read of the predicate, one tier
+              computed; through MCL.update's graph the tier a cond) ==
               the forced tier bit for bit on the converged and the
               dispersed 1M cloud, as the free function and through
               MCL.update's graphs, timed beside the forced tiers
@@ -115,7 +123,8 @@ raises, so the exit code is nonzero):
               bit for bit (K > 64: binary search), the dense u8 table beside
               it, CDDT vs dense queries on 100k rays (angle ties counted),
               the 10k-particle MCL step and 60-step ATE through both tables,
-              the fused kernel on the u8 table's step vs its plain version;
+              the fused kernel on the u8 table's step vs its plain version,
+              the card's CDDT queries against the CPU's (count printed);
               the 7000 px beyond-memory demo through the CDDT (K <= 64:
               masked min)
  21. fleet      `benchmarks/fleet_bench.py` through the port's tool: the fused
@@ -156,7 +165,14 @@ raises, so the exit code is nonzero):
               (`MCL.step`), the 1M SLAM step and the scan-matched one
               (`GridSLAM.step`), the fleet of 16 x 100k (`MCLFleet.step`),
               the 2400 px maze's 10k step through the CDDT and the dense
-              u8 table, grid_slam's sdf-beam SLAM step at 1000 particles:
+              u8 table, grid_slam's sdf-beam SLAM step at 1000 particles;
+              and the device control flow (CUDA graph IF nodes through
+              csrc/graph_cond.cu): the 1M SLAM step with edt_box=512 (the
+              refresh's three branches, counted), the maze SLAM tool's
+              likelihood_field_table:128:e1024 at 10k on the 2400 px maze,
+              the auto-tier MCL.step at 1M on a converged and a dispersed
+              cloud, the fleet's auto step at 16 x 100k and the 1M tracking
+              step with ess_threshold 0.5 (what each step chose, counted):
               20 steps each with a new odometry and scan at each, every
               replay under set_sync_debug_mode("error"), graph == eager
               bit for bit after every step (states, counters, generators)
@@ -164,7 +180,10 @@ raises, so the exit code is nonzero):
               ms/step in turns, device ms, kernels and host-issued
               launches a step (each hand-written kernel's runs in the
               profile == its wrapper's count), capture ms, pool memory,
-              state copies a step
+              state copies a step; and a block captured with the garbage
+              collector off (an earlier graph freed during a capture
+              would lose it), which an earlier block's cyclic garbage
+              outlives
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device; without one it
@@ -337,6 +356,9 @@ FLEET_APP_ATE_PX = 10.0
 # compared bit for bit per case (a new odometry and scan at each), steps a
 # timed turn (two turns a way) and steps profiled a way.
 GRAPH_STEPS = 20
+# The `edt_box` case's first steps, standing still on one scan; the rest
+# alternate scans.
+EDT_STILL = 6
 GRAPH_ITERS = 20
 GRAPH_PROFILE = 5
 # Phase 22: the apps. GRID_SLAM_ATE_PX is the JAX app test's bound
@@ -645,16 +667,23 @@ def snapshot(p, fields) -> dict:
             "launched": getattr(p, "launched", None), "host_reads": getattr(p, "host_reads", None)}
 
 
-def hold_solves(graph, eager, fields, what: str, cut_block: int = 0) -> None:
+def hold_solves(graph, eager, fields, what: str, cut_block: int = 0,
+                same_reads: bool = False) -> None:
     """A graph solve == the eager loop's on the card: every state field,
-    rounds, host reads and iterations launched. With `cut_block` (the
-    block's iterations, where max_rounds ended the search) the graph may
-    launch up to a block more, in whole blocks."""
+    rounds and iterations launched; host reads no more than the eager
+    loop's (a chain reads once a replay), the same with `same_reads`
+    (single-block replays). With `cut_block` (the block's iterations,
+    where max_rounds ended the search) the graph may launch up to a block
+    more, in whole blocks."""
     for f in fields:
         check(torch.equal(graph["state"][f], eager["state"][f]),
               f"{what}: {f} of the graph solve != the eager loop's on the card")
-    for k in ("rounds", "host_reads"):
-        check(graph[k] == eager[k], f"{what}: {k} {graph[k]} (graph) != {eager[k]} (eager)")
+    check(graph["rounds"] == eager["rounds"],
+          f"{what}: rounds {graph['rounds']} (graph) != {eager['rounds']} (eager)")
+    reads_ok = (graph["host_reads"] == eager["host_reads"] if same_reads
+                else graph["host_reads"] <= eager["host_reads"])
+    check(reads_ok, f"{what}: host reads {graph['host_reads']} (graph), "
+          f"{eager['host_reads']} (eager)")
     if graph["launched"] is not None:
         if cut_block:
             want = -(-eager["launched"] // cut_block) * cut_block
@@ -662,6 +691,29 @@ def hold_solves(graph, eager, fields, what: str, cut_block: int = 0) -> None:
             want = eager["launched"]
         check(graph["launched"] == want,
               f"{what}: launched {graph['launched']} (graph) != {want} (eager {eager['launched']})")
+
+
+def block_replays(p, solve, take, eager, chain, fields, what: str, n: int) -> dict:
+    """The single-block replays of a planner's search (a host read
+    before each block; `solve(cache)` runs one query through `cache`)
+    beside the chains: each of `n` queries equal to the eager loop's
+    (`eager`, with its host reads) and read more often than the chain
+    (`chain`). Returns their ms and host reads."""
+    from slam_tpu_torch.planners import _graph as planner_graph
+
+    bc = planner_graph.Cache(chain=False)
+    bc.guard = sync_error
+    solve(bc)  # captures the single blocks
+    ms = []
+    for _ in range(n):
+        ms.append(event_ms(lambda: solve(bc)))
+        got = take()
+        hold_solves(got, eager, fields, f"{what} (block replays)", same_reads=True)
+        check(chain["host_reads"] < got["host_reads"],
+              f"{what}: the chain read {chain['host_reads']} times, the block replays "
+              f"{got['host_reads']}")
+    return {"ms": spread(ms), "host_reads": got["host_reads"], "graphs": graph_stats(bc),
+            "profile": planner_profile(lambda: solve(bc))}
 
 
 def plan_poses(h: int):
@@ -768,6 +820,15 @@ def lattice_phase(dev, free_np) -> dict:
               "lattice HA*: the A* wavefront's heuristic (graph) != the eager loop's")
         check(g["path"] == e["path"], "lattice HA* path: graph != eager")
     replays = graph_stats(p._graphs, before)
+
+    def lattice_blocks(bc):
+        p.reset_query(a, b)
+        p._solve(None, bc)
+
+    ways = {"chain": {"ms": spread(solve_ms), "host_reads": g["host_reads"]},
+            "blocks": block_replays(p, lattice_blocks, take, e, g, fields, "lattice HA*",
+                                    LATTICE_QUERIES),
+            "eager": {"ms": spread(eager_ms), "host_reads": e["host_reads"]}}
     # max_rounds inside a block: n_iters = ceil(cut / 2) is not a multiple
     # of the block's iterations.
     cut = 8 * (g["rounds"] // 16) + 5
@@ -794,7 +855,7 @@ def lattice_phase(dev, free_np) -> dict:
            "graph_equals_eager": True, "cut": {"max_rounds": cut, "rounds": g_cut["rounds"],
                                                "launched_graph": g_cut["launched"],
                                                "launched_eager": e_cut["launched"]},
-           "graphs": captured, "replays_per_query": replays,
+           "graphs": captured, "replays_per_query": replays, "ways": ways,
            "profile": planner_profile(query), "profile_eager": planner_profile(eager),
            "query_init_profile": planner_profile(
                lambda: (p.reset_query(a, b), p._ensure_query_state(p._graphs)))}
@@ -816,10 +877,11 @@ def lattice_phase(dev, free_np) -> dict:
               p.host_reads)
     many_ms = event_ms(lambda: p.solve_many(queries))  # after the capture for Q
     many_eager_ms = event_ms(lambda: p._solve_many(queries, None, None))
-    check(many[0] == many_e[0] and torch.equal(many[1], many_e[1]) and many[2:] == many_e[2:],
-          "lattice HA* solve_many: graph != eager")
+    check(many[0] == many_e[0] and torch.equal(many[1], many_e[1]) and many[2] == many_e[2]
+          and many[3] <= many_e[3], "lattice HA* solve_many: graph != eager")
     check(all(r == (True, cost) for r in many[0]), "lattice HA* solve_many != solve")
     out["solve_many"] = {"queries": LATTICE_MANY, "ms": many_ms, "eager_ms": many_eager_ms,
+                         "host_reads": many[3], "eager_host_reads": many_e[3],
                          "graph_equals_eager": True}
     return out
 
@@ -922,6 +984,20 @@ def rrt_phase(dev, free_np) -> dict:
     check(wins >= RRT_MIN_SUCCESS,
           f"RRT* {wins} of {len(RRT_SEEDS)} found a path < {RRT_MIN_SUCCESS}")
     replays = graph_stats(p._graphs, before)
+    # Seed 1234 three ways: the chain, single-block replays, eager.
+    eager_run(RRT_SEEDS[0])
+    e0 = take()
+    chain_ms = [event_ms(lambda: graph_run(RRT_SEEDS[0])) for _ in range(2)]
+    g0 = take()
+
+    def rrt_blocks(bc):
+        p.reset_query(a, b, RRT_SEEDS[0])
+        p._solve(RRT_ROUNDS, 0, None, bc)
+
+    ways = {"chain": {"ms": spread(chain_ms), "host_reads": g0["host_reads"]},
+            "blocks": block_replays(p, rrt_blocks, take, e0, g0, fields,
+                                    f"RRT* seed {RRT_SEEDS[0]}", 2),
+            "eager": {"ms": eager_ms[0], "host_reads": e0["host_reads"]}}
     # max_rounds inside a block: the graph draws for the block's remaining
     # gated rounds, so its generator stands that many draws further.
     cut = 8 * (rounds[0] // 16) + 3
@@ -938,7 +1014,7 @@ def rrt_phase(dev, free_np) -> dict:
            "seeds": list(RRT_SEEDS), "rounds": rounds, "costs": costs, "nodes": p.size,
            "max_blocked_run_px": max_run, "march_faults": faults, "graph_equals_eager": True,
            "cut": {"max_rounds": cut, "rounds": g_cut["rounds"]}, "graphs": captured,
-           "replays_last_seed": replays}
+           "replays_last_seed": replays, "ways_seed_1234": ways}
     out["profile_seed_1234"] = planner_profile(lambda: graph_run(RRT_SEEDS[0]))
     out["profile_eager_seed_1234"] = planner_profile(lambda: eager_run(RRT_SEEDS[0]))
     return out
@@ -1005,6 +1081,14 @@ def continuous_phase(dev, free_np) -> dict:
                "n_expanded": int(p.state.n_expanded), "states": h * w * cfg.theta_res,
                "graph_equals_eager": True, "graphs": captured, "replays_per_query": replays}
         if backend == "lut":
+            def cont_blocks(bc):
+                p.reset_query(a, b)
+                p._solve(None, bc)
+
+            res["ways"] = {"chain": {"ms": spread(ms), "host_reads": g["host_reads"]},
+                           "blocks": block_replays(p, cont_blocks, take, e, g, fields,
+                                                   "continuous HA* (lut)", 2),
+                           "eager": {"ms": spread(eager_ms), "host_reads": e["host_reads"]}}
             cut = 4 * (g["rounds"] // 8) + 3
             eager(cut)
             e_cut = take()
@@ -1403,11 +1487,11 @@ def autotier_phase(dev, slam_scans, slam_odom, counts) -> dict:
     # Each tier's step profiled: the forced-table step on the converged
     # state, the forced-direct step on a dispersed one (what the
     # dispatcher calls; the converged state is step 5's). Then mcl.update's
-    # own auto route, which reads the predicate once and computes one tier
-    # (JAX's lax.cond), beside the
-    # two forced tiers on the same predicted states and field: the free
-    # function and `MCL.update` (the predicate's block, one host read, the
-    # tier's graph) each equal to the forced tier bit for bit.
+    # own auto route (JAX's lax.cond) beside the two forced tiers on the
+    # same predicted states and field: the free function (one host read of
+    # the predicate, one tier) and `MCL.update` (one graph, the tier under
+    # `cond`: IF nodes, no host read) each equal to the forced tier bit for
+    # bit.
     profiles, update_ms = {}, {}
     for label, s0, forced in (("table", converged_5, "likelihood_field_table"),
                               ("direct", dispersed(st, 11), "likelihood_field")):
@@ -1816,11 +1900,19 @@ def maze_phase(dev, counts) -> dict:
     enc = lutlib.dequantize(torch.clamp(torch.floor(dc / q), 0.0, 255.0), torch.uint8, 500.0)
     agree = (hc == hl) & (~hc | (dl == enc))
     share = float(agree.float().mean())
+    # The query's own trig: each ray's bin angle takes its sin and cos on
+    # the device; the same rays through the CPU's table on the CPU.
+    dcc, hcc = cddtlib.raycast_cddt(cpu_tab, x.cpu(), y.cpu(), th.cpu(), max_dist=500.0,
+                                    shape=(h, w))
+    q_differ = int(((dcc.view(torch.int32) != dc.cpu().view(torch.int32))
+                    | (hcc != hc.cpu())).sum())
     out["maze"]["queries"] = {"rays": MAZE_RAYS, "agree_share": share,
-                              "ties": int((~agree).sum()), "cddt_hit_share": float(hc.float().mean())}
+                              "ties": int((~agree).sum()), "cddt_hit_share": float(hc.float().mean()),
+                              "card_vs_cpu_differ": q_differ}
     check(share >= CDDT_AGREE, f"maze cddt vs dense u8 queries: {share} agree < {CDDT_AGREE}")
     say("maze", f"{MAZE_RAYS} random rays, CDDT vs the dense u8 table: {share:.6f} agree "
-        f"({int((~agree).sum())} angle ties)")
+        f"({int((~agree).sum())} angle ties); the card's CDDT queries against the CPU's on "
+        f"the same rays and table: {q_differ} differ")
 
     for backend, field in (("lut", field_l), ("cddt", field_c)):
         out["maze"][backend] = mcl_run(maze, field, backend, start)
@@ -2804,6 +2896,48 @@ def state_difference(a, b):
     return None
 
 
+def capture_gc_check(dev) -> dict:
+    """A block's capture runs with the garbage collector off, and turns it
+    back on after: a collection that frees an earlier block's graph during
+    a capture (an engine left in a reference cycle) destroys that graph, a
+    call the capture under way refuses, and the capture is lost. The block
+    here (a `cond`) records the collector's state while it is captured; an
+    earlier block, left as cyclic garbage across the capture, is collected
+    after it."""
+    import gc
+    import weakref
+
+    from slam_tpu_torch.core import graph as graphlib
+
+    seen = []
+
+    def make():
+        def fn(v):
+            if graphlib._CAPTURE is not None:
+                seen.append(gc.isenabled())
+            return {"x": graphlib.cond(v["p"], lambda x: x + 1, lambda x: x - 1, v["x"])}
+        return graphlib.Block(fn, {"x": torch.zeros(1024, device=dev),
+                                   "p": torch.ones((), dtype=torch.bool, device=dev)})
+
+    old = make()
+    old.run()
+    old.cycle = old
+    gone = weakref.ref(old)
+    del old
+    seen.clear()
+    new = make()
+    new.run()
+    new.run()
+    torch.cuda.synchronize()
+    check(seen == [False], f"capture_gc: the collector's state during the capture: {seen}")
+    check(gc.isenabled(), "capture_gc: the collector stayed off after the capture")
+    check(bool((new.static["x"] == 2).all()), "capture_gc: the captured cond computed a wrong x")
+    gc.collect()
+    check(gone() is None, "capture_gc: the earlier block's graph was not collected")
+    return {"collector_during_capture": seen[0], "collector_after": gc.isenabled(),
+            "if_nodes": new.if_nodes, "earlier_graph_collected_after": True}
+
+
 def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
     """Phase 25: each filter step through its entry point's CUDA graph
     (`models/_graph.py`, one replay a step) against the eager free
@@ -2961,9 +3095,140 @@ def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
         graph=lambda st, k: a_eng.step(st, a_odom[k], a_scans[k]),
         eager=lambda st, k: slam_mod.step(st, a_odom[k], a_scans[k], a_cfg))
 
-    # Whether this torch can record `torch.cond` as a CUDA conditional node
-    # in a capture (JAX's lax.cond on the device); without it the auto tier
-    # reads its predicate once on the host (`MCL.update`).
+    # The device control flow (`core/graph.py:cond`, CUDA graph IF nodes
+    # through `csrc/graph_cond.cu`): the `edt_box` SLAM step at 1M (phase
+    # 10's, box 512), first standing still on one scan from its start (every
+    # particle at one pose and no motion noise, so the map pose and each
+    # cell's update repeat and no cell flips after the first map update:
+    # the no-flip branch), then on alternating scans (window and full);
+    # the maze SLAM tool's `likelihood_field_table:128:e1024` at 10k on the
+    # 2400 px maze, whose refresh window is smaller than the map; the
+    # auto-tier `MCL.step` at 1M on a converged cloud and on a dispersed one
+    # kept dispersed (ess_threshold 0: no resample); the fleet's auto step
+    # at 16 x 100k, odd robots dispersed; and phase 7's tracking step at 1M
+    # with ess_threshold 0.5 (the gate keeps the cloud while its weights
+    # stay flat). `observe` records what each step chose, from the eager
+    # states, outside the sync check.
+    from slam_tpu_torch.core import grid as gridlib
+    from slam_tpu_torch.ops import edt as edtlib
+    from slam_tpu_torch.ops.rayfield import RayField
+    from slam_tpu_torch.tools import maze_slam_bench as msb
+
+    def refresh_branch(scfg):
+        reach = edtlib.edt_capped_reach(5.0 * scfg.mcl.meas_stddev + 2.0)
+
+        def observe(before, after, seen):
+            a_, f_, _, _ = edtlib._refresh_plan(gridlib.blocked_from_logodds(before.grid),
+                                                gridlib.blocked_from_logodds(after.grid),
+                                                reach=reach, box=scfg.edt_box)
+            key = "no flip" if not bool(a_) else "window" if bool(f_) else "full"
+            seen[key] = seen.get(key, 0) + 1
+        return observe
+
+    e_cfg = slam_config(edt_box=512)
+    e_eng = slam_mod.GridSLAM(e_cfg, seed=0, device=dev)
+    e_ab = scans_along(blocked, slam_truths[:2], e_cfg.mcl.scanner_offset, e_cfg.lidar)
+    still = Odometry.create(0.0, 0.0, 0.0)
+    e_scans = [e_ab[0] if k < EDT_STILL else e_ab[k % 2] for k in range(n_in)]
+    e_odom = [still if k < EDT_STILL else o
+              for k, o in enumerate(odoms((0.02, 2.5, 0.02), (0.0, 0.0, 0.0)))]
+    e_start = Pose.create(400.0, 400.0, math.pi, device=dev)
+    cases["slam_edt512_1m"] = dict(
+        graphs=e_eng.graphs, init=lambda: e_eng.init(e_start),
+        graph=lambda st, k: e_eng.step(st, e_odom[k], e_scans[k]),
+        eager=lambda st, k: slam_mod.step(st, e_odom[k], e_scans[k], e_cfg),
+        observe=refresh_branch(e_cfg))
+
+    mz_blocked = maze["fields"]["cddt"].blocked
+    mz_cfg = msb.tier_config(tuple(mz_blocked.shape), "likelihood_field_table:128:e1024",
+                             MAZE_PARTICLES)
+    mz_eng = slam_mod.GridSLAM(mz_cfg, seed=0, device=dev)
+    msx, msy, msth = maze["start"]
+    mz_truths = [(msx + 0.5 * k * math.cos(msth), msy + 0.5 * k * math.sin(msth),
+                  msth + 0.01 * k) for k in range(n_in)]
+    mz_scans = [fake_lidar.scan(mz_blocked, measurement.sensor_pose(
+        Pose.create(*t, device=dev), mz_cfg.mcl.scanner_offset), mz_cfg.lidar,
+        RaycastConfig(max_dist=500.0)) for t in mz_truths]
+    mz_odom = odoms((0.01, 0.5, 0.0), (0.0, 0.0, 0.0))
+    mz_start = Pose.create(msx, msy, msth, device=dev)
+    cases["maze_slam_e1024_10k"] = dict(
+        graphs=mz_eng.graphs, init=lambda: mz_eng.init(mz_start),
+        graph=lambda st, k: mz_eng.step(st, mz_odom[k], mz_scans[k]),
+        eager=lambda st, k: slam_mod.step(st, mz_odom[k], mz_scans[k], mz_cfg),
+        observe=refresh_branch(mz_cfg))
+
+    # The auto tier on the plan's capped EDT: phase 16's MCL configuration.
+    au_slam = slam_config()
+    au_cfg = dataclasses.replace(au_slam.mcl, measurement="likelihood_field_auto")
+    lf_field = RayField(blocked=blocked, edt=edtlib.edt_capped(
+        blocked, 5.0 * au_cfg.meas_stddev + 2.0))
+    au_scans = scans_along(blocked, slam_truths, au_cfg.scanner_offset, au_slam.lidar)
+    au_odom = odoms((0.02, 2.5, 0.02), (0.001, 0.0, -0.001))
+
+    def tier_seen(cfg_):
+        def observe(before, after, seen):  # the predicate of the cloud a step starts from
+            pp = before.particles.pose
+            rows = [pp] if pp.x.dim() == 1 else [fleet._row(pp, q) for q in range(pp.x.shape[0])]
+            for p_ in rows:
+                key = "table" if bool(mcl_mod.auto_converged(p_, lf_field, cfg_)) else "direct"
+                seen[key] = seen.get(key, 0) + 1
+        return observe
+
+    for label, a_cfg_, make in (
+            ("converged", au_cfg,
+             lambda: mcl_mod.init(mcl_mod.make_generator(0, dev), SLAM_PARTICLES,
+                                  Pose.create(400.0, 400.0, math.pi, device=dev))),
+            ("dispersed", dataclasses.replace(au_cfg, ess_threshold=0.0),
+             lambda: mcl_mod.init_uniform(mcl_mod.make_generator(0, dev), SLAM_PARTICLES,
+                                          blocked))):
+        au_eng = mcl_mod.MCL(a_cfg_, au_slam.raycast, device=dev)
+        cases[f"auto_step_1m_{label}"] = dict(
+            graphs=au_eng.graphs, init=make,
+            graph=lambda st, k, e=au_eng: e.step(st, au_odom[k], au_slam.motion.alphas,
+                                                 au_scans[k], lf_field),
+            eager=lambda st, k, c_=a_cfg_: mcl_mod.step(st, au_odom[k], au_slam.motion.alphas,
+                                                        au_scans[k], lf_field, c_,
+                                                        au_slam.raycast),
+            observe=tier_seen(a_cfg_))
+
+    fa_cfg = dataclasses.replace(f_cfg, measurement="likelihood_field_auto", lf_table_box=128)
+    fa_rc = au_slam.raycast
+    fa = fleet.MCLFleet(r, fa_cfg, fa_rc, seed=0, device=dev)
+
+    def fa_init():
+        st = fa.init(f_poses)
+        p_ = st.particles.pose
+        x, y, th = p_.x.clone(), p_.y.clone(), p_.theta.clone()
+        for q in range(1, r, 2):  # the odd robots woke up lost
+            u = mcl_mod.init_uniform(mcl_mod.make_generator(100 + q, dev), FLEET_N, blocked)
+            x[q], y[q], th[q] = u.particles.pose.x, u.particles.pose.y, u.particles.pose.theta
+        return st.replace(particles=st.particles.replace(pose=Pose(x=x, y=y, theta=th)))
+
+    cases["fleet_auto_16x100k"] = dict(
+        graphs=fa.graphs, init=fa_init,
+        graph=lambda st, k: fa.step(st, f_odom[k], f_scans[k], lf_field, fb.ALPHAS),
+        eager=lambda st, k: fleet.fleet_step(st, f_odom[k], f_scans[k], lf_field, fb.ALPHAS,
+                                             fa_cfg, fa_rc),
+        observe=tier_seen(fa_cfg))
+
+    es_cfg = dataclasses.replace(cfg, n_particles=SLAM_PARTICLES, ess_threshold=0.5)
+    es_eng = mcl_mod.MCL(es_cfg, rc, device=dev)
+
+    def resampled(before, after, seen):
+        lw = after.particles.log_weight
+        key = "resampled" if bool((lw == lw[0]).all()) else "kept"
+        seen[key] = seen.get(key, 0) + 1
+
+    cases["ess05_mcl_1m"] = dict(
+        graphs=es_eng.graphs,
+        init=lambda: mcl_mod.init(mcl_mod.make_generator(0, dev), SLAM_PARTICLES, pose0),
+        graph=lambda st, k: es_eng.step(st, mcl_odom[k], bench_alphas, mcl_scans[k], field),
+        eager=lambda st, k: mcl_mod.step(st, mcl_odom[k], bench_alphas, mcl_scans[k], field,
+                                         es_cfg, rc),
+        observe=resampled)
+
+    # torch's own IF-node API decides the route: where it is missing (torch
+    # 2.11) the conditional nodes go through `csrc/graph_cond.cu`.
     import importlib.util
 
     cond_module = importlib.util.find_spec(
@@ -2971,7 +3236,8 @@ def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
     out = {"steps": n_in, "cases": {}, "torch": torch.__version__, "conditional_nodes": {
         "CUDAGraph.begin_capture_to_if_node": hasattr(torch.cuda.CUDAGraph,
                                                       "begin_capture_to_if_node"),
-        "cudagraph_conditional_nodes module": cond_module}}
+        "cudagraph_conditional_nodes module": cond_module,
+        "route": "csrc/graph_cond.cu"}, "capture_gc": capture_gc_check(dev)}
     launches = {"gather_rows": 0, "motion_odometry": 0, "lut_weights": 0}
     for name, c in cases.items():
         g = c["graphs"]
@@ -2981,10 +3247,12 @@ def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
         sg, se = c["init"](), c["init"]()
         n_graph = dict.fromkeys(launches, 0)
         n_eager = dict.fromkeys(launches, 0)
+        seen = {}
         for k in range(n_in):
             before = read_counts()
             sg = c["graph"](sg, k)
             mid = read_counts()
+            se_before = se
             se = c["eager"](se, k)
             after = read_counts()
             for k_ in launches:
@@ -2992,6 +3260,9 @@ def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
                 n_eager[k_] += after[k_] - mid[k_]
             diff = state_difference(sg, se)
             check(diff is None, f"graphs {name}: step {k}: graph != eager on the card ({diff})")
+            if "observe" in c:
+                c["observe"](se_before, se, seen)
+        del se_before
         warm = warmup_counts()
         for k_ in launches:
             check(n_graph[k_] == n_eager[k_] + warm[k_],
@@ -3055,7 +3326,8 @@ def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
                    state_copy_bytes_per_step=(g.copy_bytes - bytes0) / steps_timed,
                    launches_compared={"graph": n_graph, "eager": n_eager, "warm_ups": warm},
                    kernels_profiled=ran,
-                   graph_equals_eager=True)
+                   if_nodes=sum(b["if_nodes"] for b in stats["blocks"].values()),
+                   graph_equals_eager=True, **({"chose": seen} if seen else {}))
         out["cases"][name] = res
         say("graphs", f"{name}: graph == eager bit for bit over {n_in} steps; "
             f"{json.dumps(res)}")
@@ -3063,6 +3335,16 @@ def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
         del sg, se, box
         c.clear()
         torch.cuda.empty_cache()
+    branches = {}
+    for name in ("slam_edt512_1m", "maze_slam_e1024_10k"):
+        for key, n_ in out["cases"][name]["chose"].items():
+            branches[key] = branches.get(key, 0) + n_
+    check(set(branches) == {"no flip", "window", "full"},
+          f"graphs: the edt_box steps took the refresh branches {branches}: all three must run")
+    tiers = out["cases"]["auto_step_1m_dispersed"]["chose"]
+    check(set(tiers) | set(out["cases"]["auto_step_1m_converged"]["chose"]) == {"table", "direct"},
+          f"graphs: the auto steps took tiers {tiers}: both must run")
+    out["edt_refresh_branches"] = branches
     out["launches"] = launches
     return out
 
@@ -3351,6 +3633,32 @@ def main() -> None:
     torch.cuda.synchronize()
     say("LUT", f"{h}x{w}x360 u8 ({field_u8.lut.numel() / 2**20:.1f} MiB) built in "
         f"{time.perf_counter() - t0:.3f} s")
+    # The card's two tables against the CPU's build bit for bit (each bin's
+    # sin and cos taken on the host, `ops/lut.py:build_beam_lut`): one f32
+    # build on the CPU, encoded to bf16 and u8 by the build's own encoder;
+    # and `raycast_lut` on the 4096 rays, card against CPU.
+    t0 = time.perf_counter()
+    cpu32 = lutlib.build_beam_lut(torch.from_numpy(blocked_np), 360, rc.max_dist,
+                                  torch.float32)
+    lut_cpu_s = time.perf_counter() - t0
+    lut_cpu = {"cpu_f32_build_s": lut_cpu_s}
+    for tname, card, dt in (("bf16", lut, torch.bfloat16), ("u8", field_u8.lut, torch.uint8)):
+        want = lutlib.encode_capped(cpu32, dt, rc.max_dist)
+        got = card.cpu()
+        if dt == torch.bfloat16:
+            differ = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        else:
+            differ = int((got != want).sum())
+        dq, hq = lutlib.raycast_lut(want, xs.cpu(), ys.cpu(), ths.cpu(), max_dist=500.0)
+        dd, hd = lutlib.raycast_lut(card, xs, ys, ths, max_dist=500.0)
+        q_differ = int(((dd.cpu().view(torch.int32) != dq.view(torch.int32))
+                        | (hd.cpu() != hq)).sum())
+        lut_cpu[tname] = {"entries_differ": differ, "queries_differ": q_differ}
+        check(differ == 0, f"LUT {tname}: {differ} entries of the card's table != the CPU's")
+        check(q_differ == 0, f"LUT {tname}: raycast_lut card != CPU on {q_differ} rays")
+    del cpu32, want, got
+    say("LUT", f"the card's 360-bin bf16 and u8 tables == the CPU's build bit for bit; "
+        f"raycast_lut card == CPU on 4096 rays; {json.dumps(lut_cpu)}")
     rr = np.random.default_rng(5)
     off_map = Pose(*(torch.tensor(v, dtype=torch.float32, device=dev) for v in (
         rr.uniform(-w / 2, 1.5 * w, RAGGED_N), rr.uniform(-h / 2, 1.5 * h, RAGGED_N),

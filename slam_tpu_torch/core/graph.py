@@ -13,11 +13,35 @@ it runs eagerly, with the same code.
 The planners replay the rounds of a search between two host reads of its
 flag (`planners/_graph.py`); the filters replay one step of an entry point
 (`models/_graph.py`).
+
+Device control flow, the port's `lax.cond` and `lax.while_loop`:
+
+  * `cond(pred, true_fn, false_fn, *operands)`: inside a capture it
+    records two CUDA graph IF nodes, one on `pred` and one on `~pred`, each
+    with its branch captured as the body (`csrc/graph_cond.cu`), both
+    writing one set of output buffers; a replay runs one branch with no
+    host read. Outside a capture it runs both branches and selects (JAX's
+    lowering of `lax.cond` under `vmap`), reading nothing; an eager call
+    on the card may ask to read `pred` once and run one branch instead.
+  * `Chain`: up to `copies` runs of a block a replay, each guarded by a
+    predicate of the buffers that the run before it wrote (one WHILE node,
+    or `copies` IF nodes for a block that draws random numbers): a replay
+    runs up to `copies` blocks of a search with no host read, then one
+    read says whether to replay again.
+
+A branch or a chained block draws no random numbers (draw them before the
+`cond`, as JAX splits its key before `lax.cond`), except a chain's, whose
+generators the chain puts back where the blocks that ran leave them. It
+allocates only from the capture's pool: the first IF node of a capture
+routes every allocation of the capturing thread there, the bodies'
+streams included.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import gc
 import time
 from collections import OrderedDict
 from typing import Callable, Dict, Iterable, Tuple
@@ -32,6 +56,10 @@ _MAX_BLOCKS = 8
 # (None outside a capture), and whether a block's warm-up is running.
 _TALLY = None
 _WARMING = False
+# The capture under way (`_Capture`), None outside one, and the streams
+# that capture conditional bodies, by (device index, nesting depth).
+_CAPTURE = None
+_BODY_STREAMS: Dict[Tuple[int, int], torch.cuda.Stream] = {}
 
 
 def count_launch(wrapper) -> None:
@@ -41,6 +69,10 @@ def count_launch(wrapper) -> None:
     captured, once at each replay of that graph (`Block.run`), which is
     when the kernel runs."""
     if _TALLY is not None:
+        if _CAPTURE is not None and _CAPTURE.depth:
+            raise RuntimeError(
+                "a hand-written kernel inside a conditional body: a replay may skip it, "
+                "so the capture's tally cannot count it; launch it outside the cond")
         _TALLY[wrapper] = _TALLY.get(wrapper, 0) + 1
         return
     wrapper.launches += 1
@@ -52,6 +84,142 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
     """a and b are the same elements of the same memory."""
     return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
             and a.stride() == b.stride() and a.dtype == b.dtype)
+
+
+class _Capture:
+    """A block's capture under way: its device and memory pool, the
+    nesting depth of the body being captured, and the IF nodes recorded."""
+
+    def __init__(self, dev: torch.device, pool):
+        self.dev = dev
+        self.index = dev.index if dev.index is not None else torch.cuda.current_device()
+        self.pool = pool
+        self.depth = 0
+        self.routed = False
+        self.if_nodes = 0
+
+    def route_pool(self) -> None:
+        """Route every allocation of this thread to the capture's pool, on
+        any stream: torch's filter for the capture matches only the
+        capturing stream, and a body is captured on another."""
+        if not self.routed:
+            torch._C._cuda_endAllocateToPool(self.index, self.pool)
+            torch._C._cuda_beginAllocateCurrentThreadToPool(self.index, self.pool)
+            # The begin took a use of the pool, which the graph holds already.
+            torch._C._cuda_releasePool(self.index, self.pool)
+            self.routed = True
+
+    def stream(self) -> torch.cuda.Stream:
+        """The stream that captures the bodies at the current depth."""
+        key = (self.index, self.depth)
+        if key not in _BODY_STREAMS:
+            from slam_tpu_torch.ops import _build
+
+            raw = ctypes.c_void_p()
+            _build.check(_build.library()[0].graph_cond_stream(ctypes.byref(raw)),
+                         "graph_cond_stream")
+            _BODY_STREAMS[key] = torch.cuda.ExternalStream(raw.value, device=self.dev)
+        return _BODY_STREAMS[key]
+
+
+def _flat(out):
+    """(the tensors of a branch's output, a tensor or a tuple / list of
+    them; whether it was a single tensor)."""
+    if isinstance(out, torch.Tensor):
+        return [out], True
+    return list(out), False
+
+
+@contextlib.contextmanager
+def _if_node(pred: torch.Tensor, invert: bool = False, loop: bool = False):
+    """Record, in the capture under way, a conditional node on the device
+    bool `pred` (on `~pred` with `invert`) behind a kernel that sets its
+    condition: an IF node, or with `loop` a WHILE node, whose body must
+    set the condition again at its end (`_set_condition`). What runs
+    inside the context is captured into the body, on another stream.
+    Yields the node's conditional handle."""
+    from slam_tpu_torch.ops import _build
+
+    cap = _CAPTURE
+    cap.route_pool()
+    lib = _build.library()[0]
+    pred = pred.reshape(()).to(torch.bool).contiguous()
+    parent = torch.cuda.current_stream(cap.dev)
+    child = cap.stream()
+    body, handle = ctypes.c_void_p(), ctypes.c_ulonglong()
+    _build.check(lib.graph_cond_begin(parent.cuda_stream, pred.data_ptr(), int(invert), int(loop),
+                                      child.cuda_stream, ctypes.byref(body),
+                                      ctypes.byref(handle)), "graph_cond_begin")
+    cap.if_nodes += 1
+    cap.depth += 1
+    try:
+        with torch.cuda.stream(child):
+            yield handle.value
+    finally:
+        cap.depth -= 1
+        _build.check(lib.graph_cond_end(child.cuda_stream), "graph_cond_end")
+
+
+def _set_condition(handle: int, pred: torch.Tensor) -> None:
+    """Capture, on the current stream, the kernel that sets a WHILE node's
+    condition from the device bool `pred`."""
+    from slam_tpu_torch.ops import _build
+
+    pred = pred.reshape(()).to(torch.bool).contiguous()
+    stream = torch.cuda.current_stream(pred.device).cuda_stream
+    _build.check(_build.library()[0].graph_cond_set(handle, pred.data_ptr(), stream),
+                 "graph_cond_set")
+
+
+def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable, *operands,
+         host_read: bool = False):
+    """`lax.cond(pred, true_fn, false_fn, *operands)`: the branch `pred`
+    (a bool 0-d tensor) picks, applied to `operands`. Each branch returns
+    a tensor or a tuple / list of tensors of the same shapes and dtypes. A
+    branch draws no random numbers, and a tensor it returns unchanged is
+    one of `operands` (not one it closes over), so that it is copied.
+
+    Inside a block's capture: two IF nodes, the true branch's body first;
+    its outputs are the result, and the false branch's body copies its
+    own into them, so a replay runs one branch and reads nothing on the
+    host. Elsewhere both branches run, then a select, which reads nothing
+    (JAX's lowering under `vmap`): on the CPU, in a block's warm-up, and
+    in an eager call on the card, where with `host_read` the call reads
+    `pred` once instead and runs one branch (for a branch too costly to
+    run in vain)."""
+    if _CAPTURE is not None:
+        return _if_else(pred, true_fn, false_fn, operands)
+    if host_read and pred.is_cuda and not _WARMING:
+        return (true_fn if bool(pred) else false_fn)(*operands)
+    a, single = _flat(true_fn(*operands))
+    b, _ = _flat(false_fn(*operands))
+    if len(a) != len(b):
+        raise ValueError("the branches of a cond return different structures")
+    out = [torch.where(pred, x, y) for x, y in zip(a, b)]
+    return out[0] if single else tuple(out)
+
+
+def _if_else(pred, true_fn, false_fn, operands):
+    held = {t.untyped_storage().data_ptr() for t in operands if isinstance(t, torch.Tensor)}
+    with _if_node(pred):
+        outs, single = _flat(true_fn(*operands))
+        # The results live in fresh buffers of the capture's pool: an
+        # operand returned as it is, or a strided view, is copied.
+        for i, t in enumerate(outs):
+            ptr = t.untyped_storage().data_ptr()
+            if ptr in held or not t.is_contiguous():
+                outs[i] = t.clone(memory_format=torch.contiguous_format)
+            held.add(outs[i].untyped_storage().data_ptr())
+    with _if_node(pred, invert=True):
+        other, _ = _flat(false_fn(*operands))
+        if len(other) != len(outs):
+            raise ValueError("the branches of a cond return different structures")
+        for dst, src in zip(outs, other):
+            if dst.shape != src.shape or dst.dtype != src.dtype:
+                raise ValueError(f"cond branches disagree: {tuple(dst.shape)} {dst.dtype} "
+                                 f"against {tuple(src.shape)} {src.dtype}")
+            dst.copy_(src)
+    return outs[0] if single else tuple(outs)
 
 
 class Block:
@@ -77,8 +245,10 @@ class Block:
         self.graph = None
         self.replays = 0
         self.capture_ms = 0.0
-        # The kernel wrappers' launches a replay makes (`count_launch`).
+        # The kernel wrappers' launches a replay makes (`count_launch`), and
+        # the conditional nodes the graph holds (`cond`, `Chain`).
         self.tally = {}
+        self.if_nodes = 0
         # Set at the capture: the device memory the graph's private pool
         # took (the rise of reserved memory over the capture; the peak of
         # allocated memory does not see it, as the pool's blocks are free
@@ -101,14 +271,9 @@ class Block:
             if not _same(v, s):
                 s.copy_(v)
 
-    def _capture(self) -> None:
-        dev = next(iter(self.static.values())).device
-        t0 = time.perf_counter()
-        # The warm-up advances the block's state and the generators: both
-        # are put back before the capture, which runs nothing.
-        saved = {k: v.clone() for k, v in self.static.items()}
-        gen_states = [g.get_state() for g in self.generators]
-        global _TALLY, _WARMING
+    def _warm(self, dev) -> None:
+        """The eager runs before the capture, on a side stream."""
+        global _WARMING
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         _WARMING = True
@@ -119,6 +284,20 @@ class Block:
         finally:
             _WARMING = False
         torch.cuda.current_stream(dev).wait_stream(side)
+
+    def _record(self) -> None:
+        """What the capture records."""
+        self._step()
+
+    def _capture(self) -> None:
+        dev = next(iter(self.static.values())).device
+        t0 = time.perf_counter()
+        # The warm-up advances the block's state and the generators: both
+        # are put back before the capture, which runs nothing.
+        saved = {k: v.clone() for k, v in self.static.items()}
+        gen_states = [g.get_state() for g in self.generators]
+        global _TALLY, _CAPTURE
+        self._warm(dev)
         for k, v in saved.items():
             self.static[k].copy_(v)
         del saved
@@ -130,12 +309,30 @@ class Block:
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)
+        # An explicit pool: a conditional body's allocations are routed to
+        # it by its id (`_Capture.route_pool`).
+        pool = self.pool if self.pool is not None else torch.cuda.graph_pool_handle()
         _TALLY = {}
+        cap = _CAPTURE = _Capture(dev, pool)
+        # No garbage collection during the capture: a collection that frees
+        # an earlier block's graph (an engine left in a reference cycle)
+        # destroys it, a call that a capture under way refuses, and the
+        # capture is lost. Such garbage is collected after it.
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
-                self._step()
+            with torch.cuda.graph(graph, pool=pool):
+                self._record()
+        except BaseException:
+            if cap.routed:  # a failed capture may leave the thread's routing behind
+                with contextlib.suppress(RuntimeError):
+                    torch._C._cuda_endAllocateToPool(cap.index, pool)
+            raise
         finally:
+            if collecting:
+                gc.enable()
             self.tally, _TALLY = _TALLY, None
+            self.if_nodes, _CAPTURE = cap.if_nodes, None
         torch.cuda.synchronize(dev)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.capture_ms = (time.perf_counter() - t0) * 1e3
@@ -153,6 +350,81 @@ class Block:
         self.replays += 1
         for wrapper, n in self.tally.items():
             wrapper.launches += n
+
+
+class Chain(Block):
+    """Up to `copies` runs of a search's block a replay, each guarded by
+    `go(static)` (a bool 0-d tensor of the buffers, taken before each run
+    from what the run before it wrote): the port's counterpart of a device
+    `lax.while_loop`. A replay runs the block until `go` fails or `copies`
+    runs have passed, with no host read; `run` then reads the buffers'
+    `flag` and run counter `it` on the host once.
+
+    Without generators the chain is one WHILE node over one captured body
+    (the block, a per-replay run count, then `go` and the count set the
+    condition again). A block that draws from `generators` is captured
+    `copies` times, each behind its own IF node, so each run draws what
+    the next eager block would (a copy of one body would repeat its
+    draws); after a replay every generator is put where the runs that
+    happened leave it, as a replay advances a registered generator by
+    every captured run. `per_run` is what one run adds to `it`. On the
+    CPU, `run` runs the block while `go` holds, up to `copies` times,
+    reading `go` between runs."""
+
+    def __init__(self, fn: Callable, static: Dict[str, torch.Tensor], copies: int,
+                 go: Callable, per_run: int, generators: Iterable[torch.Generator] = (),
+                 guard=contextlib.nullcontext, pool=None):
+        super().__init__(fn, static, generators, guard, pool)
+        self.copies = copies
+        self.go = go
+        self.per_run = per_run
+        # Each generator's offset advance in one run of the block.
+        self._advance = ()
+
+    def _warm(self, dev) -> None:
+        before = [g.get_offset() for g in self.generators]
+        super()._warm(dev)
+        self._advance = tuple((g.get_offset() - b) // _WARMUP
+                              for g, b in zip(self.generators, before))
+
+    def _record(self) -> None:
+        if self.generators:
+            for _ in range(self.copies):
+                with _if_node(self.go(self.static)):
+                    self._step()
+            return
+        count = torch.zeros((), dtype=torch.int32, device=self.static["it"].device)
+        with _if_node(self.go(self.static), loop=True) as handle:
+            self._step()
+            count.add_(1)
+            _set_condition(handle, self.go(self.static) & (count < self.copies))
+
+    def _read(self) -> Tuple[bool, int]:
+        flag, it = torch.stack([self.static["flag"].any().to(torch.int64),
+                                self.static["it"].to(torch.int64)]).tolist()
+        return bool(flag), int(it)
+
+    def run(self, it: int) -> Tuple[bool, int]:
+        """Run the chain from the counter value `it` (the last read's, or
+        the loaded one); returns (the flag's any(), the counter) after it."""
+        if not next(iter(self.static.values())).is_cuda:
+            for _ in range(self.copies):
+                if not bool(self.go(self.static)):
+                    break
+                with self.guard():
+                    self._step()
+            return self._read()
+        if self.graph is None:
+            self._capture()
+        offsets = [g.get_offset() for g in self.generators]
+        with self.guard():
+            self.graph.replay()
+        self.replays += 1
+        flag, after = self._read()
+        done = (after - it) // self.per_run
+        for g, o, a in zip(self.generators, offsets, self._advance):
+            g.set_offset(o + done * a)
+        return flag, after
 
 
 class Cache:

@@ -28,10 +28,9 @@ On the card a block is captured at its first run and replayed after; a
 failed capture or replay raises (there is no eager fallback). On the CPU
 the same block code runs eagerly. `guard` wraps every block run (the
 warm-up, each replay, each eager run): a check may make a host read raise
-there. `read_flag` runs a block that computes a bool on the device and
-reads it on the host once: the auto measurement tier's split at its
-predicate (torch 2.11 records no conditional node for `torch.cond` under
-a CUDA graph capture).
+there. A step's data-dependent branches (the auto measurement tier, the
+ESS gate, the `edt_box` refresh) are `core/graph.py:cond`s, CUDA graph IF
+nodes inside the step's graph, so no step reads the host.
 """
 
 from __future__ import annotations
@@ -158,16 +157,13 @@ class StepGraphs:
         self.cache = Cache(_MAX_BLOCKS)
         self._bufs: Dict[Tuple, _Buffers] = {}
         self._pinned: Dict[str, list] = {}
-        self._flags: Dict[torch.device, torch.Tensor] = {}
         self._pool = None
         # Per step: the device-to-device copies of the state out of the
-        # buffers (one a step) and their bytes; loads made and skipped;
-        # host reads of a flag (`read_flag`).
+        # buffers (one a step) and their bytes; loads made and skipped.
         self.copies = 0
         self.copy_bytes = 0
         self.loads = 0
         self.skipped = 0
-        self.host_reads = 0
 
     @property
     def guard(self):
@@ -298,49 +294,17 @@ class StepGraphs:
                 bufs.held[name] = (weakref.ref(leaves[name]), leaves[name]._version)
         return _rebuild(state, "", leaves, ints)
 
-    def read_flag(self, fn: Callable, state, scan: Optional[Scan] = None, *,
-                  key: Tuple = ()) -> bool:
-        """`bool(fn(state))` with one host read: `fn` (a bool 0-d tensor of
-        the state, no draws) runs as a block that copies its value into
-        pinned memory, then the host waits for the block and reads it."""
-        host, dev, bkey, bufs, static = self._prepare(state, None, scan)
-        names = bufs.leaf_names
-        flag = self._flags.get(dev)
-        if flag is None:
-            flag = torch.zeros((), dtype=torch.bool, pin_memory=dev.type == "cuda")
-            self._flags[dev] = flag
-
-        def make_fn():
-            skeleton = _rebuild(state, "", dict.fromkeys(names), {})
-
-            def body(v):
-                st, sc = _inputs(skeleton, names, v)
-                flag.copy_(fn(st, sc), non_blocking=True)
-                return {}
-
-            body.deltas = {}
-            return body
-
-        block = self._get((key, bkey), static, make_fn, (), dev)
-        block.run()
-        if dev.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-            event.synchronize()
-        self.host_reads += 1
-        return bool(flag)
-
     def stats(self) -> dict:
         """Per block (named by its key's tag and gate phases): capture ms,
-        the device memory its capture added to the shared pool, replays;
-        and the counters."""
+        the device memory its capture added to the shared pool, replays,
+        the conditional nodes it holds; and the counters."""
         blocks = {}
         for k, b in self.cache.blocks.items():
             name = str(k[0][0]) + (f"@{k[3]}" if len(k) > 3 and k[3] else "")
             blocks[name] = {"capture_ms": b.capture_ms, "pool_bytes": b.pool_bytes,
-                            "replays": b.replays}
+                            "replays": b.replays, "if_nodes": b.if_nodes}
         return {"blocks": blocks, "copies": self.copies, "copy_bytes": self.copy_bytes,
-                "loads": self.loads, "skipped": self.skipped, "host_reads": self.host_reads}
+                "loads": self.loads, "skipped": self.skipped}
 
 
 def _inputs(skeleton, names, v):

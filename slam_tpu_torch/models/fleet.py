@@ -15,15 +15,20 @@ makes with R = 1), then the estimate, the EMAs and the resampler batched over
 filter's launches. Elsewhere (the CPU, other backends and measurements)
 each robot predicts and weighs through the single-filter code, then the
 same batched finish runs; that loop is also the kernel's plain version.
+The auto tier weighs every robot with each tier some robot needs, under
+a `cond` a tier, and selects per robot, as JAX's `vmap` of `lax.cond`.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from slam_tpu_torch.core.config import MCLConfig, RaycastConfig
 from slam_tpu_torch.core.device import entry_device
+from slam_tpu_torch.core.graph import cond
 from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan, log_f32
 from slam_tpu_torch.models import mcl as mcl_mod
 from slam_tpu_torch.models._graph import StepGraphs
@@ -104,18 +109,15 @@ def fleet_step(states, odoms: Odometry, scans: Scan, field, alphas, cfg: MCLConf
         new_pose, lw = mcl_mod.predict_weigh(pose, scans, field, cfg, rc, seeds, odoms, alphas)
         blocked = field.blocked
     else:
-        poses, lws = [], []
+        poses = []
         for q in range(r):
             odom = Odometry(rot1=odoms.rot1[q], trans=odoms.trans[q], rot2=odoms.rot2[q])
-            pq = sample_motion_model_odometry_fused(
+            poses.append(sample_motion_model_odometry_fused(
                 odom, _row(pose, q), alphas, generator=gens[q],
-                noise=None if noise is None else noise[q])
-            lw_q, f = mcl_mod._weigh(
-                pq, Scan(angles=scans.angles[q], dists=scans.dists[q]), field, cfg, rc,
-                early_exit=early_exit)
-            poses.append(pq)
-            lws.append(lw_q)
-        new_pose, lw, blocked = _stack(poses), torch.stack(lws), f.blocked
+                noise=None if noise is None else noise[q]))
+        rows = [Scan(angles=scans.angles[q], dists=scans.dists[q]) for q in range(r)]
+        lw, f = _weigh_rows(poses, rows, field, cfg, rc, early_exit)
+        new_pose, blocked = _stack(poses), f.blocked
     states = states.replace(
         particles=states.particles.replace(pose=new_pose), step=states.step + 1)
 
@@ -135,14 +137,45 @@ def fleet_step(states, odoms: Odometry, scans: Scan, field, alphas, cfg: MCLConf
     return mcl_mod._finish(states, lw, cfg, u0, blocked, inject, u=u)
 
 
+def _weigh_rows(poses, scans, field, cfg: MCLConfig, rc: RaycastConfig, early_exit: bool):
+    """(log weights [R, N] of robot q's poses `poses[q]` against
+    `scans[q]`, the field as a RayField): each robot through
+    `mcl._weigh`. The auto tier is JAX's `lax.cond` under `vmap` (both
+    tiers, then a select per robot) with each tier under `core/graph.py:
+    cond` on whether any robot needs it: the direct field when some cloud
+    is dispersed, the table when some is converged, so a graphed step
+    runs a tier only when a robot reads it, with no host read (an eager
+    step on the card reads the two predicates)."""
+    def tier(c):
+        out = [mcl_mod._weigh(p, z, field, c, rc, early_exit=early_exit)
+               for p, z in zip(poses, scans)]
+        return torch.stack([lw for lw, _ in out]), out[-1][1]
+
+    if cfg.measurement != "likelihood_field_auto":
+        return tier(cfg)
+    f = mcl_mod.lf_field(field, cfg)
+    conv = torch.stack([mcl_mod.auto_converged(p, f, cfg) for p in poses])
+    shape = (len(poses), poses[0].x.shape[-1])
+
+    def zeros():
+        return torch.zeros(shape, dtype=torch.float32, device=f.blocked.device)
+
+    def forced(name):
+        return lambda: tier(dataclasses.replace(cfg, measurement=name))[0]
+
+    lw_t = cond(conv.any(), forced("likelihood_field_table"), zeros, host_read=True)
+    lw_d = cond((~conv).any(), forced("likelihood_field"), zeros, host_read=True)
+    return torch.where(conv[:, None], lw_t, lw_d), f
+
+
 class MCLFleet:
     """R reference-API filters advanced in lockstep on one device: the CUDA
     card unless the caller asks for another (`device="cpu"`). `step` runs
     as one block of `graphs` (`models/_graph.py`): one CUDA graph replay a
     fleet step on the card, as the JAX class jits it (`slam_tpu/models/
     fleet.py:61`), registering the R generators; the beam measurement's
-    rays run their whole count (`early_exit=False`). A step of the auto
-    tier reads its predicate on the host, one a robot, and runs eagerly."""
+    rays run their whole count (`early_exit=False`); the auto tier
+    branches inside the block (`_weigh_rows`)."""
 
     def __init__(self, n_robots: int, cfg: MCLConfig, rc: RaycastConfig = RaycastConfig(),
                  seed: int = 0, device=None):
@@ -158,8 +191,6 @@ class MCLFleet:
 
     def step(self, states, odoms: Odometry, scans: Scan, field, alphas):
         cfg, rc = self.cfg, self.rc
-        if cfg.measurement == "likelihood_field_auto":
-            return fleet_step(states, odoms, scans, field, alphas, cfg, rc)
         alphas = tuple(float(a) for a in alphas)
         return self.graphs.run(
             lambda s, o, z: fleet_step(s, o, z, field, alphas, cfg, rc, early_exit=False),

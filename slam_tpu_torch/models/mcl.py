@@ -13,11 +13,14 @@
 
 Functions of an explicit `MCLState`; randomness comes from the state's
 `torch.Generator` (on the particles' device), or is injected (`noise=`,
-`u0=`, `inject=`) so tests can feed in JAX's own draws. No step syncs with
-the host but the auto tier's one read: the data-dependent choices
-(uninformative-measurement fallback, ESS gate, the injection ratio) are
-`torch.where` selections, and the every-k resample gate counts updates on
-the host.
+`u0=`, `inject=`) so tests can feed in JAX's own draws. The data-dependent
+choices are device values: the uninformative-measurement fallback and the
+injection ratio select (`torch.where`); the auto tier and a single
+filter's ESS gate are JAX's `lax.cond`s (`core/graph.py:cond`: IF nodes in
+a graphed step; elsewhere both branches and a select, but an eager auto
+tier on the card reads its predicate once and computes one tier); the
+every-k resample gate counts updates on the host. So no step syncs with
+the host but the eager auto tier's one read.
 
 Sharding (`slam_tpu_torch/parallel/`): each rank runs these functions on
 its own particle shard. With a `ray_sharding` (a `parallel.mesh.Sharding`
@@ -32,11 +35,10 @@ map-sharded engine weighs against a distributed grid).
 
 Measurements: "beam" (raycast or fused LUT route), "likelihood_field"
 (direct), "likelihood_field_table" (boxed correlative table) and
-"likelihood_field_auto", which computes ONE of the last two, as JAX's
-`lax.cond` does, picked by `measurement.lf_auto_converged`: the update
-reads the predicate on the host once (the one host read of a step; the
-host-lagged alternative without it is `models/slam.py:
-AutoTierDispatcher`). `MCLConfig.adaptive` adds augmented-MCL injection
+"likelihood_field_auto", which runs ONE of the last two under `cond`, as
+JAX's `lax.cond` does, picked by `measurement.lf_auto_converged` (the
+host-lagged alternative is `models/slam.py:AutoTierDispatcher`).
+`MCLConfig.adaptive` adds augmented-MCL injection
 over free space (`init_uniform` is the global-localization start).
 
 The `MCL` class runs each `predict`, `update` and `step` as one CUDA graph
@@ -54,6 +56,7 @@ import torch
 from slam_tpu_torch.core import stats
 from slam_tpu_torch.core.config import MCLConfig, RaycastConfig
 from slam_tpu_torch.core.device import entry_device
+from slam_tpu_torch.core.graph import cond
 from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan, f32_host, log_f32
 from slam_tpu_torch.models._graph import StepGraphs
 from slam_tpu_torch.ops import edt as edtlib
@@ -238,6 +241,17 @@ def _resample_gathered(particles: Particles, method: str, ax, *, u0=None, u=None
 LF_MEASUREMENTS = ("likelihood_field", "likelihood_field_table", "likelihood_field_auto")
 
 
+def lf_field(field, cfg: MCLConfig) -> rayfield.RayField:
+    """`field` as the likelihood-field measurements read it: a RayField as
+    it is; a raw mask (SLAM mode) with the capped transform the LF pdf
+    resolves, ~5 sigma of distance."""
+    if isinstance(field, rayfield.RayField):
+        return field
+    blocked = torch.as_tensor(field, dtype=torch.bool)
+    return rayfield.RayField(blocked=blocked,
+                             edt=edtlib.edt_capped(blocked, 5.0 * cfg.meas_stddev + 2.0))
+
+
 def _weigh(pp: Pose, scan: Scan, field, cfg: MCLConfig, rc: RaycastConfig,
            ray_sharding=None, early_exit: bool = True):
     """(measurement log weights f32[N] of poses `pp`, the field as a
@@ -246,14 +260,7 @@ def _weigh(pp: Pose, scan: Scan, field, cfg: MCLConfig, rc: RaycastConfig,
     statistics over its 'p' axis; `early_exit` is the beam measurement's
     (`measurement.particle_log_weights`)."""
     if cfg.measurement in LF_MEASUREMENTS:
-        if not isinstance(field, rayfield.RayField):
-            # A raw mask (SLAM mode): the capped transform the LF pdf
-            # resolves, ~5 sigma of distance.
-            blocked = torch.as_tensor(field, dtype=torch.bool)
-            field = rayfield.RayField(
-                blocked=blocked,
-                edt=edtlib.edt_capped(blocked, 5.0 * cfg.meas_stddev + 2.0),
-            )
+        field = lf_field(field, cfg)
         lf = dict(
             rc=rc, scanner_offset=cfg.scanner_offset, stddev=cfg.meas_stddev,
             z_hit=cfg.lf_z_hit, z_rand=cfg.lf_z_rand, ray_sharding=ray_sharding,
@@ -275,10 +282,11 @@ def _weigh(pp: Pose, scan: Scan, field, cfg: MCLConfig, rc: RaycastConfig,
         if cfg.measurement == "likelihood_field":
             return direct(), field
         # Auto tier: the boxed table on a converged cloud, the direct field
-        # on a dispersed one. One host read of the predicate, then one tier,
-        # as JAX's lax.cond computes one: the weights are the forced tier's.
-        converged = bool(auto_converged(pp, field, cfg, ray_sharding))
-        return (table() if converged else direct()), field
+        # on a dispersed one, under JAX's lax.cond (`core/graph.py:cond`):
+        # a graphed step runs one tier with no host read; the weights are
+        # the forced tier's.
+        converged = auto_converged(pp, field, cfg, ray_sharding)
+        return cond(converged, table, direct, host_read=True), field
     field = rayfield.as_ray_field(field, rc)
     return measurement.particle_log_weights(
         field, pp, scan,
@@ -294,12 +302,6 @@ def auto_converged(pp: Pose, field, cfg: MCLConfig, ray_sharding=None) -> torch.
     shape = field.edt.shape if isinstance(field, rayfield.RayField) else field.shape
     return measurement.lf_auto_converged(pp, cfg, tuple(shape), scanner_offset=cfg.scanner_offset,
                                          ray_sharding=ray_sharding)
-
-
-def auto_tier(cfg: MCLConfig, converged: bool) -> MCLConfig:
-    """`cfg` with the tier the auto measurement picks forced."""
-    return dataclasses.replace(cfg, measurement="likelihood_field_table" if converged
-                               else "likelihood_field")
 
 
 def adaptive_emas(log_w_slow, log_w_fast, lw, adaptive, ax=None):
@@ -351,26 +353,42 @@ def _finish(state: MCLState, lw, cfg: MCLConfig, u0=None, blocked=None,
 
     # Resample when ESS <= ess_threshold * N (1.0 == every update, the
     # reference's behavior) AND on every resample_every-th update. The
-    # every-k gate is a host int and skips the work; the ESS gate is a
-    # device value and selects.
+    # every-k gate is a host int and skips the work. The ESS gate is a
+    # device value: one filter resamples under JAX's lax.cond
+    # (`slam_tpu/models/mcl.py:331`, `core/graph.py:cond`) with its draws
+    # made first; a fleet's rows and a shard select, as JAX's vmap does.
     if state.updates % cfg.resample_every == 0:
         n = particles.n if ax is None else ax.size * particles.n
         if ess is None:
             ess = resample.effective_sample_size(log_weight)
         do_it = (ess <= cfg.ess_threshold * n)[..., None]
-        if resample_fn is not None:
-            new = resample_fn(particles, u0=u0, generator=state.generator)
-        elif ax is not None:
-            new = _resample_gathered(particles, cfg.resample, ax, u0=u0, u=u,
-                                     generator=state.generator)
+        if resample_fn is None and ax is None and log_weight.dim() == 1:
+            u0, u = resample.resample_draws(log_weight, cfg.resample, u0=u0, u=u,
+                                            generator=state.generator)
+
+            def do_resample(x, y, theta, lw):
+                new = resample.resample(Particles(pose=Pose(x=x, y=y, theta=theta),
+                                                  log_weight=lw), cfg.resample, u0=u0, u=u)
+                return new.pose.x, new.pose.y, new.pose.theta, new.log_weight
+
+            pp_ = particles.pose
+            x, y, theta, lw_ = cond(do_it[0], do_resample, lambda *p: p,
+                                    pp_.x, pp_.y, pp_.theta, particles.log_weight)
+            particles = Particles(pose=Pose(x=x, y=y, theta=theta), log_weight=lw_)
         else:
-            new = resample.resample(
-                particles, cfg.resample, u0=u0, u=u, generator=state.generator
+            if resample_fn is not None:
+                new = resample_fn(particles, u0=u0, generator=state.generator)
+            elif ax is not None:
+                new = _resample_gathered(particles, cfg.resample, ax, u0=u0, u=u,
+                                         generator=state.generator)
+            else:
+                new = resample.resample(
+                    particles, cfg.resample, u0=u0, u=u, generator=state.generator
+                )
+            particles = Particles(
+                pose=_select(do_it, new.pose, particles.pose),
+                log_weight=torch.where(do_it, new.log_weight, particles.log_weight),
             )
-        particles = Particles(
-            pose=_select(do_it, new.pose, particles.pose),
-            log_weight=torch.where(do_it, new.log_weight, particles.log_weight),
-        )
 
     log_w_slow, log_w_fast = state.log_w_slow, state.log_w_fast
     if cfg.adaptive is not None:
@@ -528,8 +546,8 @@ class MCL:
     (`models/_graph.py`): one CUDA graph replay a call on the card, as the
     JAX class jits `predict` and `update` (`slam_tpu/models/mcl.py:
     408-409`) and `bench.py:109-112` its step; the same block code eagerly
-    on the CPU. The auto measurement tier makes one block compute its
-    predicate, reads it on the host and replays the chosen tier's update.
+    on the CPU. The auto measurement tier branches inside the block
+    (`cond`), so its update and step are one replay with no host read.
     A block casts the beam measurement's rays to their whole count
     (`early_exit=False`): the free functions' weights, with no host read."""
 
@@ -558,19 +576,8 @@ class MCL:
         return self.graphs.run(lambda s, o, _: predict(s, o, alphas), state, odom,
                                key=("predict", alphas))
 
-    def _tier(self, state, scan: Scan, field) -> MCLConfig:
-        """The config of this update's tier: the auto tier's choice read
-        through one block (the predicate's), else the config."""
-        cfg = self.cfg
-        if cfg.measurement != "likelihood_field_auto":
-            return cfg
-        converged = self.graphs.read_flag(
-            lambda s, _: auto_converged(s.particles.pose, field, cfg), state, scan,
-            key=("auto", cfg, id(field)))
-        return auto_tier(cfg, converged)
-
     def update(self, state, scan: Scan, field) -> MCLState:
-        cfg = self._tier(state, scan, field)
+        cfg = self.cfg
         return self.graphs.run(
             lambda s, _, z: update(s, z, field, cfg, self.rc, early_exit=False), state,
             scan=scan, key=("update", cfg, self.rc, id(field)),
@@ -579,11 +586,8 @@ class MCL:
     def step(self, state, odom: Odometry, alphas, scan: Scan, field) -> MCLState:
         """predict -> update as one block (`step`: on the card with the
         beam measurement on the LUT route, one fused kernel launch for
-        both). With the auto tier: `predict`, then `update`, whose
-        predicate is read between the two."""
+        both; with the auto tier, K1 then the tier under `cond`)."""
         alphas = tuple(float(a) for a in alphas)
-        if self.cfg.measurement == "likelihood_field_auto":
-            return self.update(self.predict(state, odom, alphas), scan, field)
         cfg = self.cfg
         return self.graphs.run(lambda s, o, z: step(s, o, alphas, z, field, cfg, self.rc,
                                                     early_exit=False),

@@ -10,13 +10,13 @@ per-particle maps).
 Functions of an explicit `SLAMState` on one device; `GridSLAM` wraps them
 and runs each step as one CUDA graph replay on the card
 (`models/_graph.py`), as the JAX class jits its step. The every-k gates
-(resample, map update) count on the host. With `SLAMConfig.edt_box` unset
-(the production setting) the step makes no host sync; with it set, the
-incremental EDT refresh reads two flags a step (`ops/edt.py:edt_refresh`),
-so `GridSLAM` keeps that step eager. `SLAMConfig.scanmatch` refines the
+(resample, map update) count on the host. With `SLAMConfig.edt_box` the
+incremental EDT refresh chooses among its three branches on the device
+(`ops/edt.py:edt_refresh`, nested `core/graph.py:cond`s), so that step
+too is one replay with no host sync. `SLAMConfig.scanmatch` refines the
 output estimate on the device (`ops/scanmatch.py`), and
 ``likelihood_field_auto`` runs through `GridSLAM`'s host-lagged
-`AutoTierDispatcher` (in `step` itself, through `mcl.update`'s one read of
+`AutoTierDispatcher` (in `step` itself, through `mcl.update`'s `cond` on
 the predicate).
 
 Under a `ray_sharding` (`slam_tpu_torch/parallel/sharded.py`) each rank
@@ -294,9 +294,9 @@ class GridSLAM:
     (`models/_graph.py`): one CUDA graph replay a call on the card, as the
     JAX class jits them (`slam_tpu/models/slam.py:336-340`), one block per
     phase of the resample and map gates; the dispatcher's forced-tier steps
-    too; a block casts the beam measurement's rays to their whole count
-    (`early_exit=False`, no host read). A step with `edt_box` reads the
-    host itself (`ops/edt.py:edt_refresh`) and runs eagerly."""
+    too, and a step with `edt_box` (its refresh branches on the device); a
+    block casts the beam measurement's rays to their whole count
+    (`early_exit=False`, no host read)."""
 
     def __init__(self, cfg: SLAMConfig, seed: int = 0, device=None):
         self.cfg = cfg
@@ -309,8 +309,6 @@ class GridSLAM:
                 cfg, lambda c: (lambda s, o, z: self._step(s, o, z, c)))
 
     def _step(self, state: SLAMState, odom: Odometry, scan: Scan, cfg: SLAMConfig) -> SLAMState:
-        if cfg.edt_box is not None:
-            return step(state, odom, scan, cfg)
         return self.graphs.run(lambda s, o, z: step(s, o, z, cfg, early_exit=False),
                                state, odom, scan,
                                key=("step", cfg),

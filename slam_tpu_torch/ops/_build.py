@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels under `slam_tpu_torch/csrc/`.
+"""Build and load the hand-written CUDA kernels under `slam_tpu_torch/csrc/`,
+and the conditional-node binding of the graphs (`csrc/graph_cond.cu`).
 
 Each `csrc/*.cu` file compiles with its own `nvcc` for `sm_90a`, all
 started at once, and the objects link into ONE shared library with a
@@ -56,6 +57,15 @@ _SIGNATURES = {
         + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P] * 2 + [ctypes.c_int]
         + [ctypes.c_float] * 10 + [_P] + [ctypes.c_longlong] * 2 + [ctypes.c_int, _P]
     ),
+    # (parent stream, pred*, invert, loop, child stream, body**, handle*)
+    "graph_cond_begin": [_P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.POINTER(_P),
+                         ctypes.POINTER(ctypes.c_ulonglong)],
+    # (child stream)
+    "graph_cond_end": [_P],
+    # (stream*)
+    "graph_cond_stream": [ctypes.POINTER(_P)],
+    # (handle, pred*, stream)
+    "graph_cond_set": [ctypes.c_ulonglong, _P, _P],
 }
 
 

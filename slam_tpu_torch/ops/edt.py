@@ -9,8 +9,8 @@ and exact transforms of `slam_tpu/ops/edt.py`).
     order-free and the square root is correctly rounded (`_sqrt`), so the
     result is bit for bit the JAX package's.
   * `edt_refresh` -- the incremental refresh of a capped EDT after a
-    localized map edit (window re-run, full rebuild or skip), bit for bit
-    equal to a full rebuild.
+    localized map edit (window re-run, full rebuild or skip, chosen on the
+    device by `core/graph.py:cond`), bit for bit equal to a full rebuild.
   * `edt_exact` -- the exact (uncapped) transform, O(H W^2 / block): the
     oracle, and the sdf ray field's static transform.
   * `edt_jfa` -- jump flooding (JFA+1), the uncapped per-step transform of
@@ -27,6 +27,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from slam_tpu_torch.core.graph import cond
 
 # Sentinels of the vertical pass: no blocked cell above / below.
 _NONE_UP = -(1 << 30)
@@ -237,10 +239,12 @@ def edt_refresh(
 
     All three equal `edt_capped(blocked_new, max_dist)` bit for bit. The
     plan, the window origin and the composite stay on the device (index
-    arithmetic in place of the JAX package's dynamic slices); choosing
-    among the three needs the two flags `any_diff` and `fits` on the host,
-    read together in ONE host read: the refresh's only sync. `box` must
-    satisfy 4 * R < box <= min(H, W)."""
+    arithmetic in place of the JAX package's dynamic slices), and the
+    choice is the JAX package's nested `lax.cond` on `any_diff` and `fits`
+    (`core/graph.py:cond`): in a captured step two levels of CUDA graph IF
+    nodes, so the refresh reads nothing on the host; in an eager call on
+    the card one read of each flag; on the CPU all three, selected. `box`
+    must satisfy 4 * R < box <= min(H, W)."""
     h, w = blocked_new.shape
     if blocked_old.shape != (h, w) or edt_prev.shape != (h, w):
         raise ValueError("edt/mask shape mismatch")
@@ -259,19 +263,24 @@ def edt_refresh(
     any_diff, fits, si, sj = _refresh_plan(
         blocked_old, blocked_new, reach=reach, box=box
     )
-    any_diff, fits = torch.stack([any_diff, fits]).tolist()
-    if not any_diff:
-        return edt_prev
-    if not fits:
-        return edt_capped(blocked_new, max_dist)
-    li = torch.arange(box, device=blocked_new.device)
-    rows, cols = si + li, sj + li
-    win_mask = blocked_new.index_select(0, rows).index_select(1, cols)
-    win_edt = edt_capped(win_mask, max_dist, sentinel=h + w)
-    in_i = ((li >= reach) | (si == 0)) & ((li < box - reach) | (si == h - box))
-    in_j = ((li >= reach) | (sj == 0)) & ((li < box - reach) | (sj == w - box))
-    prev_win = edt_prev.index_select(0, rows).index_select(1, cols)
-    merged = torch.where(in_i[:, None] & in_j[None, :], win_edt, prev_win)
-    out = edt_prev.clone()
-    out[rows[:, None], cols[None, :]] = merged
-    return out
+
+    def local_fn(prev, mask, si, sj):
+        li = torch.arange(box, device=mask.device)
+        rows, cols = si + li, sj + li
+        win_mask = mask.index_select(0, rows).index_select(1, cols)
+        win_edt = edt_capped(win_mask, max_dist, sentinel=h + w)
+        in_i = ((li >= reach) | (si == 0)) & ((li < box - reach) | (si == h - box))
+        in_j = ((li >= reach) | (sj == 0)) & ((li < box - reach) | (sj == w - box))
+        prev_win = prev.index_select(0, rows).index_select(1, cols)
+        merged = torch.where(in_i[:, None] & in_j[None, :], win_edt, prev_win)
+        flat = (rows[:, None] * w + cols[None, :]).reshape(-1)
+        return prev.reshape(-1).index_copy(0, flat, merged.reshape(-1)).view(h, w)
+
+    def full_fn(prev, mask, si, sj):
+        return edt_capped(mask, max_dist)
+
+    def changed_fn(prev, mask, si, sj):
+        return cond(fits, local_fn, full_fn, prev, mask, si, sj, host_read=True)
+
+    return cond(any_diff, changed_fn, lambda prev, mask, si, sj: prev,
+                edt_prev, blocked_new, si, sj, host_read=True)

@@ -89,14 +89,6 @@ def build_beam_lut(
     h, w = blocked.shape
     d = int(math.ceil(math.hypot(h, w))) + 2
     cap = torch.tensor(max_dist * 1.25, dtype=torch.float32, device=dev)
-    # The u8 code is floor(run / q), q = cap / 255, as XLA computes both:
-    # the divide by the constant 255 becomes a multiply by its f32
-    # reciprocal, so q = cap * f32(1 / 255) (one ulp above cap / 255 at
-    # max_dist 80), and run / q is a true divide. q is a tensor on the
-    # table's device, so CUDA divides too (a CPU scalar divisor would make
-    # it multiply by the reciprocal).
-    q_u8 = torch.tensor(np.float32(max_dist * 1.25) * (np.float32(1.0) / np.float32(255.0)),
-                        device=dev)
 
     ci, cj, cd = (h - 1) / 2.0, (w - 1) / 2.0, (d - 1) / 2.0
     ucol = _iota(d, d, 0, dev)
@@ -117,15 +109,14 @@ def build_beam_lut(
         return rot_blocked, ui, vi
 
     def encode(run):
-        out = torch.minimum(run, cap)
-        if dtype == torch.uint8:
-            return torch.clamp(torch.floor(out / q_u8), 0.0, 255.0).to(torch.uint8)
-        return out.to(dtype)
+        return encode_capped(torch.minimum(run, cap), dtype, max_dist)
 
     def bin_angle(b: int):
-        return torch.tensor(b, dtype=torch.float32, device=dev) * (
-            2.0 * math.pi / n_bins
-        )
+        # The JAX build's f32(b) * (2 pi / n_bins). It stays a CPU scalar,
+        # so its sin and cos are the CPU's on any device (CUDA's round an
+        # ulp apart on some angles) and a table built on the card equals
+        # the CPU's bit for bit, as the CDDT build's angles do.
+        return torch.tensor(b, dtype=torch.float32) * (2.0 * math.pi / n_bins)
 
     lut = torch.empty((h, w, n_bins), dtype=dtype, device=dev)
     if n_bins % 4 == 0 and not _force_per_bin:
@@ -152,6 +143,21 @@ def build_beam_lut(
         nb = _rev_cummin(torch.where(rot_blocked, vcol, big), 1)
         lut[:, :, b] = encode((nb - vcol)[ui, vi])
     return lut
+
+
+def encode_capped(capped: torch.Tensor, dtype, max_dist: float) -> torch.Tensor:
+    """A table's stored values from its f32 distances, already capped at
+    max_dist * 1.25: bf16 by rounding, u8 as the code floor(run / q), q =
+    cap / 255, as XLA computes both: the divide by the constant 255
+    becomes a multiply by its f32 reciprocal, so q = cap * f32(1 / 255)
+    (one ulp above cap / 255 at max_dist 80), and run / q is a true
+    divide. q is a tensor on the table's device, so CUDA divides too (a
+    CPU scalar divisor would make it multiply by the reciprocal)."""
+    if dtype != torch.uint8:
+        return capped.to(dtype)
+    q_u8 = torch.full((), float(np.float32(max_dist * 1.25) * (np.float32(1.0) / np.float32(255.0))),
+                      dtype=torch.float32, device=capped.device)
+    return torch.clamp(torch.floor(capped / q_u8), 0.0, 255.0).to(torch.uint8)
 
 
 def lut_quant_step(lut_dtype, max_dist: float):

@@ -85,6 +85,17 @@ def gather_pose_packed(pose: Pose, idx) -> Pose:
     return Pose(x=packed[..., 0], y=packed[..., 1], theta=packed[..., 2])
 
 
+def resample_draws(log_w, method: str, *, u0=None, u=None, generator=None):
+    """(u0, u): the draws `resample` would make from `generator` (where not
+    given), made now, so a resample under `core/graph.py:cond` draws
+    nothing (JAX splits its key before `lax.cond`)."""
+    if method == "systematic" and u0 is None:
+        u0 = torch.rand(log_w.shape[:-1], generator=generator, device=log_w.device)
+    elif method == "multinomial" and u is None:
+        u = torch.rand(log_w.shape, generator=generator, device=log_w.device)
+    return u0, u
+
+
 def resample(particles: Particles, method: str = "systematic", *, u0=None,
              u=None, generator=None) -> Particles:
     """Select a new particle set and reset weights to uniform."""

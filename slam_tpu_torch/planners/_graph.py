@@ -16,6 +16,14 @@ name, and `out` the buffers' new values by name. A value that the block
 committed in place (the same memory) is left; any other is copied into
 its static buffer at the end of the block, inside the graph, so the next
 replay starts from it.
+
+By default a search runs as a *chain* (`core/graph.py:Chain`, the port's
+device `lax.while_loop`): one graph runs up to `copies` blocks, each
+guarded on the device by the flag and round counter the block before it
+wrote, and the host reads the flag once a replay (`run_chain`). A cache
+made with `chain=False` replays single blocks with a host read before
+each (`replay_until`), for comparison. Both give the eager loop's state,
+rounds and iterations launched.
 """
 
 from __future__ import annotations
@@ -24,8 +32,55 @@ from typing import Dict, Iterable, Tuple
 
 import torch
 
-from slam_tpu_torch.core.graph import Block, Cache  # noqa: F401  (the planners name them here)
+from slam_tpu_torch.core import graph as core_graph
+from slam_tpu_torch.core.graph import Block, Chain  # noqa: F401  (the planners name them here)
 from slam_tpu_torch.planners._scatter import with_spare
+
+
+class Cache(core_graph.Cache):
+    """A planner's blocks (`core/graph.py:Cache`); `chain` picks chains
+    (the default) or single-block replays."""
+
+    def __init__(self, max_blocks: int = core_graph._MAX_BLOCKS, chain: bool = True):
+        super().__init__(max_blocks)
+        self.chain = chain
+
+
+def go(v: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The search loop's condition on the device: some flag is set and the
+    counter `it` is below its `limit`."""
+    return v["flag"].any() & (v["it"] < v["limit"])
+
+
+def block_or_chain(graphs: Cache, key: Tuple, fn, make_static, per_block: int, copies: int,
+                   generators=()) -> Block:
+    """The cache's block of `fn` for `key` (buffers `make_static()` when it
+    is new): a `Chain` of up to `copies` runs when the cache makes chains,
+    else a `Block`."""
+    if graphs.chain:
+        return graphs.get(key + ("chain", copies), lambda: Chain(
+            fn, make_static(), copies, go, per_block, generators=generators))
+    return graphs.get(key, lambda: Block(fn, make_static(), generators))
+
+
+def solve(block: Block, n_iters: int, per_block: int) -> Tuple[int, int]:
+    """Run a loaded search block to its end: `run_chain` for a chain,
+    `replay_until` for a block. Returns (iterations launched, host reads)."""
+    if isinstance(block, Chain):
+        return run_chain(block, n_iters)
+    return replay_until(block, n_iters, per_block)
+
+
+def run_chain(chain: Chain, n_iters: int) -> Tuple[int, int]:
+    """Run `chain` (its counter `it` loaded at 0) until its flag clears or
+    `n_iters` iterations have run: one host read of the flag and the
+    counter a replay. Returns (iterations launched, host reads)."""
+    it = reads = 0
+    while True:
+        flag, it = chain.run(it)
+        reads += 1
+        if not flag or it >= n_iters:
+            return it, reads
 
 
 def buffers(values: Dict[str, torch.Tensor], spare: Iterable[str] = ()) -> Dict[str, torch.Tensor]:

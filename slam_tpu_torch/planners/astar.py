@@ -17,8 +17,9 @@ rounds with one host read of `changed` per chunk. A round after the
 fixpoint changes nothing, so the result is the JAX package's bit for bit:
 min is exact and every sum is one correctly rounded f32 add. Given a
 block cache (`planners/_graph.py`, as the planners pass on the card), the
-chunk is a captured CUDA graph over static `free` and `dist` buffers,
-replayed with the same host reads.
+chunk is a captured CUDA graph over static `free` and `dist` buffers, and
+a chain of up to `_CHAIN_RUNS` chunks runs in one replay (a CUDA graph
+WHILE node on `changed`), with one host read a replay.
 """
 
 from __future__ import annotations
@@ -48,6 +49,9 @@ DIRS = [
 
 # Relaxation rounds between two host reads of `changed`.
 _CHUNK = 32
+# Chunks a chain runs a replay at most (the suite's floor plan, inflated,
+# settles in a few dozen chunks).
+_CHAIN_RUNS = 64
 
 
 def _min_pool(a: torch.Tensor, window) -> torch.Tensor:
@@ -107,24 +111,32 @@ def _relax_eager(free: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
 
 def _relax_chunk(v):
     """The block of `_relax_eager`: `_CHUNK` rounds on the buffers `free`
-    and `dist`, and whether they changed `dist`."""
+    and `dist`, whether they changed `dist`, and the round counter."""
     new = relax_round(v["dist"], v["free"], _CHUNK)
-    return {"dist": new, "flag": torch.any(new < v["dist"])}
+    return {"dist": new, "flag": torch.any(new < v["dist"]), "it": v["it"] + _CHUNK}
 
 
 def _relax_blocks(free: torch.Tensor, dist: torch.Tensor, graphs: "_graph.Cache") -> torch.Tensor:
-    """`_relax_eager` as replays of `_relax_chunk`, with the same reads."""
+    """`_relax_eager` as a chain of `_relax_chunk` blocks (one host read a
+    replay of up to `_CHAIN_RUNS` blocks), or as single-block replays
+    with `_relax_eager`'s reads."""
     h, w = free.shape
-    block = graphs.get(("astar", (h, w), _CHUNK), lambda: _graph.Block(
-        _relax_chunk, _graph.buffers({"free": free, "dist": dist,
-                                   "flag": torch.ones((), dtype=torch.bool, device=free.device)})))
-    block.load(free=free, dist=dist)
-    rounds = 0
-    while rounds < h * w:
-        block.run()
-        rounds += _CHUNK
-        if not bool(block.static["flag"]):
-            break
+    dev = free.device
+    init = {"free": free, "dist": dist, "flag": torch.ones((), dtype=torch.bool, device=dev),
+            "it": torch.zeros((), dtype=torch.int32, device=dev),
+            "limit": torch.full((), h * w, dtype=torch.int32, device=dev)}
+    block = _graph.block_or_chain(graphs, ("astar", (h, w), _CHUNK), _relax_chunk,
+                                  lambda: _graph.buffers(init), _CHUNK, _CHAIN_RUNS)
+    block.load(**init)
+    if isinstance(block, _graph.Chain):
+        _graph.run_chain(block, h * w)
+    else:
+        rounds = 0
+        while rounds < h * w:
+            block.run()
+            rounds += _CHUNK
+            if not bool(block.static["flag"]):
+                break
     return block.static["dist"].clone()
 
 

@@ -45,8 +45,10 @@ What differs in form, and why the results stay the JAX package's:
     device program (`_lattice_solve_query_jit`, `_ha_solve_query_jit`,
     `_lattice_solve_many_jit`): the run of `_FLAG_EVERY` loop iterations
     between two host reads of the flag is captured once as a CUDA graph
-    (`planners/_graph.py`) and replayed until the flag says done; the
-    query init's A* wavefront is replayed the same way. A device iteration
+    (`planners/_graph.py`), and a chain of up to `_CHAIN_RUNS` such blocks
+    runs in one replay, each behind the flag the one before it wrote (one
+    CUDA graph WHILE node); the host reads the flag once a replay. The
+    query init's A* wavefront runs the same way. A device iteration
     counter inside the gate stops the rounds at `max_rounds`, as the JAX
     loop's condition does. The eager loop is the CPU path and the
     reference the graphs are held to; `pathfind` stays eager.
@@ -73,8 +75,12 @@ from slam_tpu_torch.planners._scatter import last_writer, set_drop, set_drop_, w
 
 INF = 1e30
 
-# Search loop iterations between two host reads of the `active` flag.
+# Search loop iterations in one block (between two host reads of the
+# `active` flag in the eager loop and in single-block replays).
 _FLAG_EVERY = 4
+# Blocks a chain runs a replay at most: the suite's lattice query (122
+# rounds, 16 blocks) and a continuous query fit in one replay.
+_CHAIN_RUNS = 32
 # Parent-chain walk steps between two host reads of `done`.
 _CHAIN_CHECK = 64
 
@@ -787,15 +793,13 @@ def _lattice_solve_blocks(
     init = {**{f: getattr(st, f) for f in _LAT_FIELDS}, "goal": goal, "target_bin": target_bin,
             "hfield": hfield, "rounds": torch.zeros_like(st.goal_idx), "it": _counter(0, dev),
             "limit": _counter(n_iters, dev), "flag": _lattice_flag(st)}
-    block = graphs.get(
-        ("lattice", shape, cfg, tuple(st.gp.shape[:-1]), _FLAG_EVERY),
-        lambda: _graph.Block(functools.partial(_lattice_block, feasw=feasw, off_t=off_t,
-                                               di_t=di_t, dj_t=dj_t, cost_q=cost_q,
-                                               edge_t=edge_t, cfg=cfg, shape=shape),
-                             _graph.buffers(init, spare=("o_idx", "o_f"))),
-    )
+    block = _graph.block_or_chain(
+        graphs, ("lattice", shape, cfg, tuple(st.gp.shape[:-1]), _FLAG_EVERY),
+        functools.partial(_lattice_block, feasw=feasw, off_t=off_t, di_t=di_t, dj_t=dj_t,
+                          cost_q=cost_q, edge_t=edge_t, cfg=cfg, shape=shape),
+        lambda: _graph.buffers(init, spare=("o_idx", "o_f")), _FLAG_EVERY, _CHAIN_RUNS)
     block.load(**init)
-    launched, reads = _graph.replay_until(block, n_iters, _FLAG_EVERY)
+    launched, reads = _graph.solve(block, n_iters, _FLAG_EVERY)
     out = LatticeState(**{f: block.static[f].clone() for f in _LAT_FIELDS})
     return out, block.static["rounds"].clone(), launched, reads
 
@@ -887,13 +891,13 @@ def _ha_solve_blocks(st, field, goal, target_bin, hfield, max_rounds, cfg, rc, g
     init = {**{f: getattr(st, f) for f in _HA_FIELDS}, "goal": goal, "target_bin": target_bin,
             "hfield": hfield, "rounds": torch.zeros_like(st.goal_idx), "it": _counter(0, dev),
             "limit": _counter(max_rounds, dev), "flag": _ha_flag(st)}
-    block = graphs.get(
-        ("continuous", tuple(field.blocked.shape), cfg, rc, _FLAG_EVERY),
-        lambda: _graph.Block(functools.partial(_ha_block, field=field, cfg=cfg, rc=rc),
-                             _graph.buffers(init, spare=("parent", "px", "py", "pth", "open_f"))),
-    )
+    block = _graph.block_or_chain(
+        graphs, ("continuous", tuple(field.blocked.shape), cfg, rc, _FLAG_EVERY),
+        functools.partial(_ha_block, field=field, cfg=cfg, rc=rc),
+        lambda: _graph.buffers(init, spare=("parent", "px", "py", "pth", "open_f")),
+        _FLAG_EVERY, _CHAIN_RUNS)
     block.load(**init)
-    launched, reads = _graph.replay_until(block, max_rounds, _FLAG_EVERY)
+    launched, reads = _graph.solve(block, max_rounds, _FLAG_EVERY)
     out = HAState(**{f: block.static[f].clone() for f in _HA_FIELDS})
     return out, block.static["rounds"].clone(), launched, reads
 

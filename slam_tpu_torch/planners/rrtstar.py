@@ -24,8 +24,10 @@ Differences of form:
     between two host reads of the flag are captured once as a CUDA graph
     (`planners/_graph.py`) that draws from the planner's generator
     (registered with the graph, so a replay draws what the eager rounds
-    would) and replayed until the flag says done; a device round counter
-    inside the gate stops the search at `max_rounds`. The eager loop is
+    would), and a chain of `_CHAIN_RUNS` such blocks, each behind the
+    flag the one before it wrote, runs in one replay, with one host read
+    of the flag a replay; a device round counter inside the gate stops
+    the search at `max_rounds`. The eager loop is
     the CPU path and the reference the graph is held to; `pathfind`
     stays eager.
   * Ties: `top_k` returns equal values lowest index first, which
@@ -55,6 +57,10 @@ INF = 1e30
 
 # Search rounds between two host reads of the loop's `active` flag.
 _FLAG_EVERY = 8
+# Blocks a chain runs a replay at most. A block draws, so each of a
+# chain's blocks is a capture of its own (`core/graph.py:Chain`): the
+# count trades capture time (~1 s a block on the suite's map) for reads.
+_CHAIN_RUNS = 4
 
 
 @dataclasses.dataclass
@@ -263,15 +269,16 @@ def _rrt_block(v, field, cfg, rc, neighbor_cap, shape, generator):
     """`_FLAG_EVERY` rounds of `_rrt_solve`'s loop on the block buffers
     `v` (the state's fields, goal, rounds, min_nodes, the round counter
     `it` and its `limit`; with `generator` None, the injected draws
-    `samples` f32[_FLAG_EVERY, 2, batch]). The counter is in the gate, so
+    `samples` f32[R, 2, batch], row `it` a round's). The counter is in the gate, so
     rounds past `limit` commit nothing; every round draws, as the eager
     loop's do. The edge rays run their whole count, with no host read."""
     st = RRTState(**{f: v[f] for f in _RRT_FIELDS})
     rounds, it = v["rounds"], v["it"]
-    for r in range(_FLAG_EVERY):
+    for _ in range(_FLAG_EVERY):
         active = _rrt_flag(st, v["min_nodes"], cfg.max_nodes) & (it < v["limit"])
-        if generator is None:
-            sx, sy = v["samples"][r, 0], v["samples"][r, 1]
+        if generator is None:  # round `it`'s row, gathered on the device
+            row = v["samples"].index_select(0, it.reshape(1).long())[0]
+            sx, sy = row[0], row[1]
         else:
             sx, sy = _uniform_draw(generator, shape, cfg.batch, st.x.device)
         st = _rrt_round(st, field, v["goal"], cfg, rc, neighbor_cap, sx, sy, active,
@@ -285,13 +292,13 @@ def _rrt_block(v, field, cfg, rc, neighbor_cap, shape, generator):
 def _rrt_solve_blocks(st, field, goal, max_rounds, min_nodes, cfg, rc, neighbor_cap, shape,
                       generator, samples, graphs):
     """`_rrt_solve` as runs of `_rrt_block` from the cache `graphs` (a
-    CUDA graph replay each on the card): the same state, rounds and draws.
-    `samples` (f32[R, 2, batch] on the device, R >= max_rounds) injects the
-    draws, copied block by block into the block's buffer before its run;
-    else the block draws from `generator`. Where `max_rounds` ends the
-    search, the last block runs (and draws for) up to `_FLAG_EVERY - 1`
-    gated rounds past it. Returns as `_rrt_solve`, rounds launched counted
-    in whole blocks."""
+    chain of up to `_CHAIN_RUNS` blocks a replay on the card, or single
+    block replays): the same state, rounds and draws. `samples` (f32[R, 2,
+    batch] on the device, R >= max_rounds) injects the draws, held whole
+    in the block's buffer; else the block draws from `generator`. Where
+    `max_rounds` ends the search, the last block runs (and draws for) up
+    to `_FLAG_EVERY - 1` gated rounds past it. Returns as `_rrt_solve`,
+    rounds launched counted in whole blocks."""
     dev = st.size.device
     init = {**{f: getattr(st, f) for f in _RRT_FIELDS}, "goal": goal,
             "rounds": torch.zeros_like(st.size),
@@ -301,27 +308,18 @@ def _rrt_solve_blocks(st, field, goal, max_rounds, min_nodes, cfg, rc, neighbor_
             "flag": _rrt_flag(st, min_nodes, cfg.max_nodes)}
     if samples is not None:
         rows = -(-max_rounds // _FLAG_EVERY) * _FLAG_EVERY
-        samples = torch.nn.functional.pad(samples[:max_rounds],
-                                          (0, 0, 0, 0, 0, rows - min(max_rounds, len(samples))))
-        init["samples"] = samples[:_FLAG_EVERY]
+        init["samples"] = torch.nn.functional.pad(
+            samples[:max_rounds], (0, 0, 0, 0, 0, rows - min(max_rounds, len(samples))))
     gen = None if samples is not None else generator
-    block = graphs.get(
-        ("rrt", shape, cfg, rc, neighbor_cap, gen is None, _FLAG_EVERY),
-        lambda: _graph.Block(functools.partial(_rrt_block, field=field, cfg=cfg, rc=rc,
-                                               neighbor_cap=neighbor_cap, shape=shape,
-                                               generator=gen),
-                             _graph.buffers(init), generators=() if gen is None else (gen,)),
-    )
+    block = _graph.block_or_chain(
+        graphs, ("rrt", shape, cfg, rc, neighbor_cap, _FLAG_EVERY,
+                 None if samples is None else tuple(init["samples"].shape)),
+        functools.partial(_rrt_block, field=field, cfg=cfg, rc=rc, neighbor_cap=neighbor_cap,
+                          shape=shape, generator=gen),
+        lambda: _graph.buffers(init), _FLAG_EVERY, _CHAIN_RUNS,
+        generators=() if gen is None else (gen,))
     block.load(**init)
-    it = reads = 0
-    while it < max_rounds:
-        reads += 1
-        if not bool(block.static["flag"]):
-            break
-        if samples is not None:
-            block.load(samples=samples[it:it + _FLAG_EVERY])
-        block.run()
-        it += _FLAG_EVERY
+    it, reads = _graph.solve(block, max_rounds, _FLAG_EVERY)
     out = RRTState(**{f: block.static[f].clone() for f in _RRT_FIELDS})
     return out, block.static["rounds"].clone(), it, reads
 

@@ -79,22 +79,27 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def run_tier(blocked: np.ndarray, label: str, particles: int, steps: int, device=None) -> dict:
-    """One tier on `blocked` (bool[H, W]): the JAX tool's JSON record."""
-    dev = entry_device(device)
-    h, w = blocked.shape
-    blocked_t = torch.from_numpy(np.asarray(blocked, bool)).to(dev)
+def tier_config(shape, label: str, particles: int) -> SLAMConfig:
+    """The SLAM configuration of a `--measurement` entry on a map of
+    `shape` (the JAX tool's)."""
     meas, table_box, edt_box = parse_tier(label)
-    lidar = LidarConfig(start=0.0, stop=2 * np.pi, max_dist=500.0, n_rays=90)
-    cfg = SLAMConfig(
+    return SLAMConfig(
         mcl=MCLConfig(n_particles=particles, meas_stddev=5.0, measurement=meas,
                       lf_table_box=table_box),
-        map=MapConfig(height=h, width=w),
-        lidar=lidar,
+        map=MapConfig(height=shape[0], width=shape[1]),
+        lidar=LidarConfig(start=0.0, stop=2 * np.pi, max_dist=500.0, n_rays=90),
         motion=MotionConfig(alphas=ALPHAS),
         raycast=RaycastConfig(step=1.0, max_dist=500.0, backend="sdf"),
         edt_box=edt_box,
     )
+
+
+def run_tier(blocked: np.ndarray, label: str, particles: int, steps: int, device=None) -> dict:
+    """One tier on `blocked` (bool[H, W]): the JAX tool's JSON record."""
+    dev = entry_device(device)
+    blocked_t = torch.from_numpy(np.asarray(blocked, bool)).to(dev)
+    cfg = tier_config(blocked.shape, label, particles)
+    lidar = cfg.lidar
     scan_rc = RaycastConfig(max_dist=500.0)
     sx, sy = find_start(np.asarray(blocked, bool), dev)
     odom = Odometry.create(0.02, 2.0, 0.02)
@@ -142,8 +147,8 @@ def run_tier(blocked: np.ndarray, label: str, particles: int, steps: int, device
     return {"metric": f"maze_slam_step_ms_{particles}", "measurement": label,
             "value": round(pipe * 1e3, 2), "unit": "ms",
             "per_step_fenced_ms": round(per * 1e3, 2), "ate_px": round(float(ate), 2),
-            "map": [h, w], "device": torch.cuda.get_device_name(dev) if dev.type == "cuda"
-            else "cpu"}
+            "map": list(blocked.shape),
+            "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
 
 
 def main(argv=None) -> list:

@@ -11,6 +11,8 @@ code runs eagerly through the same solve loops.
     loop stops: the state equals JAX's `solve` (lattice bit for bit;
     continuous and RRT* to the tolerances of their own tests), the round
     count is JAX's, and every field equals the eager loop's.
+  * Each search runs as single block replays and as chains of blocks
+    (`core/graph.py:Chain`, one host read a chain), to the same result.
 """
 
 import jax
@@ -48,8 +50,8 @@ def test_guard_catches_host_reads():
     assert bool(t.sum()) and t[torch.tensor(1)] == 1
 
 
-def _guarded_cache() -> _graph.Cache:
-    cache = _graph.Cache()
+def _guarded_cache(chain: bool = True) -> _graph.Cache:
+    cache = _graph.Cache(chain=chain)
     cache.guard = no_host_reads
     return cache
 
@@ -64,13 +66,15 @@ def _continuous(backend: str) -> HybridAStar:
                        device="cpu")
 
 
+@pytest.mark.parametrize("chain", [False, True])
 @pytest.mark.parametrize("search", ["lattice", "lattice_many", "continuous_sdf",
                                     "continuous_lut", "continuous_march", "rrt_generator",
                                     "rrt_samples", "astar"])
-def test_blocks_make_no_host_read(search):
+def test_blocks_make_no_host_read(search, chain):
     """Each block runs under `no_host_reads` (the solve loops' own flag reads
-    between blocks are outside it) and gives the eager loop's result."""
-    cache = _guarded_cache()
+    between blocks, and a chain's between its runs on the CPU, are outside
+    it) and gives the eager loop's result, as single blocks and as chains."""
+    cache = _guarded_cache(chain)
     if search.startswith("lattice"):
         p = HybridAStar(WALL, Pose.create(*A), Pose.create(*B), HybridAStarConfig(**BASE),
                         device="cpu")
@@ -137,11 +141,12 @@ def test_fixed_count_sphere_trace_is_bitwise(name, margin):
     assert torch.equal(m0.view(torch.int32), m1.view(torch.int32)) and torch.equal(k0, k1)
 
 
-def _eager_and_blocks(p, solve):
+def _eager_and_blocks(p, solve, chain: bool):
     """(eager result, block result): each a dict of the state's fields and
-    the counters, the same query from a fresh start."""
+    the counters, the same query from a fresh start; the blocks single or
+    chained."""
     out = []
-    for graphs in (None, _guarded_cache()):
+    for graphs in (None, _guarded_cache(chain)):
         p.reset_query(*p._query)
         solve(p, graphs)
         out.append({"state": p.state, "rounds": p.rounds, "launched": p.launched,
@@ -149,24 +154,27 @@ def _eager_and_blocks(p, solve):
     return out
 
 
+@pytest.mark.parametrize("chain", [False, True])
 @pytest.mark.parametrize("mode, max_rounds", [("lattice", 5), ("lattice", 9),
                                               ("continuous", 6), ("continuous", 9)])
-def test_hastar_cut_inside_a_block_matches_jax(mode, max_rounds):
+def test_hastar_cut_inside_a_block_matches_jax(mode, max_rounds, chain):
     """`max_rounds` ends the search inside a block: the state is JAX's
     `solve(max_rounds)`'s, the rounds the JAX loop's (two a lattice
-    iteration), and every field, round and host read the eager loop's;
-    the blocks launch whole blocks."""
+    iteration), and every field and round the eager loop's; the blocks
+    launch whole blocks. Single blocks make the eager loop's host reads;
+    a chain makes one where the eager loop reads before each block."""
     over = {} if mode == "lattice" else {"mode": "continuous", "theta_res": 8}
     jp, tp = _pair(WALL, A, B, **over)
     assert not jp.solve(max_rounds)
     tp._query = (Pose.create(*A), Pose.create(*B))
-    eager, blocks = _eager_and_blocks(tp, lambda p, g: p._solve(max_rounds, g))
+    eager, blocks = _eager_and_blocks(tp, lambda p, g: p._solve(max_rounds, g), chain)
     fields = LAT_FIELDS if mode == "lattice" else HA_FIELDS
     for f in fields:
         assert torch.equal(getattr(blocks["state"], f), getattr(eager["state"], f)), f
     iters = -(-max_rounds // 2) if mode == "lattice" else max_rounds
     assert blocks["rounds"] == eager["rounds"] == (2 * iters if mode == "lattice" else iters)
-    assert blocks["host_reads"] == eager["host_reads"]
+    loop_reads = -(-iters // th._FLAG_EVERY)  # the eager loop's, one a block
+    assert blocks["host_reads"] == eager["host_reads"] - (loop_reads - 1 if chain else 0)
     assert eager["launched"] == iters
     assert blocks["launched"] == -(-iters // th._FLAG_EVERY) * th._FLAG_EVERY
     st = blocks["state"]
@@ -181,8 +189,9 @@ def test_hastar_cut_inside_a_block_matches_jax(mode, max_rounds):
                                        rtol=1e-4, atol=1e-4, err_msg=f)
 
 
+@pytest.mark.parametrize("chain", [False, True])
 @pytest.mark.parametrize("max_rounds, min_nodes", [(3, 0), (13, 1000)])
-def test_rrt_cut_inside_a_block_matches_jax(max_rounds, min_nodes):
+def test_rrt_cut_inside_a_block_matches_jax(max_rounds, min_nodes, chain):
     """RRT* with JAX's draws injected and `max_rounds` inside a block: the
     tree is JAX's `solve(max_rounds)`'s (exact topology, coordinates and
     costs to `tests/test_torch_rrtstar.py`'s tolerances), the rounds
@@ -199,11 +208,12 @@ def test_rrt_cut_inside_a_block_matches_jax(max_rounds, min_nodes):
     tp = RRTStar(WALL, RRT_A, RRT_B, RRTStarConfig(**KW), seed=seed, device="cpu")
     tp._query = (RRT_A, RRT_B, seed)
     eager, blocks = _eager_and_blocks(tp, lambda p, g: p._solve(max_rounds, min_nodes, samples,
-                                                                 g))
+                                                                 g), chain)
     for f in trrt._RRT_FIELDS:
         assert torch.equal(getattr(blocks["state"], f), getattr(eager["state"], f)), f
     assert blocks["rounds"] == eager["rounds"] == max_rounds
-    assert blocks["host_reads"] == eager["host_reads"]
+    loop_reads = -(-max_rounds // trrt._FLAG_EVERY)
+    assert blocks["host_reads"] == eager["host_reads"] - (loop_reads - 1 if chain else 0)
     assert blocks["launched"] == -(-max_rounds // trrt._FLAG_EVERY) * trrt._FLAG_EVERY
     st = blocks["state"]
     assert int(st.size) == int(jp.state.size)
@@ -215,7 +225,7 @@ def test_rrt_cut_inside_a_block_matches_jax(max_rounds, min_nodes):
     np.testing.assert_allclose(np_(st.cost), np_(jp.state.cost), rtol=1e-5)
     # The generator: the block path stands the block's remaining draws on.
     gens = []
-    for graphs in (None, _graph.Cache()):
+    for graphs in (None, _graph.Cache(chain=chain)):
         tp.reset_query(RRT_A, RRT_B, seed)
         tp._solve(max_rounds, min_nodes, None, graphs)
         gens.append(tp.generator.get_state())

@@ -9,8 +9,8 @@ same block code runs eagerly through the same entry points.
   * Every block runs under `no_host_reads` (a host read would be a sync
     on the card, which a capture cannot hold).
   * A state that a step returned is unchanged after the next step.
-  * The auto measurement tier computes one tier, and its weights match
-    JAX's `lax.cond` route.
+  * The auto measurement tier branches under `cond` with no host read,
+    to the forced tier's weights, and they match JAX's `lax.cond` route.
 """
 
 import math
@@ -193,12 +193,14 @@ def _slam_cfg(**over):
         raycast=tc.RaycastConfig(step=1.0, max_dist=60.0, backend="sdf"), **over)
 
 
-@pytest.mark.parametrize("case", ["table_resample4_map2", "scanmatch"])
+@pytest.mark.parametrize("case", ["table_resample4_map2", "scanmatch", "edt_box"])
 def test_grid_slam_equals_free_functions(case):
     """`GridSLAM.step` (a block per phase of the resample and map gates)
-    and `GridSLAM.predict` against `slam.step` / `slam.predict_only`."""
-    over = (dict(map_every=2, map_pose="mode") if case == "table_resample4_map2" else
-            dict(scanmatch=tc.ScanMatchConfig(), mcl={"resample_every": 1}))
+    and `GridSLAM.predict` against `slam.step` / `slam.predict_only`; with
+    `edt_box` the refresh's branch is a `cond` inside the block."""
+    over = {"table_resample4_map2": dict(map_every=2, map_pose="mode"),
+            "scanmatch": dict(scanmatch=tc.ScanMatchConfig(), mcl={"resample_every": 1}),
+            "edt_box": dict(map_every=2, edt_box=80)}[case]
     cfg = _slam_cfg(**over)
     blocked = torch.from_numpy(room(H, W))
     eng = tslam.GridSLAM(cfg, seed=2, device="cpu")
@@ -221,6 +223,9 @@ def test_grid_slam_equals_free_functions(case):
     assert bool((st.grid != 0).any())
     phases = {k[3] for k in eng.graphs.cache.blocks if k[0][0] == "step"}
     assert phases == ({(0, 0), (1, 1), (2, 0), (3, 1)} if case != "scanmatch" else {(0, 0)})
+    if case == "edt_box":
+        np.testing.assert_array_equal(
+            np_(st.edt), np_(tslam.rebuild_edt(st, cfg).edt))
 
 
 def test_fleet_equals_free_function():
@@ -246,11 +251,12 @@ def test_fleet_equals_free_function():
 
 @pytest.mark.parametrize("cloud", ["converged", "dispersed"])
 def test_auto_update_computes_one_tier_like_lax_cond(cloud, monkeypatch):
-    """`MCL.update` with likelihood_field_auto reads its predicate once and
-    calls one tier's measurement: the weights equal the forced tier's bit
-    for bit, and JAX's `lax.cond` route within test_torch_mcl.py's rtol
-    1e-5 / atol 1e-3 (no resample: ess_threshold 0). The free function
-    calls one tier too."""
+    """`MCL.update` with likelihood_field_auto branches on its predicate
+    under `core/graph.py:cond` (JAX's `lax.cond`) with no host read: on the
+    CPU the cond runs both tiers' measurements and selects, and the weights
+    equal the tier the predicate picks, forced, bit for bit, and JAX's
+    `lax.cond` route within test_torch_mcl.py's rtol 1e-5 / atol 1e-3 (no
+    resample: ess_threshold 0). The free function too, under the guard."""
     jfield, tfield = _sdf_fields()
     rc_j = jc.RaycastConfig(step=1.0, max_dist=60.0, backend="sdf")
     rc_t = tc.RaycastConfig(step=1.0, max_dist=60.0, backend="sdf")
@@ -273,16 +279,17 @@ def test_auto_update_computes_one_tier_like_lax_cond(cloud, monkeypatch):
     eng = tmcl.MCL(auto_cfg, rc_t, device="cpu")
     eng.graphs.guard = no_host_reads
     got = eng.update(start(), t_scan(scan), tfield)
-    assert eng.graphs.host_reads == 1
-    tier = {"likelihood_field_table": "particle_log_weights_lf_table",
-            "likelihood_field": "particle_log_weights_likelihood_field"}[want]
-    assert calls == [tier]
+    both = ["particle_log_weights_lf_table", "particle_log_weights_likelihood_field"]
+    assert calls == both
+    assert bool(tmcl.auto_converged(start().particles.pose, tfield, auto_cfg)) == (
+        cloud == "converged")
     forced = tmcl.update(start(), t_scan(scan), tfield, tc.MCLConfig(measurement=want, **base),
                          rc_t)
     _assert_same(got, forced, "auto vs forced tier")
     calls.clear()
-    free = tmcl.update(start(), t_scan(scan), tfield, auto_cfg, rc_t)
-    assert calls == [tier]
+    with no_host_reads():
+        free = tmcl.update(start(), t_scan(scan), tfield, auto_cfg, rc_t)
+    assert calls == both
     _assert_same(free, forced, "free auto vs forced tier")
 
     st = jmcl.init(jax.random.key(0), 64, JPose.create(40.0, 40.0, 0.3))
