@@ -9,7 +9,9 @@ kidnap recovery, scan matching and the per-particle-map RBPF; the maze
 through the compressed ray table (CDDT), the multi-robot fleet through one
 batched launch of the fused kernel, and the apps; each filter step as one
 CUDA graph replay through its entry point against the eager step, with
-the JAX package's device branches as CUDA graph conditional nodes.
+the JAX package's device branches as CUDA graph conditional nodes, the
+RBPF and the sharded engines' steps too; and the counterpart of
+`__graft_entry__.py`.
 
     python3 chip_smoke.py
 
@@ -115,9 +117,10 @@ raises, so the exit code is nonzero):
               the integer argmax), coarse level off and on; the 1M SLAM
               step with ScanMatchConfig() under the sync check
  19. rbpf       `tools/rbpf_fidelity.py`'s configuration at 1000 particles
-              (777 MB of u8 maps), 30 steps: ATE, ms/step, peak memory,
-              profile; one N = 8 step card vs CPU (maps bit for bit,
-              weights 1e-5, best_map_idx)
+              (777 MB of u8 maps), 30 steps through `RBPF.step`'s CUDA
+              graph: ATE, ms/step, peak memory, profile, the graph's
+              capture ms and pool; one N = 8 step card vs CPU (maps bit for
+              bit, weights 1e-5, best_map_idx)
  20. maze       `benchmarks/maze_bench.py` through the port's tool: the 2400
               px procedural maze's CDDT built on the card == the CPU's build
               bit for bit (K > 64: binary search), the dense u8 table beside
@@ -143,7 +146,15 @@ raises, so the exit code is nonzero):
               (phase 9's configuration, shard_bench's) == GridSLAM over 8
               steps and ShardedMCL at 1M through the fused route ==
               mcl.step, bit for bit; systematic_resample_sharded at 1M vs
-              the plain resampler with the same u0. (b) Worlds of 2 and 4
+              the plain resampler with the same u0; each sharded engine
+              (ShardedMCL at 1M through the fused route, ShardedGridSLAM and
+              MapShardedGridSLAM at 1M, ShardedMCLFleet 16 x 100k) through
+              its CUDA graph (the collectives captured as NCCL kernels)
+              against the eager free functions, 8 steps, bit for bit and in
+              the collectives counted, graph and eager ms, device ms and
+              host-issued calls a step; a psum inside a CUDA graph IF body
+              (the sharded auto tier's shape), its values and counts.
+              (b) Worlds of 2 and 4
               ranks sharing the card over gloo (`python3 chip_smoke.py
               --parallel-rank DIR` is one rank; each world has a wall-clock
               limit and every rank's exit code is checked): the fused
@@ -172,7 +183,9 @@ raises, so the exit code is nonzero):
               likelihood_field_table:128:e1024 at 10k on the 2400 px maze,
               the auto-tier MCL.step at 1M on a converged and a dispersed
               cloud, the fleet's auto step at 16 x 100k and the 1M tracking
-              step with ess_threshold 0.5 (what each step chose, counted):
+              step with ess_threshold 0.5 (what each step chose, counted);
+              the RBPF at 1000 maps (`RBPF.step`, at most RBPF_HOST_CALLS
+              host-issued calls a step):
               20 steps each with a new odometry and scan at each, every
               replay under set_sync_debug_mode("error"), graph == eager
               bit for bit after every step (states, counters, generators)
@@ -184,6 +197,12 @@ raises, so the exit code is nonzero):
               collector off (an earlier graph freed during a capture
               would lose it), which an earlier block's cyclic garbage
               outlives
+ 26. entry      `slam_tpu_torch/entry.py` (the counterpart of
+              `__graft_entry__.py`): `entry()`'s SLAM step on the card
+              through a CUDA graph == eager bit for bit, timed both ways;
+              `dryrun_multichip(2)` and `(4)` at once as ranks sharing the
+              card (gloo): every rank exits 0 with finite states in every
+              layout, the HA* results of the queries over 'p'
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device; without one it
@@ -327,6 +346,9 @@ SM_ITERS = 10
 RBPF_PARTICLES = 1000
 RBPF_STEPS = 30
 RBPF_ATE_PX = 5.0
+# Phase 25: host-issued calls a graphed RBPF step may make (the replay, the
+# odometry's copy, the graph-safe RNG's fills, the state's copies out).
+RBPF_HOST_CALLS = 10
 # Phase 20: `benchmarks/maze_bench.py` through the port's tool on its
 # procedural maze (MAZE_SIZE px, walls every MAZE_PITCH) and its
 # beyond-memory demo (BIG_SIZE, BIG_PITCH), 10k particles, 60 ATE steps.
@@ -361,6 +383,11 @@ GRAPH_STEPS = 20
 EDT_STILL = 6
 GRAPH_ITERS = 20
 GRAPH_PROFILE = 5
+# Phase 26: `entry()`'s steps compared graph against eager; the dryrun
+# worlds (ranks sharing the card) and their wall clock each.
+ENTRY_STEPS = 4
+ENTRY_WORLDS = (2, 4)
+ENTRY_DRYRUN_LIMIT_S = 300.0
 # Phase 22: the apps. GRID_SLAM_ATE_PX is the JAX app test's bound
 # (`tests/test_apps.py:27`); the checkpoint runs take CKPT_STEPS steps.
 GRID_SLAM_ATE_PX = 30.0
@@ -1417,6 +1444,7 @@ def autotier_phase(dev, slam_scans, slam_odom, counts) -> dict:
     predicate read outside it; each tier's step profiled, and mcl.update
     with each of the three measurements timed on the same states."""
     from slam_tpu_torch.core import grid as gridlib
+    from slam_tpu_torch.entry import state_difference
     from slam_tpu_torch.core.types import Pose
     from slam_tpu_torch.models import mcl as mcl_mod
     from slam_tpu_torch.models import slam as slam_mod
@@ -1683,16 +1711,41 @@ def scanmatch_phase(dev, blocked_np, slam_scans, slam_odom, counts, slam_med) ->
                                             float(st.est_pose.y - st.mcl.best_pose.y))}
 
 
+def rbpf_config():
+    """`tools/rbpf_fidelity.py:50-80`'s configuration at RBPF_PARTICLES maps:
+    (cfg, rc, lidar)."""
+    from slam_tpu_torch.core.config import LidarConfig, MCLConfig, RaycastConfig
+
+    return (MCLConfig(n_particles=RBPF_PARTICLES, meas_stddev=5.0,
+                      scanner_offset=(0.0, 30.0, 0.0), resample="systematic"),
+            RaycastConfig(step=0.5, max_dist=500.0, backend="march"),
+            LidarConfig(start=0.0, stop=2 * math.pi, max_dist=500.0, n_rays=90))
+
+
+def rbpf_start(blocked_np):
+    """(the RBPF tool's start (x, y): the canvas center, or the nearest free
+    cell when that is blocked; which of the two)."""
+    from slam_tpu_torch.core import grid as gridlib
+
+    h, w = blocked_np.shape
+    ci, cj = gridlib.world_to_cell((h, w), torch.tensor(w / 2.0), torch.tensor(h / 2.0))
+    ci, cj = int(ci), int(cj)
+    if not blocked_np[ci, cj]:
+        return (w / 2.0, h / 2.0), "the canvas center (free)"
+    free = np.argwhere(~blocked_np)
+    ci, cj = (int(v) for v in free[np.argmin((free[:, 0] - ci) ** 2 + (free[:, 1] - cj) ** 2)])
+    return (float(cj) + 0.5, float(h - ci) - 1.5), "the nearest free cell"
+
+
 def rbpf_phase(dev, blocked_np, counts) -> dict:
     """Phase 19: `tools/rbpf_fidelity.py:50-80` at full width (RBPF_PARTICLES
     maps of the floor plan, offset (0, 30, 0), step 0.5, max_dist 500, 90
     rays over 2 pi, systematic) along the deterministic wander (0.01, 2.5,
     0.01) from the canvas center (or the nearest free cell), RBPF_STEPS
-    steps; then one step at N = 8 on the card against the CPU's, with the
+    steps through `RBPF.step` (one CUDA graph replay a step; the first
+    captures it); then one step at N = 8 on the card against the CPU's, with the
     card's K1 poses and u0 injected on the CPU: maps bit for bit, weights
     within a relative 1e-5, the same best_map_idx."""
-    from slam_tpu_torch.core import grid as gridlib
-    from slam_tpu_torch.core.config import LidarConfig, MCLConfig, RaycastConfig
     from slam_tpu_torch.core.types import Odometry, Pose
     from slam_tpu_torch.models import fake_lidar
     from slam_tpu_torch.models import rbpf
@@ -1703,18 +1756,8 @@ def rbpf_phase(dev, blocked_np, counts) -> dict:
     reset_counts, read_counts = counts
     blocked = torch.from_numpy(blocked_np).to(dev)
     h, w = blocked_np.shape
-    cfg = MCLConfig(n_particles=RBPF_PARTICLES, meas_stddev=5.0, scanner_offset=(0.0, 30.0, 0.0),
-                    resample="systematic")
-    rc = RaycastConfig(step=0.5, max_dist=500.0, backend="march")
-    lidar = LidarConfig(start=0.0, stop=2 * math.pi, max_dist=500.0, n_rays=90)
-    ci, cj = gridlib.world_to_cell((h, w), torch.tensor(w / 2.0), torch.tensor(h / 2.0))
-    ci, cj = int(ci), int(cj)
-    if blocked_np[ci, cj]:
-        free = np.argwhere(~blocked_np)
-        ci, cj = (int(v) for v in free[np.argmin((free[:, 0] - ci) ** 2 + (free[:, 1] - cj) ** 2)])
-        start_xy, where = (float(cj) + 0.5, float(h - ci) - 1.5), "the nearest free cell"
-    else:
-        start_xy, where = (w / 2.0, h / 2.0), "the canvas center (free)"
+    cfg, rc, lidar = rbpf_config()
+    start_xy, where = rbpf_start(blocked_np)
     odom = Odometry.create(0.01, 2.5, 0.01)
     gt = [*start_xy, math.pi / 2]
     truths, scans = [], []
@@ -1741,7 +1784,10 @@ def rbpf_phase(dev, blocked_np, counts) -> dict:
         est.append(torch.stack([mp.x, mp.y]))
     torch.cuda.synchronize()
     c = read_counts()
-    check(c["motion_odometry"] == RBPF_STEPS, f"RBPF K1 launches {c} != {RBPF_STEPS} steps")
+    # One K1 launch a step: a replay counts its capture's, and the capture's
+    # warm-up (step 1) its own.
+    want = RBPF_STEPS + warmup_counts()["motion_odometry"]
+    check(c["motion_odometry"] == want, f"RBPF K1 launches {c} != {want}")
     peak = torch.cuda.max_memory_allocated(dev)
     ms = [a.elapsed_time(b) for a, b in step_ms]
     est_np = torch.stack(est).cpu().numpy().astype(np.float64)
@@ -1758,7 +1804,8 @@ def rbpf_phase(dev, blocked_np, counts) -> dict:
     out = {"particles": RBPF_PARTICLES, "maps_mb": RBPF_PARTICLES * h * w / 1e6, "start": where,
            "start_xy": list(start_xy), "steps": RBPF_STEPS, "ate_px": ate,
            "ms_per_step": spread(ms[2:]), "first_steps_ms": ms[:2],
-           "peak_memory_gb": peak / 1e9, **step_profile(advance, iters=3), "launches": c}
+           "peak_memory_gb": peak / 1e9, **step_profile(advance, iters=3), "launches": c,
+           "graphs": engine.graphs.stats()}
     say("rbpf", json.dumps(out))
 
     # One step at N = 8: the card against the CPU.
@@ -2348,6 +2395,10 @@ PAR_RESAMPLE_SHARE = 1e-3
 PAR_EST_RTOL = 1e-5
 PAR_FLEET = (16, 100_000)
 PAR_MAZE_PARTICLES = 10_000
+# Phase 23(a)'s graph and eager routes of each engine: steps a timed turn
+# (two turns a way) and steps profiled a way.
+PAR_ROUTE_ITERS = 10
+PAR_ROUTE_PROFILE = 3
 
 
 def par_close(a, b, rtol=PAR_EST_RTOL) -> float:
@@ -2543,11 +2594,177 @@ def parallel_world1(dev, counts) -> dict:
               and red["beam_sum_bitwise"],
               f"world 1: a sharded reduction over NCCL differs from its plain one: {red}")
         out["reductions_1m"] = red
+        out["graph_routes"], route_launches = par_graph_routes(dev, mesh, counts)
+        for k, v in route_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        out["cond_collective_probe"] = par_cond_probe(dev, mesh)
     finally:
         distributed.shutdown()
         shutil.rmtree(store, ignore_errors=True)
     out["launches"] = launches
     return out
+
+
+def par_graph_routes(dev, mesh, counts):
+    """(a) Each sharded engine over the world-1 NCCL mesh through its
+    `StepGraphs` (one CUDA graph replay a step, every warm-up and replay
+    under set_sync_debug_mode("error")) against the eager free functions
+    from the same start, PAR_SLAM_STEPS steps with a new odometry and scan
+    at each: equal bit for bit after every step (tensors, counters,
+    generators) with the same collectives counted (a replay adds what its
+    capture recorded); then ms a step each way in turns, and the profile
+    of PAR_ROUTE_PROFILE steps a way (device ms, kernels and host-issued
+    calls a step). Returns (the cases, the launches of the compared
+    steps)."""
+    from slam_tpu_torch.entry import clone_state, state_difference
+    from slam_tpu_torch.models import fleet as fleet_mod
+    from slam_tpu_torch.models import mcl as mcl_mod
+    from slam_tpu_torch.models import slam as slam_mod
+    from slam_tpu_torch.core.types import Odometry, Scan
+    from slam_tpu_torch.parallel import ShardedGridSLAM, ShardedMCL, ShardedMCLFleet
+    from slam_tpu_torch.parallel import _collectives, shard_state
+    from slam_tpu_torch.parallel.mapshard import MapShardedGridSLAM
+    from slam_tpu_torch.parallel.sharded import _resample_fn
+    from slam_tpu_torch.tools import fleet_bench
+
+    reset_counts, read_counts = counts
+    blocked, field, rc, cfg, scan, pose0, odom, alphas = par_mcl_setup(dev)
+    n = cfg.n_particles
+    scfg, sodom, scans, spose = par_slam_setup(dev, blocked)
+    steps = PAR_SLAM_STEPS
+    mcl_odom = [Odometry.create(2.5 + 0.001 * k, 0.02, 0.02) for k in range(steps)]
+    slam_odom = [Odometry.create(0.02 + 0.001 * k, 2.5, 0.02) for k in range(steps)]
+    m = ShardedMCL(mesh, cfg, rc)
+    eng = ShardedGridSLAM(mesh, scfg)
+    ms = MapShardedGridSLAM(mesh, scfg)
+    s_rfn = _resample_fn(mesh, scfg.mcl)
+    r_all, n_fl = PAR_FLEET
+    lidar_f, rc_f, cfg_f = fleet_bench.configs(n_fl)
+    poses, fodoms, fscans = fleet_bench.fleet_inputs(blocked, r_all, lidar_f, cfg_f,
+                                                     np.random.default_rng(7))
+    sf = ShardedMCLFleet(mesh, r_all, cfg_f, rc_f, seed=0)
+    f_odom = [Odometry(*(v + 0.001 * k for v in (fodoms.rot1, fodoms.trans, fodoms.rot2)))
+              for k in range(steps)]
+    f_scans = [Scan(angles=fscans.angles, dists=torch.roll(fscans.dists, k, 0))
+               for k in range(steps)]
+    cases = {
+        "ShardedMCL_1m_fused": dict(
+            graphs=m.graphs,
+            init=lambda: shard_state(mcl_mod.init(mcl_mod.make_generator(0, dev), n, pose0),
+                                     mesh, n),
+            graph=lambda s, k: m.step(s, mcl_odom[k], alphas, scan, field),
+            eager=lambda s, k: mcl_mod.step(s, mcl_odom[k], alphas, scan, field, cfg, rc,
+                                            ray_sharding=m.sharding, resample_fn=m._rfn)),
+        "ShardedGridSLAM_1m": dict(
+            graphs=eng.graphs, init=lambda: eng.init(spose),
+            graph=lambda s, k: eng.step(s, slam_odom[k], scans[k % 2]),
+            eager=lambda s, k: slam_mod.step(s, slam_odom[k], scans[k % 2], scfg,
+                                             ray_sharding=eng.sharding, resample_fn=s_rfn)),
+        "MapShardedGridSLAM_1m": dict(
+            graphs=ms.graphs, init=lambda: ms.init(spose),
+            graph=lambda s, k: ms.step(s, slam_odom[k], scans[k % 2]),
+            eager=lambda s, k: ms.eager_step(s, slam_odom[k], scans[k % 2])),
+        f"ShardedMCLFleet_{r_all}x{n_fl // 1000}k": dict(
+            graphs=sf.graphs, init=lambda: sf.init(poses),
+            graph=lambda s, k: sf.step(s, f_odom[k], f_scans[k], field, fleet_bench.ALPHAS),
+            eager=lambda s, k: fleet_mod.fleet_step(s, f_odom[k], f_scans[k], field,
+                                                    fleet_bench.ALPHAS, cfg_f, rc_f)),
+    }
+    out, launches = {}, {}
+    for name, c in cases.items():
+        g = c["graphs"]
+        g.guard = sync_error
+        a = c["init"]()
+        b = clone_state(a)
+        reset_counts()
+        per_step = []
+        for k in range(steps):
+            _collectives.reset_counts()
+            made = len(g.cache.blocks)
+            a = c["graph"](a, k)
+            ca = _collectives.counts()
+            # A step that made a block ran its warm-up (one eager step) too.
+            runs = 1 + len(g.cache.blocks) - made
+            _collectives.reset_counts()
+            b = c["eager"](b, k)
+            cb = _collectives.counts()
+            diff = state_difference(a, b)
+            check(diff is None, f"world 1: {name} step {k}: graph != eager ({diff})")
+            want = {key: v if key == "largest_all_gather" else runs * v for key, v in cb.items()}
+            check(ca == want, f"world 1: {name} step {k}: collectives graph {ca} != "
+                  f"{runs} x eager {cb}")
+            per_step.append(cb)
+        box = {"graph": [a, 0], "eager": [b, 0]}
+
+        def advance(way):
+            bx = box[way]
+            bx[0] = c[way](bx[0], bx[1] % steps)
+            bx[1] += 1
+
+        ms_ = {"graph": [], "eager": []}
+        for _ in range(2):
+            for way in ("graph", "eager"):
+                torch.cuda.synchronize()
+                ms_[way].append(event_ms(lambda: [advance(way) for _ in range(PAR_ROUTE_ITERS)])
+                                / PAR_ROUTE_ITERS)
+        res = {}
+        for way in ("graph", "eager"):
+            prof = planner_profile(lambda: [advance(way) for _ in range(PAR_ROUTE_PROFILE)])
+            res[way] = {"ms_per_step": spread(ms_[way]),
+                        "device_ms_per_step": prof["device_ms_per_solve"] / PAR_ROUTE_PROFILE,
+                        "kernels_per_step": prof["launches_per_solve"] / PAR_ROUTE_PROFILE,
+                        "host_issued_per_step":
+                            prof["host_issued_per_solve"] / PAR_ROUTE_PROFILE}
+        torch.cuda.synchronize()
+        for k, v in read_counts().items():  # the compared, timed and profiled steps
+            launches[k] = launches.get(k, 0) + v
+        stats = g.stats()
+        res.update(graph_equals_eager=True, steps=steps, collectives_per_step=per_step[-1],
+                   capture_ms=sum(b_["capture_ms"] for b_ in stats["blocks"].values()),
+                   pool_bytes=sum(b_["pool_bytes"] for b_ in stats["blocks"].values()),
+                   blocks=len(stats["blocks"]))
+        g.guard = contextlib.nullcontext
+        out[name] = res
+        say("parallel", f"world 1 NCCL {name}: graph == eager bit for bit over {steps} steps; "
+            f"{json.dumps(res)}")
+        del a, b, box
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def par_cond_probe(dev, mesh) -> dict:
+    """(a) A collective inside a CUDA graph conditional body over NCCL (the
+    sharded auto tier's shape: `mcl._weigh`'s cond, whose table branch
+    reduces over the mesh): a block whose `cond` sums over 'p' on one
+    branch, captured and replayed twice with the branch taken and once
+    with it skipped. The sums are right, and the collectives counted
+    (the warm-up's on the host, the body's on the device) are the ones
+    that ran."""
+    from slam_tpu_torch.core import graph as graphlib
+    from slam_tpu_torch.parallel import _collectives
+
+    pax = mesh.axis("p")
+    x = torch.arange(1024, dtype=torch.float32, device=dev)
+
+    def fn(v):
+        return {"x": graphlib.cond(v["p"], lambda a: pax.psum(a) * 2, lambda a: a - 1, v["x"])}
+
+    blk = graphlib.Block(fn, {"x": x.clone(), "p": torch.ones((), dtype=torch.bool, device=dev)},
+                         guard=sync_error)
+    _collectives.reset_counts()
+    blk.run()
+    blk.run()
+    blk.static["p"].fill_(False)
+    blk.run()
+    torch.cuda.synchronize()
+    got = _collectives.counts()
+    right = bool(torch.equal(blk.static["x"], x * 4 - 1))
+    # The warm-up ran both branches (one psum), the two replays the branch.
+    check(right and got["calls"] == 3 and got["all_reduce"] == 3 * 1024 and blk.if_nodes == 2,
+          f"world 1: a psum inside an IF body: values right {right}, counted {got}, "
+          f"{blk.if_nodes} IF nodes")
+    return {"accepted": True, "values_right": right, "if_nodes": blk.if_nodes,
+            "collectives_counted": got, "backend": mesh.backend, "world": 1}
 
 
 def par_rank_main(outdir: str) -> None:
@@ -2869,33 +3086,6 @@ def warmup_counts() -> dict:
             "lut_weights": lut_weights_cuda.launch.warmup_launches}
 
 
-def state_difference(a, b):
-    """The first field where two filter states differ (their tensors bit
-    for bit, their counters, their generators' states), or None."""
-    from slam_tpu_torch.models import _graph
-
-    la, ha, lb, hb = {}, {}, {}, {}
-    _graph._flatten(a, "", la, ha)
-    _graph._flatten(b, "", lb, hb)
-    if la.keys() != lb.keys():
-        return "layout"
-    for k, x in la.items():
-        y = lb[k]
-        if x.shape != y.shape:
-            return f"{k} shape"
-        if x.dtype == torch.float32:
-            x, y = x.view(torch.int32), y.view(torch.int32)
-        if not torch.equal(x, y):
-            return k
-    for k, v in ha.items():
-        if _graph._is_count(v) and hb[k] != v:
-            return k
-    for g, h in zip(_graph.generators(ha), _graph.generators(hb)):
-        if not torch.equal(g.get_state(), h.get_state()):
-            return "generator state"
-    return None
-
-
 def capture_gc_check(dev) -> dict:
     """A block's capture runs with the garbage collector off, and turns it
     back on after: a collection that frees an earlier block's graph during
@@ -2965,6 +3155,7 @@ def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
         SLAMConfig, beam_bin_stride,
     )
     from slam_tpu_torch.core.types import Odometry, Pose, Scan
+    from slam_tpu_torch.entry import state_difference
     from slam_tpu_torch.models import fake_lidar, fleet
     from slam_tpu_torch.models import mcl as mcl_mod
     from slam_tpu_torch.models import slam as slam_mod
@@ -3227,6 +3418,27 @@ def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
                                          es_cfg, rc),
         observe=resampled)
 
+    # The RBPF at phase 19's RBPF_PARTICLES maps of the plan (777 MB of u8
+    # maps), along a wander whose odometry changes at each step.
+    from slam_tpu_torch.models import rbpf
+
+    rb_cfg, rb_rc, rb_lidar = rbpf_config()
+    rb_xy, _ = rbpf_start(blocked_np)
+    rb_odom = odoms((0.01, 2.5, 0.01), (0.001, 0.0, -0.0005))
+    gt, rb_scans = [*rb_xy, math.pi / 2], []
+    for o in rb_odom:
+        th1 = gt[2] + float(o.rot1)
+        gt = [gt[0] + float(o.trans) * math.cos(th1), gt[1] + float(o.trans) * math.sin(th1),
+              th1 + float(o.rot2)]
+        rb_scans.append(fake_lidar.scan(blocked, measurement.sensor_pose(
+            Pose.create(*gt, device=dev), rb_cfg.scanner_offset), rb_lidar, rb_rc))
+    rb_eng = rbpf.RBPF(rb_cfg, rb_rc, seed=0, device=dev)
+    cases["rbpf_1000"] = dict(
+        graphs=rb_eng.graphs,
+        init=lambda: rb_eng.init(Pose.create(*rb_xy, math.pi / 2), blocked_np.shape),
+        graph=lambda st, k: rb_eng.step(st, rb_odom[k], rb_scans[k]),
+        eager=lambda st, k: rbpf.step(st, rb_odom[k], rb_scans[k], rb_cfg, rb_rc))
+
     # torch's own IF-node API decides the route: where it is missing (torch
     # 2.11) the conditional nodes go through `csrc/graph_cond.cu`.
     import importlib.util
@@ -3345,7 +3557,75 @@ def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
     check(set(tiers) | set(out["cases"]["auto_step_1m_converged"]["chose"]) == {"table", "direct"},
           f"graphs: the auto steps took tiers {tiers}: both must run")
     out["edt_refresh_branches"] = branches
+    rb = out["cases"]["rbpf_1000"]["graph"]["host_issued_per_step"]
+    check(rb <= RBPF_HOST_CALLS, f"graphs rbpf_1000: {rb} host-issued calls a step > "
+          f"{RBPF_HOST_CALLS}")
     out["launches"] = launches
+    return out
+
+
+def entry_phase(dev, counts) -> dict:
+    """Phase 26: `slam_tpu_torch/entry.py`, the counterpart of
+    `__graft_entry__.py`. `entry()` on the card: ENTRY_STEPS chained steps
+    of its step function through `StepGraphs` (one CUDA graph replay a
+    step, every warm-up and replay under set_sync_debug_mode("error"))
+    against the eager step from a cloned state, equal bit for bit after
+    every step; then `dryrun_multichip(2)` and `dryrun_multichip(4)` at
+    once, as ranks sharing the card (gloo), each rank one process: every
+    rank exits 0 with finite states, the ranks of a world report the same
+    HA* results, and the two worlds agree on their common queries."""
+    import concurrent.futures
+
+    from slam_tpu_torch import entry as entry_mod
+    from slam_tpu_torch.models._graph import StepGraphs
+
+    reset_counts, read_counts = counts
+    t0 = time.perf_counter()
+    reset_counts()
+    fn, (state, odom, scan) = entry_mod.entry()
+    graphs = StepGraphs()
+    graphs.guard = sync_error
+    a, b = state, entry_mod.clone_state(state)
+    for k in range(ENTRY_STEPS):
+        a = graphs.run(fn, a, odom, scan)
+        b = fn(b, odom, scan)
+        diff = entry_mod.state_difference(a, b)
+        check(diff is None, f"entry: step {k}: graph != eager on the card ({diff})")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    box = {"graph": a, "eager": b}
+
+    def advance(way):
+        box[way] = (graphs.run(fn, box[way], odom, scan) if way == "graph"
+                    else fn(box[way], odom, scan))
+
+    ms = {"graph": [], "eager": []}
+    for _ in range(2):
+        for way in ("graph", "eager"):
+            torch.cuda.synchronize()
+            ms[way].append(event_ms(lambda: [advance(way) for _ in range(GRAPH_ITERS)])
+                           / GRAPH_ITERS)
+    graphs.guard = contextlib.nullcontext
+    out = {"steps": ENTRY_STEPS, "graph_equals_eager": True,
+           "ms_per_step": {w: spread(v) for w, v in ms.items()},
+           "capture_ms": sum(blk["capture_ms"] for blk in graphs.stats()["blocks"].values())}
+    with concurrent.futures.ThreadPoolExecutor(len(ENTRY_WORLDS)) as pool:
+        runs = {n: pool.submit(entry_mod.dryrun_multichip, n, timeout_s=ENTRY_DRYRUN_LIMIT_S)
+                for n in ENTRY_WORLDS}
+        worlds = {n: r.result() for n, r in runs.items()}
+    for n, r in worlds.items():
+        for rank in r["ranks"]:
+            check([tuple(v) for v in rank["hastar"]] == r["hastar"],
+                  f"entry: dryrun world {n}: rank {rank['rank']}'s HA* results differ")
+        out[f"dryrun_{n}"] = {"label": f"{n} ranks sharing one card ({r['ranks'][0]['backend']})",
+                              "seconds": r["seconds"], "hastar": r["hastar"],
+                              "layouts": sorted(r["ranks"][0]["finite"]),
+                              "every_rank_exit_0": True}
+    small, large = (worlds[n]["hastar"] for n in ENTRY_WORLDS)
+    check(large[:len(small)] == small, f"entry: the dryrun worlds' HA* results differ: "
+          f"{small} vs {large}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -4145,23 +4425,30 @@ def main() -> None:
     del maze_inputs
     phase_s["graphs"] = time.perf_counter() - t0
     say("graphs", json.dumps({**gr, "device": name, "power_limit": power}))
-    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-25 "
+
+    # 26. `slam_tpu_torch/entry.py`, the counterpart of `__graft_entry__.py`.
+    t0 = time.perf_counter()
+    en = entry_phase(dev, counts)
+    phase_s["entry"] = time.perf_counter() - t0
+    say("entry", json.dumps({**en, "device": name, "power_limit": power}))
+    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-26 "
         f"{time.perf_counter() - t_new:.1f} s {json.dumps(phase_s)}")
 
     # Launches: the counts of the main paths' runs (phase 7's mcl.step,
     # phase 9's SLAM step, phase 15's global localization, phase 16's auto
     # tier, phase 18's scan-matched SLAM step, phase 19's RBPF, phase 20's
     # maze steps through both tables, phase 21's fleet steps, phase 22's
-    # apps, phase 23's sharded engines on every rank of every world, phase
-    # 24's tools, phase 25's graphed and eager steps; a graph replay counts
-    # the launches its capture recorded, a warm-up its own). K2
+    # apps, phase 23's sharded engines on every rank of every world and
+    # their graph and eager routes, phase 24's tools, phase 25's graphed and
+    # eager steps, phase 26's entry step; a graph replay counts the launches
+    # its capture recorded, a warm-up its own). K2
     # left the MCL step with this kernel line's third entry; phases 3, 5
     # and 6 still hold it to rows[idx].
     main_launches = {k: launches[k] + slam_launches[k] + gl["launches"][k]
                      + auto["launches_after_step_5"][k] + sm["launches"][k] + rb["launches"][k]
                      + mz["launches"][k] + fl["launches"][k] + ap["launches"][k]
                      + par["launches"].get(k, 0) + tl["launches"][k] + gr["launches"][k]
-                     for k in launches}
+                     + en["launches"][k] for k in launches}
     lw_fleet = fl["kernel_fleet"]
     lw_maze = mz["maze"]["lut"]["lut_weights_vs_plain"]
     lw_1m = gl["lut_weights_1m_uniform"]

@@ -53,8 +53,10 @@ _WARMUP = 1
 # Blocks a cache keeps by default (one a search kind and query count).
 _MAX_BLOCKS = 8
 # Launches of each kernel wrapper that the capture under way recorded
-# (None outside a capture), and whether a block's warm-up is running.
+# (None outside a capture), the host counter updates it recorded
+# (`count_host`), and whether a block's warm-up is running.
 _TALLY = None
+_NOTES = None
 _WARMING = False
 # The capture under way (`_Capture`), None outside one, and the streams
 # that capture conditional bodies, by (device index, nesting depth).
@@ -69,7 +71,7 @@ def count_launch(wrapper) -> None:
     captured, once at each replay of that graph (`Block.run`), which is
     when the kernel runs."""
     if _TALLY is not None:
-        if _CAPTURE is not None and _CAPTURE.depth:
+        if in_conditional_body():
             raise RuntimeError(
                 "a hand-written kernel inside a conditional body: a replay may skip it, "
                 "so the capture's tally cannot count it; launch it outside the cond")
@@ -78,6 +80,26 @@ def count_launch(wrapper) -> None:
     wrapper.launches += 1
     if _WARMING:
         wrapper.warmup_launches += 1
+
+
+def count_host(fn: Callable, *args) -> None:
+    """Apply a host-side counter update `fn(*args)` for work the caller
+    issues now: at once, or, while a block's graph is captured, at each
+    replay of that graph, as `count_launch` counts a launch. Inside a
+    conditional body a replay may skip the work, so the caller counts it
+    on the device there (`in_conditional_body`)."""
+    if _NOTES is not None:
+        if in_conditional_body():
+            raise RuntimeError("a host-side count inside a conditional body: a replay may "
+                               "skip its work; count it on the device")
+        _NOTES.append((fn, args))
+        return
+    fn(*args)
+
+
+def in_conditional_body() -> bool:
+    """Whether a conditional node's body is being captured now."""
+    return _CAPTURE is not None and _CAPTURE.depth > 0
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -232,22 +254,27 @@ class Block:
     registers them, so every replay draws what the eager block would draw
     next and advances them as far. `pool` is a graph memory pool handle
     (`torch.cuda.graph_pool_handle()`) that blocks whose pool memory holds
-    nothing between replays may share."""
+    nothing between replays may share. With `capture` False the block runs
+    eagerly on the card too, as on the CPU (work that a graph cannot hold:
+    gloo's collectives run on the host)."""
 
     def __init__(self, fn: Callable, static: Dict[str, torch.Tensor],
                  generators: Iterable[torch.Generator] = (), guard=contextlib.nullcontext,
-                 pool=None):
+                 pool=None, capture: bool = True):
         self.fn = fn
         self.static = static
         self.generators = tuple(generators)
         self.guard = guard
         self.pool = pool
+        self.capture = capture
         self.graph = None
         self.replays = 0
         self.capture_ms = 0.0
-        # The kernel wrappers' launches a replay makes (`count_launch`), and
-        # the conditional nodes the graph holds (`cond`, `Chain`).
+        # The kernel wrappers' launches a replay makes (`count_launch`), the
+        # host counter updates (`count_host`), and the conditional nodes the
+        # graph holds (`cond`, `Chain`).
         self.tally = {}
+        self.notes = []
         self.if_nodes = 0
         # Set at the capture: the device memory the graph's private pool
         # took (the rise of reserved memory over the capture; the peak of
@@ -296,7 +323,7 @@ class Block:
         # are put back before the capture, which runs nothing.
         saved = {k: v.clone() for k, v in self.static.items()}
         gen_states = [g.get_state() for g in self.generators]
-        global _TALLY, _CAPTURE
+        global _TALLY, _NOTES, _CAPTURE
         self._warm(dev)
         for k, v in saved.items():
             self.static[k].copy_(v)
@@ -312,7 +339,7 @@ class Block:
         # An explicit pool: a conditional body's allocations are routed to
         # it by its id (`_Capture.route_pool`).
         pool = self.pool if self.pool is not None else torch.cuda.graph_pool_handle()
-        _TALLY = {}
+        _TALLY, _NOTES = {}, []
         cap = _CAPTURE = _Capture(dev, pool)
         # No garbage collection during the capture: a collection that frees
         # an earlier block's graph (an engine left in a reference cycle)
@@ -332,6 +359,7 @@ class Block:
             if collecting:
                 gc.enable()
             self.tally, _TALLY = _TALLY, None
+            self.notes, _NOTES = _NOTES, None
             self.if_nodes, _CAPTURE = cap.if_nodes, None
         torch.cuda.synchronize(dev)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
@@ -339,7 +367,7 @@ class Block:
         self.graph = graph
 
     def run(self) -> None:
-        if not next(iter(self.static.values())).is_cuda:
+        if not self.capture or not next(iter(self.static.values())).is_cuda:
             with self.guard():
                 self._step()
             return
@@ -347,9 +375,15 @@ class Block:
             self._capture()
         with self.guard():
             self.graph.replay()
+        self._replayed()
+
+    def _replayed(self) -> None:
+        """Count a replay, and the launches and host counts it made."""
         self.replays += 1
         for wrapper, n in self.tally.items():
             wrapper.launches += n
+        for fn, args in self.notes:
+            fn(*args)
 
 
 class Chain(Block):
@@ -419,7 +453,7 @@ class Chain(Block):
         offsets = [g.get_offset() for g in self.generators]
         with self.guard():
             self.graph.replay()
-        self.replays += 1
+        self._replayed()
         flag, after = self._read()
         done = (after - it) // self.per_run
         for g, o, a in zip(self.generators, offsets, self._advance):

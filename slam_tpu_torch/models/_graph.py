@@ -1,6 +1,8 @@
 """CUDA graphs of the filter steps: the port's counterpart of the JAX
 package's `jax.jit` of a step (`slam_tpu/models/mcl.py:408-409`,
-`models/slam.py:336-340`, `models/fleet.py:61`, `bench.py:109-112`).
+`models/slam.py:336-340`, `models/fleet.py:61`, `models/rbpf.py:123`,
+`parallel/sharded.py:98-157`, `parallel/mapshard.py:305-334`,
+`bench.py:109-112`).
 
 `StepGraphs.run(fn, state, odom, scan, key=, gates=)` runs one step
 `fn(state, odom, scan) -> state` of an entry point as one `core.graph.Block`:
@@ -25,8 +27,9 @@ package's `jax.jit` of a step (`slam_tpu/models/mcl.py:408-409`,
     functional: a state a step returned is never overwritten by the next.
 
 On the card a block is captured at its first run and replayed after; a
-failed capture or replay raises (there is no eager fallback). On the CPU
-the same block code runs eagerly. `guard` wraps every block run (the
+failed capture or replay raises (there is no eager fallback). On the CPU,
+and on the card for `StepGraphs(capture=False)`, the same block code runs
+eagerly. `guard` wraps every block run (the
 warm-up, each replay, each eager run): a check may make a host read raise
 there. A step's data-dependent branches (the auto measurement tier, the
 ESS gate, the `edt_box` refresh) are `core/graph.py:cond`s, CUDA graph IF
@@ -150,10 +153,14 @@ class _Buffers:
 
 class StepGraphs:
     """The step graphs of one entry point (`MCL`, `GridSLAM`, `MCLFleet`,
-    or a tool's loop): blocks in a `core.graph.Cache`, the static buffers
-    they share, the pinned staging buffers and the counters."""
+    `RBPF`, a sharded engine, or a tool's loop): blocks in a
+    `core.graph.Cache`, the static buffers they share, the pinned staging
+    buffers and the counters. With `capture` False the blocks run eagerly
+    on the card as well (a sharded engine over gloo, whose collectives run
+    on the host)."""
 
-    def __init__(self):
+    def __init__(self, capture: bool = True):
+        self.capture = capture
         self.cache = Cache(_MAX_BLOCKS)
         self._bufs: Dict[Tuple, _Buffers] = {}
         self._pinned: Dict[str, list] = {}
@@ -229,9 +236,10 @@ class StepGraphs:
         return host, dev, bkey, bufs, static
 
     def _get(self, full: Tuple, static: Dict[str, torch.Tensor], make_fn, gens, dev) -> Block:
-        if dev.type == "cuda" and self._pool is None:
+        if dev.type == "cuda" and self.capture and self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        return self.cache.get(full, lambda: Block(make_fn(), static, gens, pool=self._pool))
+        return self.cache.get(full, lambda: Block(make_fn(), static, gens, pool=self._pool,
+                                                  capture=self.capture))
 
     # -- steps ---------------------------------------------------------------
     def run(self, fn: Callable, state, odom: Optional[Odometry] = None,
@@ -300,7 +308,7 @@ class StepGraphs:
         the conditional nodes it holds; and the counters."""
         blocks = {}
         for k, b in self.cache.blocks.items():
-            name = str(k[0][0]) + (f"@{k[3]}" if len(k) > 3 and k[3] else "")
+            name = str(k[0][0] if k[0] else "step") + (f"@{k[3]}" if k[3] else "")
             blocks[name] = {"capture_ms": b.capture_ms, "pool_bytes": b.pool_bytes,
                             "replays": b.replays, "if_nodes": b.if_nodes}
         return {"blocks": blocks, "copies": self.copies, "copy_bytes": self.copy_bytes,

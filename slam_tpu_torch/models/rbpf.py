@@ -14,7 +14,10 @@ by one batched gather. `step` = predict (on CUDA the odometry motion
 kernel, `ops/motion_cuda.py`; on the CPU its plain version) -> `update`
 (fused weight + map, then resample). Randomness comes from the state's
 `torch.Generator`, or is injected (`noise=`, `u0=`, `u=`); no step reads
-the device from the host.
+the device from the host. `RBPF.step` runs the step as one block of its
+`StepGraphs` (`models/_graph.py`): one CUDA graph replay a step on the
+card, as the JAX class jits it (`slam_tpu/models/rbpf.py:123`); the free
+`step` stays eager.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from slam_tpu_torch.core import stats
 from slam_tpu_torch.core.config import MCLConfig, RaycastConfig
 from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan, log_f32
+from slam_tpu_torch.models._graph import StepGraphs
 from slam_tpu_torch.models.mcl import make_generator
 from slam_tpu_torch.ops import mapping, resample
 from slam_tpu_torch.ops.motion_cuda import sample_motion_model_odometry_fused
@@ -67,11 +71,13 @@ def init(generator, n_particles: int, pose: Pose, shape) -> RBPFState:
 
 
 def update(state: RBPFState, pose: Pose, scan: Scan, cfg: MCLConfig, rc: RaycastConfig,
-           u0=None, u=None) -> RBPFState:
+           u0=None, u=None, maps_out=None) -> RBPFState:
     """The step after predict, for particles moved to `pose`: fused weight
     + map update, then resample the particles AND their maps (the
     reference's map copies, as one gather). `u0` (systematic) or `u`
-    (multinomial) injects the resampler's uniforms."""
+    (multinomial) injects the resampler's uniforms. `maps_out` (u8 [N, H,
+    W], `state.maps` itself allowed: the gather reads the updated copy)
+    receives the resampled maps, which are then the new state's."""
     lw, new_maps = mapping.fidelity_measurement_and_mapping(
         state.maps, pose, scan, scanner_offset=cfg.scanner_offset,
         stddev=cfg.meas_stddev, eps=cfg.meas_epsilon, max_dist=rc.max_dist, step=rc.step,
@@ -97,7 +103,8 @@ def update(state: RBPFState, pose: Pose, scan: Scan, cfg: MCLConfig, rc: Raycast
             pose=Pose(x=pose.x[idx], y=pose.y[idx], theta=pose.theta[idx]),
             log_weight=torch.full((n,), -log_f32(n), device=log_weight.device),
         ),
-        maps=new_maps[idx],
+        maps=new_maps[idx] if maps_out is None else torch.index_select(new_maps, 0, idx,
+                                                                       out=maps_out),
         generator=state.generator,
         best_pose=best_pose,
         best_map_idx=best_map_idx,
@@ -106,13 +113,13 @@ def update(state: RBPFState, pose: Pose, scan: Scan, cfg: MCLConfig, rc: Raycast
 
 
 def step(state: RBPFState, odom: Odometry, scan: Scan, cfg: MCLConfig,
-         rc: RaycastConfig, noise=None, u0=None, u=None) -> RBPFState:
+         rc: RaycastConfig, noise=None, u0=None, u=None, maps_out=None) -> RBPFState:
     """One full RBPF step: predict -> fused weight + map -> resample.
     `noise` (CPU only: the CUDA kernel draws its own) injects the motion
-    draws, `u0` / `u` the resampler's."""
+    draws, `u0` / `u` the resampler's; `maps_out` is `update`'s."""
     pose = sample_motion_model_odometry_fused(
         odom, state.particles.pose, ALPHAS, generator=state.generator, noise=noise)
-    return update(state, pose, scan, cfg, rc, u0=u0, u=u)
+    return update(state, pose, scan, cfg, rc, u0=u0, u=u, maps_out=maps_out)
 
 
 def best_map_prob_free(state: RBPFState) -> torch.Tensor:
@@ -129,7 +136,9 @@ def mean_pose(state: RBPFState) -> Pose:
 
 class RBPF:
     """The RBPF on an explicit `device` (the CUDA card unless the caller
-    asks for another, `device="cpu"`); cfg held fixed."""
+    asks for another, `device="cpu"`); cfg held fixed. `step` runs as one
+    block of `graphs`: one CUDA graph replay a step on the card, the same
+    block code eagerly on the CPU."""
 
     def __init__(self, cfg: MCLConfig, rc: RaycastConfig = RaycastConfig(), seed: int = 0,
                  device=None):
@@ -137,10 +146,14 @@ class RBPF:
         self.rc = rc
         self._seed = seed
         self.device = entry_device(device)
+        self.graphs = StepGraphs()
 
     def init(self, pose: Pose, shape) -> RBPFState:
         return init(make_generator(self._seed, self.device), self.cfg.n_particles,
                     pose.to(self.device), shape)
 
     def step(self, state: RBPFState, odom: Odometry, scan: Scan) -> RBPFState:
-        return step(state, odom, scan, self.cfg, self.rc)
+        cfg, rc = self.cfg, self.rc
+        # The block gathers the resampled maps straight into its buffer.
+        return self.graphs.run(lambda s, o, z: step(s, o, z, cfg, rc, maps_out=s.maps),
+                               state, odom, scan, key=("step", cfg, rc))

@@ -6,7 +6,11 @@ over a [D, ...] buffer (`psum_scatter`), `lax.ppermute` (`ppermute`),
 
 JAX inserts these from shardings; here every cross-shard step calls one
 by hand. Each call adds the elements it moves to a module counter
-(`counts`), so a test can hold a step to "no [N]-sized all-gather".
+(`counts`), so a test can hold a step to "no [N]-sized all-gather". A
+collective captured in a CUDA graph (an engine's step over NCCL) is
+counted at each replay (`core/graph.py:count_host`); one inside a
+conditional body, which a replay may skip, is counted on the device by
+the body itself and read back by `counts`.
 
 Backends. NCCL takes CUDA tensors. gloo takes CPU tensors, and CUDA
 tensors for all-reduce, all-gather and reduce-scatter (probed with torch
@@ -23,8 +27,13 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from slam_tpu_torch.core import graph
+
 _KINDS = ("all_reduce", "all_gather", "reduce_scatter", "ppermute")
 _COUNTS: dict = {}
+# The counts of collectives in conditional bodies, per CUDA device: int64
+# [len(_KINDS) + 2] (the kinds, then the calls and the largest all-gather).
+_DEVICE_COUNTS: dict = {}
 
 
 def reset_counts() -> None:
@@ -32,13 +41,28 @@ def reset_counts() -> None:
     _COUNTS.clear()
     _COUNTS.update({k: 0 for k in _KINDS})
     _COUNTS.update(calls=0, largest_all_gather=0, staged_bytes=0)
+    for c in _DEVICE_COUNTS.values():
+        c.zero_()
 
 
 def counts() -> dict:
     """Elements moved by each kind of collective since `reset_counts`, the
     number of calls, the largest all-gather's output elements and the bytes
-    staged through the host."""
-    return dict(_COUNTS)
+    staged through the host (a host read of the device counts, if any)."""
+    out = dict(_COUNTS)
+    for c in _DEVICE_COUNTS.values():
+        v = c.tolist()
+        for k, n in zip(_KINDS + ("calls",), v):
+            out[k] += n
+        out["largest_all_gather"] = max(out["largest_all_gather"], v[-1])
+    return out
+
+
+def _count(kind: str, elems: int) -> None:
+    _COUNTS[kind] += elems
+    _COUNTS["calls"] += 1
+    if kind == "all_gather":
+        _COUNTS["largest_all_gather"] = max(_COUNTS["largest_all_gather"], elems)
 
 
 reset_counts()
@@ -60,9 +84,23 @@ class Axis:
 
     # -- plumbing ---------------------------------------------------------
 
-    def _note(self, kind: str, elems: int) -> None:
-        _COUNTS[kind] += int(elems)
-        _COUNTS["calls"] += 1
+    def _note(self, kind: str, elems: int, dev: torch.device) -> None:
+        """Count one collective of `elems` elements on `dev`: on the host, or
+        inside a conditional body by the body's own kernels on the device
+        (their counter is made by an eager run outside the body first)."""
+        elems = int(elems)
+        if not graph.in_conditional_body():
+            if (dev.type == "cuda" and dev not in _DEVICE_COUNTS
+                    and not torch.cuda.is_current_stream_capturing()):
+                _DEVICE_COUNTS[dev] = torch.zeros(len(_KINDS) + 2, dtype=torch.int64,
+                                                  device=dev)
+            graph.count_host(_count, kind, elems)
+            return
+        c = _DEVICE_COUNTS[dev]
+        c[_KINDS.index(kind)].add_(elems)
+        c[-2].add_(1)
+        if kind == "all_gather":
+            c[-1].clamp_(min=elems)
 
     def _check(self, kind: str, t: torch.Tensor) -> None:
         if self.backend == "nccl" and not t.is_cuda:
@@ -71,7 +109,7 @@ class Axis:
             raise ValueError(f"unsupported backend {self.backend!r}")
 
     def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
-        self._note("all_reduce", t.numel())
+        self._note("all_reduce", t.numel(), t.device)
         out = t.clone().contiguous()
         self._check("all_reduce", out)
         dist.all_reduce(out, op=op, group=self.group)
@@ -94,8 +132,7 @@ class Axis:
         shape = (self.size,) + tuple(t.shape)
         t = t.contiguous().reshape(-1)
         n = self.size * t.numel()
-        self._note("all_gather", n)
-        _COUNTS["largest_all_gather"] = max(_COUNTS["largest_all_gather"], n)
+        self._note("all_gather", n, t.device)
         self._check("all_gather", t)
         out = torch.empty((n,), dtype=t.dtype, device=t.device)
         dist.all_gather_into_tensor(out, t, group=self.group)
@@ -108,7 +145,7 @@ class Axis:
             raise ValueError(f"psum_scatter over {self.size} ranks takes [D, ...], got {tuple(t.shape)}")
         out_shape = tuple(t.shape[1:])
         t = t.contiguous().reshape(-1)
-        self._note("reduce_scatter", t.numel())
+        self._note("reduce_scatter", t.numel(), t.device)
         n = t.numel() // self.size
         self._check("reduce_scatter", t)
         out = torch.empty((n,), dtype=t.dtype, device=t.device)
@@ -123,7 +160,7 @@ class Axis:
         out = torch.zeros_like(t)
         sends = [dst for src, dst in perm if src == self.index]
         recvs = [src for src, dst in perm if dst == self.index]
-        self._note("ppermute", t.numel() * len(sends))
+        self._note("ppermute", t.numel() * len(sends), t.device)
         if not sends and not recvs:
             return out
         self._check("ppermute", t)

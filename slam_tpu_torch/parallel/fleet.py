@@ -19,6 +19,7 @@ from slam_tpu_torch.core.config import MCLConfig, RaycastConfig
 from slam_tpu_torch.core.types import Odometry, Pose, Scan
 from slam_tpu_torch.models import fleet as fleet_mod
 from slam_tpu_torch.parallel.mesh import Mesh
+from slam_tpu_torch.parallel.sharded import engine_graphs
 
 
 def robot_range(mesh: Mesh, n_robots: int) -> slice:
@@ -52,7 +53,9 @@ def shard_fleet(mesh: Mesh, states, n_robots: int):
 class ShardedMCLFleet(fleet_mod.MCLFleet):
     """`MCLFleet` whose robots are spread over the 'p' axis. `n_robots` must
     be divisible by it. `step` takes the whole fleet's odometry [R] and
-    scans [R, B] and returns this rank's robots."""
+    scans [R, B], slices this rank's robots and steps them through
+    `MCLFleet.step`'s block (`sharded.engine_graphs`: one CUDA graph replay
+    over NCCL, eager over gloo); it returns this rank's robots."""
 
     def __init__(self, mesh: Mesh, n_robots: int, cfg: MCLConfig,
                  rc: RaycastConfig = RaycastConfig(), seed: int = 0):
@@ -60,6 +63,7 @@ class ShardedMCLFleet(fleet_mod.MCLFleet):
         super().__init__(n_robots, cfg, rc, seed, device=mesh.device)
         self.mesh = mesh
         self.robots = robot_range(mesh, n_robots)
+        self.graphs = engine_graphs(mesh)
 
     def init(self, poses: Pose):
         return shard_fleet(self.mesh, super().init(poses), self.n_robots)
@@ -74,4 +78,4 @@ class ShardedMCLFleet(fleet_mod.MCLFleet):
         odoms = Odometry(rot1=mine(odoms.rot1), trans=mine(odoms.trans), rot2=mine(odoms.rot2))
         scans = Scan(angles=mine(scans.angles).to(self.mesh.device),
                      dists=mine(scans.dists).to(self.mesh.device))
-        return fleet_mod.fleet_step(states, odoms, scans, field, alphas, self.cfg, self.rc)
+        return super().step(states, odoms, scans, field, alphas)

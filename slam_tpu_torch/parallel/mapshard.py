@@ -13,6 +13,11 @@ never talk. The likelihood-field tiers read a distributed capped EDT
 Each rank marches every ray of its particle shard to the end of its own
 block (no cross-block early exit): more work in all, less map memory per
 rank; the trade for maps that do not fit one device.
+
+`MapShardedGridSLAM.step` and `predict` run as blocks of the engine's
+`StepGraphs` (`sharded.engine_graphs`: one CUDA graph replay a step over
+NCCL, the same block code eagerly over gloo), as JAX jits them;
+`eager_step` is the step as the free functions run it.
 """
 
 from __future__ import annotations
@@ -46,13 +51,16 @@ def grid_rows(mesh: Mesh, h: int, map_axis: str = "b") -> slice:
 
 def raycast_march_sharded(mesh: Mesh, blocked: torch.Tensor, x, y, theta, *, full_h: int,
                           step: float, max_dist: float, chunk: int = 64,
-                          map_axis: str = "b"):
+                          map_axis: str = "b", early_exit: bool = True):
     """The exact march of this rank's rays against the row-block-sharded
     map (`blocked` is this rank's block): a local march, then a min over
-    the map axis. Returns (dist, hit) of the whole map."""
+    the map axis. Returns (dist, hit) of the whole map. `early_exit` is the
+    local march's (`raycast_march`: False marches the whole count with no
+    host read)."""
     rows = grid_rows(mesh, full_h, map_axis)
     dist, hit = raycast_march(blocked, x, y, theta, step=step, max_dist=max_dist,
-                              chunk=chunk, row_offset=rows.start, full_h=full_h)
+                              chunk=chunk, row_offset=rows.start, full_h=full_h,
+                              early_exit=early_exit)
     cand = torch.where(hit, dist, torch.full_like(dist, max_dist))
     dmin = mesh.axis(map_axis).pmin(cand)
     return dmin, dmin < max_dist
@@ -126,10 +134,10 @@ class MapShardedGridSLAM:
         # map axis here).
         self.sharding = sharded_mod.particle_sharding(mesh)
         self._rfn = sharded_mod._resample_fn(mesh, cfg.mcl)
-        lf = meas in ("likelihood_field", "likelihood_field_table")
-        self._measure = self._measure_lf if lf else self._measure_march
+        self._lf = meas in ("likelihood_field", "likelihood_field_table")
+        self.graphs = sharded_mod.engine_graphs(mesh)
 
-    def _measure_march(self, grid_blk, poses: Pose, scan: Scan):
+    def _measure_march(self, grid_blk, poses: Pose, scan: Scan, early_exit: bool = True):
         cfg = self.cfg
         blocked = gridlib.blocked_from_logodds(grid_blk)
         sp = sensor_pose(poses, cfg.mcl.scanner_offset)
@@ -139,6 +147,7 @@ class MapShardedGridSLAM:
         dist, hit = raycast_march_sharded(
             self.mesh, blocked, px, py, angles, full_h=self.full_shape[0],
             step=cfg.raycast.step, max_dist=cfg.raycast.max_dist, chunk=cfg.raycast.chunk,
+            early_exit=early_exit,
         )
         lw = beam_log_weights(dist, hit, scan.dists[None, :], stddev=cfg.mcl.meas_stddev,
                               max_dist=cfg.raycast.max_dist, eps=cfg.mcl.meas_epsilon)
@@ -186,16 +195,28 @@ class MapShardedGridSLAM:
         state = sharded_mod.shard_state(state, self.mesh, self.cfg.mcl.n_particles)
         return state.replace(grid=state.grid[self.rows].contiguous())
 
-    def step(self, state, odom: Odometry, scan: Scan, noise=None, u0=None):
-        """One step; `noise` (this shard's, CPU only) and `u0` inject the
-        draws, as in `models/slam.py:step`."""
+    def step(self, state, odom: Odometry, scan: Scan):
+        """One step as one block of `graphs` (the beam march to its whole
+        count), a block per phase of the resample and map gates."""
+        cfg = self.cfg
+        return self.graphs.run(lambda s, o, z: self.eager_step(s, o, z, early_exit=False),
+                               state, odom, scan, key=("step", cfg),
+                               gates=(cfg.mcl.resample_every, cfg.map_every))
+
+    def eager_step(self, state, odom: Odometry, scan: Scan, noise=None, u0=None,
+                   early_exit: bool = True):
+        """One step, eagerly; `noise` (this shard's, CPU only) and `u0`
+        inject the draws, as in `models/slam.py:step`, and `early_exit` is
+        the beam march's."""
         cfg = self.cfg
         st = mcl_mod.predict(state.mcl, odom, cfg.motion.alphas, noise=noise,
                              ray_sharding=self.sharding)
         st = mcl_mod.update(
             st, scan, None, cfg.mcl, cfg.raycast, ray_sharding=self.sharding,
             resample_fn=self._rfn, u0=u0,
-            measurement_fn=lambda poses, z: self._measure(state.grid, poses, z),
+            measurement_fn=lambda poses, z: (
+                self._measure_lf(state.grid, poses, z) if self._lf
+                else self._measure_march(state.grid, poses, z, early_exit)),
         )
         mp = slam_mod.resolve_map_pose(cfg)
         if mp == "mean":
@@ -213,4 +234,6 @@ class MapShardedGridSLAM:
         return slam_mod.SLAMState(mcl=st, grid=grid, est_pose=st.best_pose)
 
     def predict(self, state, odom: Odometry):
-        return slam_mod.predict_only(state, odom, self.cfg, ray_sharding=self.sharding)
+        cfg, ps = self.cfg, self.sharding
+        return self.graphs.run(lambda s, o, _: slam_mod.predict_only(s, o, cfg, ray_sharding=ps),
+                               state, odom, key=("predict", cfg))

@@ -12,6 +12,13 @@ over 'b', the motion draws count by global particle index (K1's `i0`), so
 a shard draws exactly what the unsharded filter draws for its particles,
 and the resampler is the reduce-scatter one (`parallel/resample.py`).
 JAX gets the same collectives from GSPMD; here each is explicit.
+
+Each engine steps through its `StepGraphs` (`models/_graph.py`), as JAX
+jits each step into one SPMD program: over NCCL one CUDA graph replay a
+step on each rank, the collectives captured as NCCL kernels; over gloo
+(CPU ranks, or ranks that share one card), whose collectives run on the
+host, the same block code eagerly. The backend decides, never a failure:
+a capture that fails raises. `engine_graphs(mesh)` makes that choice.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from slam_tpu_torch.core.config import MCLConfig, RaycastConfig, SLAMConfig
 from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan
 from slam_tpu_torch.models import mcl as mcl_mod
 from slam_tpu_torch.models import slam as slam_mod
+from slam_tpu_torch.models._graph import StepGraphs
 from slam_tpu_torch.parallel import resample as dist_resample
 from slam_tpu_torch.parallel.mesh import Mesh, Sharding
 
@@ -108,6 +116,12 @@ def _generator(seed: int, mesh: Mesh) -> torch.Generator:
     return mcl_mod.make_generator(seed, mesh.device)
 
 
+def engine_graphs(mesh: Mesh) -> StepGraphs:
+    """A sharded engine's step graphs: captured over NCCL, whose
+    collectives a CUDA graph holds; eager blocks over gloo."""
+    return StepGraphs(capture=mesh.backend == "nccl")
+
+
 class ShardedMCL:
     """Multi-rank MCL localization (static map), one particle shard per
     rank of 'p'.
@@ -116,7 +130,8 @@ class ShardedMCL:
     (the lut backend with `lut_beam_stride`, and `step` on CUDA) does not
     split them: every rank of 'b' weighs every beam of its particle shard,
     as JAX's fused route does, so |b| > 1 there repeats the same work on
-    each of its ranks.
+    each of its ranks. `predict`, `update` and `step` each run as one block
+    of `graphs` (`engine_graphs`; the beam march to its whole count).
 
     Usage (on every rank, after `distributed.initialize`):
         mesh = make_mesh()
@@ -133,6 +148,7 @@ class ShardedMCL:
         self.rc = rc
         self.sharding = ray_sharding(mesh)
         self._rfn = _resample_fn(mesh, cfg)
+        self.graphs = engine_graphs(mesh)
 
     def init(self, h: int, w: int, seed: int = 0) -> mcl_mod.MCLState:
         state = mcl_mod.init(
@@ -142,31 +158,51 @@ class ShardedMCL:
         return shard_state(state, self.mesh, self.cfg.n_particles)
 
     def predict(self, state, odom: Odometry, alphas):
-        return mcl_mod.predict(state, odom, alphas, ray_sharding=self.sharding)
+        alphas, rs = tuple(float(a) for a in alphas), self.sharding
+        return self.graphs.run(lambda s, o, _: mcl_mod.predict(s, o, alphas, ray_sharding=rs),
+                               state, odom, key=("predict", alphas))
 
     def update(self, state, scan: Scan, field):
-        return mcl_mod.update(state, scan, field, self.cfg, self.rc,
-                              ray_sharding=self.sharding, resample_fn=self._rfn)
+        cfg, rc, rs, rfn = self.cfg, self.rc, self.sharding, self._rfn
+        return self.graphs.run(
+            lambda s, _, z: mcl_mod.update(s, z, field, cfg, rc, ray_sharding=rs,
+                                           resample_fn=rfn, early_exit=False),
+            state, scan=scan, key=("update", cfg, rc, id(field)), gates=(cfg.resample_every,))
 
     def step(self, state, odom: Odometry, alphas, scan: Scan, field):
-        return mcl_mod.step(state, odom, alphas, scan, field, self.cfg, self.rc,
-                            ray_sharding=self.sharding, resample_fn=self._rfn)
+        alphas = tuple(float(a) for a in alphas)
+        cfg, rc, rs, rfn = self.cfg, self.rc, self.sharding, self._rfn
+        return self.graphs.run(
+            lambda s, o, z: mcl_mod.step(s, o, alphas, z, field, cfg, rc, ray_sharding=rs,
+                                         resample_fn=rfn, early_exit=False),
+            state, odom, scan, key=("step", cfg, rc, alphas, id(field)),
+            gates=(cfg.resample_every,))
 
 
 class ShardedGridSLAM:
     """Multi-rank full grid SLAM: particles sharded over 'p', the log-odds
     grid replicated (every rank applies the same update from the global
     map pose). ``likelihood_field_auto`` runs through
-    `slam.AutoTierDispatcher`, whose predicate is the whole cloud's."""
+    `slam.AutoTierDispatcher`, whose predicate is the whole cloud's. `step`
+    (each forced tier's step under the dispatcher) and `predict` each run
+    as one block of `graphs` (`engine_graphs`), a block per phase of the
+    resample and map gates, as `GridSLAM` runs them."""
 
     def __init__(self, mesh: Mesh, cfg: SLAMConfig):
         self.mesh = mesh
         self.cfg = cfg
         self.sharding = rs = ray_sharding(mesh)
+        self.graphs = engine_graphs(mesh)
 
         def make_step(c):
             rfn = _resample_fn(mesh, c.mcl)
-            return lambda s, o, z: slam_mod.step(s, o, z, c, ray_sharding=rs, resample_fn=rfn)
+
+            def fn(s, o, z):
+                return slam_mod.step(s, o, z, c, ray_sharding=rs, resample_fn=rfn,
+                                     early_exit=False)
+
+            return lambda s, o, z: self.graphs.run(
+                fn, s, o, z, key=("step", c), gates=(c.mcl.resample_every, c.map_every))
 
         self._auto = None
         if cfg.mcl.measurement == "likelihood_field_auto":
@@ -187,7 +223,9 @@ class ShardedGridSLAM:
         return self._step(state, odom, scan)
 
     def predict(self, state, odom: Odometry):
-        return slam_mod.predict_only(state, odom, self.cfg, ray_sharding=self.sharding)
+        cfg, rs = self.cfg, self.sharding
+        return self.graphs.run(lambda s, o, _: slam_mod.predict_only(s, o, cfg, ray_sharding=rs),
+                               state, odom, key=("predict", cfg))
 
 
 def gather_particles(mesh: Mesh, state):

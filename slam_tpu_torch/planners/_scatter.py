@@ -57,10 +57,12 @@ def last_lanes(won: torch.Tensor, tgt: torch.Tensor, n: int) -> torch.Tensor:
     last of the `won` lanes that scatter to it, or -1 where none does.
     Every lane scatters to its own target (the lanes that did not win
     offer -1, which never wins), so no slot collects the losers: on CUDA
-    such a slot serializes their atomics."""
+    such a slot serializes their atomics. The table is reduced into in
+    place: the out-of-place form copies it first (the RBPF's tables are
+    up to n = a chunk of maps' cells)."""
     lane = torch.arange(tgt.numel(), device=tgt.device)
     top = torch.full((n,), -1, dtype=torch.int64, device=tgt.device)
-    return top.scatter_reduce(0, tgt.long(), torch.where(won, lane, -1), "amax")
+    return top.scatter_reduce_(0, tgt.long(), torch.where(won, lane, -1), "amax")
 
 
 def last_writer(won: torch.Tensor, tgt: torch.Tensor, n: int) -> torch.Tensor:

@@ -21,6 +21,7 @@ from slam_tpu_torch.core import config as tcfg
 from slam_tpu_torch.core import grid as tgrid
 from slam_tpu_torch.core import stats as tstats
 from slam_tpu_torch.core.device import entry_device
+from slam_tpu_torch import entry as tentry
 from slam_tpu_torch.core.types import Box, Pose, Velocity
 from slam_tpu_torch.models.fleet import MCLFleet
 from slam_tpu_torch.models.mcl import MCL
@@ -221,7 +222,7 @@ def test_import_without_jax():
     """With jax (and the JAX package) unimportable, the port's main paths
     (MCL, SLAM, the RBPF, scan matching, the simulator, diagnostics, the
     planners, the CDDT, the fleet, the sharded engines of parallel/, the
-    tools, utilities and apps) still import."""
+    tools, utilities, apps and `slam_tpu_torch/entry.py`) still import."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -250,6 +251,7 @@ def test_import_without_jax():
         "import slam_tpu_torch.parallel.fleet, slam_tpu_torch.parallel.edt\n"
         "from slam_tpu_torch.parallel import ShardedMCL, ShardedGridSLAM, make_mesh\n"
         "import slam_tpu_torch.tools.shard_bench, slam_tpu_torch.parallel.distributed\n"
+        "import slam_tpu_torch.entry\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -267,6 +269,8 @@ ENTRY_POINTS = {
     "HybridAStar": lambda **kw: HybridAStar(
         np.ones((16, 16), bool), Pose.create(2.0, 2.0, 0.0), Pose.create(9.0, 9.0, 0.0),
         tcfg.HybridAStarConfig(mode="continuous"), **kw),
+    "entry": lambda **kw: tentry.entry(**kw),
+    "dryrun_multichip": lambda **kw: tentry.dryrun_multichip(1, **kw),
 }
 
 

@@ -338,3 +338,20 @@ def test_sharded_slam_scanmatch_matches_single_device(run, d):
     np.testing.assert_allclose(o["sm.est"][:2], _pose3(j.est_pose)[:2], atol=1.0)
     assert_angles_close(o["sm.est"][2:], _pose3(j.est_pose)[2:], tstep + 1e-5)
     assert not np.array_equal(o["sm.est"], o["sm.best_pose"])
+
+
+@pytest.mark.parametrize("d", D)
+@pytest.mark.parametrize("engine", ["mcl_step", "mcl_predict_update", "slam", "mapshard",
+                                    "fleet"])
+def test_sharded_engine_block_route_equals_eager(run, d, engine):
+    """Each sharded engine's steps through its `StepGraphs` (over gloo the
+    same block code eagerly; over NCCL one CUDA graph replay a step) ==
+    the eager free functions bit for bit over two steps, on every rank,
+    with the same collectives counted at each step."""
+    _, out = run
+    for o in out[d]:
+        assert bool(o[f"routes.{engine}.same"])
+        assert bool(o[f"routes.{engine}.counts_same"])
+    if engine != "fleet":  # robots never talk
+        assert int(out[d][0][f"routes.{engine}.calls"]) > 0
+

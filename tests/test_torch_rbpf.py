@@ -103,14 +103,64 @@ def test_rbpf_step_matches_jax(resample):
     across (`utils/convert.py:rbpf_state`) with JAX's motion and resampler
     draws injected: maps bit for bit, best_map_idx equal, poses within
     1e-4 px / rad, best_pose within 1e-4."""
-    jcfg, jrc = _cfgs(jc, resample)
     tcfg, trc = _cfgs(tc, resample)
+    _hold_to_jax(resample, lambda ts, odom, z, k, **draws: trbpf.step(ts, odom, z, tcfg, trc,
+                                                                     **draws))
+
+
+@pytest.mark.parametrize("resample", ["systematic", "multinomial"])
+def test_rbpf_engine_block_matches_jax(resample):
+    """`RBPF.step`'s block (`StepGraphs`: a CUDA graph on the card, the
+    same block code here) with JAX's draws injected, held to JAX's jitted
+    steps as `test_rbpf_step_matches_jax` holds the free step."""
+    tcfg, trc = _cfgs(tc, resample)
+    engine = trbpf.RBPF(tcfg, trc, device="cpu")
+
+    def port_step(ts, odom, z, k, **draws):
+        return engine.graphs.run(lambda s, o, z_: trbpf.step(s, o, z_, tcfg, trc, **draws),
+                                 ts, odom, z, key=("injected", k))
+
+    _hold_to_jax(resample, port_step)
+    assert len(engine.graphs.cache.blocks) == 3
+
+
+@pytest.mark.parametrize("resample", ["systematic", "multinomial"])
+def test_rbpf_engine_step_equals_free_step(resample):
+    """`RBPF.step` through its block == the free `rbpf.step` bit for bit
+    over 3 chained steps from cloned states, the engine's own draws: maps,
+    particles, best_map_idx, the step counter and the generator's state."""
+    from slam_tpu_torch.entry import clone_state, state_difference
+
+    tcfg, trc = _cfgs(tc, resample)
+    engine = trbpf.RBPF(tcfg, trc, seed=5, device="cpu")
+    blocked = torch.from_numpy(synthetic_room(H, W))
+    lidar = tc.LidarConfig(n_rays=12, max_dist=MAX_DIST)
+    a = engine.init(Pose.create(30.0, 30.0, 0.4), (H, W))
+    b = clone_state(a)
+    truth = [30.0, 30.0, 0.4]
+    for k in range(3):
+        truth = [truth[0] + 1.5 * math.cos(truth[2] + 0.06),
+                 truth[1] + 1.5 * math.sin(truth[2] + 0.06), truth[2] + 0.12]
+        z = tfake.scan(blocked, sensor_pose(Pose.create(*truth), tcfg.scanner_offset), lidar, trc)
+        odom = Odometry.create(0.06 + 0.01 * k, 1.5, 0.06)
+        a = engine.step(a, odom, z)
+        b = trbpf.step(b, odom, z, tcfg, trc)
+        assert state_difference(a, b) is None, k
+        assert a.step == k + 1 and bool((a.maps != 128).any())
+    assert len(engine.graphs.cache.blocks) == 1
+
+
+def _hold_to_jax(resample, port_step):
+    """`test_rbpf_step_matches_jax`'s three chained steps, each port step
+    `port_step(state, odom, scan, k, noise=, u0= or u=)` from the carried
+    JAX state."""
+    jcfg, jrc = _cfgs(jc, resample)
     blocked = jnp.asarray(synthetic_room(H, W))
     lidar = jc.LidarConfig(n_rays=12, max_dist=MAX_DIST)
     step = jax.jit(lambda s, o, z: jrbpf.step(s, o, z, jcfg, jrc))
     js = jrbpf.init(jax.random.key(3), 16, JPose.create(30.0, 30.0, 0.4), (H, W))
     truth = [30.0, 30.0, 0.4]
-    for _ in range(3):
+    for k in range(3):
         truth = [truth[0] + 1.5 * math.cos(truth[2] + 0.06),
                  truth[1] + 1.5 * math.sin(truth[2] + 0.06), truth[2] + 0.12]
         scan = jfake.scan(blocked, jsensor(JPose.create(*truth), jcfg.scanner_offset), lidar, jrc)
@@ -122,8 +172,8 @@ def test_rbpf_step_matches_jax(resample):
         draws = dict(u0=convert.tensor(jax.random.uniform(k_rs, ()))) if resample == "systematic" \
             else dict(u=convert.tensor(jax.random.uniform(k_rs, (16,))))
         js = step(js, JOdometry.create(0.06, 1.5, 0.06), scan)
-        ts = trbpf.step(ts, Odometry.create(0.06, 1.5, 0.06), t_scan(scan), tcfg, trc,
-                        noise=jax_noise(k_mot, (16,)), **draws)
+        ts = port_step(ts, Odometry.create(0.06, 1.5, 0.06), t_scan(scan), k,
+                       noise=jax_noise(k_mot, (16,)), **draws)
         np.testing.assert_array_equal(ts.maps.numpy(), np.asarray(js.maps))
         assert int(ts.best_map_idx) == int(js.best_map_idx) and ts.step == int(js.step)
         for tp, jp in ((ts.particles.pose, js.particles.pose), (ts.best_pose, js.best_pose)):

@@ -319,6 +319,78 @@ def sc_scanmatch(inp, world):
     return out
 
 
+def sc_block_routes(inp, world):
+    """Each engine's block route (`StepGraphs`: eager blocks over gloo,
+    one CUDA graph replay a step over NCCL) against the eager free
+    functions from cloned states, two steps: equal bit for bit (tensors,
+    counters, generators), with the same collectives counted a step."""
+    from slam_tpu_torch.entry import clone_state, state_difference
+    from slam_tpu_torch.models import fleet as fleet_mod
+    from slam_tpu_torch.parallel.sharded import _resample_fn
+
+    out = {}
+    mesh = make_mesh(beam_axis=2)
+    blocked = t(inp["blocked"], torch.bool)
+    scan = scan_of(inp)
+    pose = Pose.create(W / 2.0, H / 2.0, math.pi / 2)
+    rc = tc.RaycastConfig(max_dist=100.0, chunk=32)
+    mcfg = tc.MCLConfig(n_particles=N, ess_threshold=0.5)
+    m = ShardedMCL(mesh, mcfg, rc)
+    odom = Odometry.create(*ODOM_MCL)
+    scfg = slam_cfg()
+    eng = ShardedGridSLAM(mesh, scfg)
+    ms = mapshard.MapShardedGridSLAM(mesh, scfg)
+    fcfg = tc.MCLConfig(n_particles=32, meas_stddev=3.0)
+    field = rayfield.make_ray_field(blocked, rc)
+    r = 8
+    sf = ShardedMCLFleet(mesh, r, fcfg, rc, seed=3)
+    poses = Pose(x=t(inp["fleet.x"]), y=t(inp["fleet.y"]), theta=t(inp["fleet.theta"]))
+    scans = Scan(angles=t(inp["fleet.angles"]), dists=t(inp["fleet.dists"]))
+    odoms = Odometry(*(torch.full((r,), v) for v in (0.05, 1.0, 0.05)))
+    mine = Scan(angles=scans.angles[sf.robots], dists=scans.dists[sf.robots])
+    alphas = (1e-3, 1e-3, 5e-3, 5e-3)
+    cases = {
+        "mcl_step": (m.init(H, W),
+                     lambda s: m.step(s, odom, ALPHAS, scan, blocked),
+                     lambda s: mcl.step(s, odom, ALPHAS, scan, blocked, mcfg, rc,
+                                        ray_sharding=m.sharding, resample_fn=m._rfn)),
+        "mcl_predict_update": (
+            m.init(H, W),
+            lambda s: m.update(m.predict(s, odom, ALPHAS), scan, blocked),
+            lambda s: mcl.update(mcl.predict(s, odom, ALPHAS, ray_sharding=m.sharding), scan,
+                                 blocked, mcfg, rc, ray_sharding=m.sharding, resample_fn=m._rfn)),
+        "slam": (eng.init(pose),
+                 lambda s: eng.step(eng.predict(s, odom), Odometry.create(*ODOM_SLAM), scan),
+                 lambda s: slam.step(slam.predict_only(s, odom, scfg, ray_sharding=eng.sharding),
+                                     Odometry.create(*ODOM_SLAM), scan, scfg,
+                                     ray_sharding=eng.sharding, resample_fn=_rfn(eng))),
+        "mapshard": (ms.init(pose),
+                     lambda s: ms.step(ms.predict(s, odom), Odometry.create(*ODOM_SLAM), scan),
+                     lambda s: ms.eager_step(
+                         slam.predict_only(s, odom, scfg, ray_sharding=ms.sharding),
+                         Odometry.create(*ODOM_SLAM), scan)),
+        "fleet": (sf.init(poses),
+                  lambda s: sf.step(s, odoms, scans, field, alphas),
+                  lambda s: fleet_mod.fleet_step(s, Odometry(*(v[sf.robots] for v in (
+                      odoms.rot1, odoms.trans, odoms.rot2))), mine, field, alphas, fcfg, rc)),
+    }
+    for name, (st, block, eager) in cases.items():
+        a, b = st, clone_state(st)
+        same = counts_same = True
+        for _ in range(2):
+            _collectives.reset_counts()
+            a = block(a)
+            ca = _collectives.counts()
+            _collectives.reset_counts()
+            b = eager(b)
+            same &= state_difference(a, b) is None
+            counts_same &= ca == _collectives.counts()
+        out[f"routes.{name}.same"] = np.array(same)
+        out[f"routes.{name}.counts_same"] = np.array(counts_same)
+        out[f"routes.{name}.calls"] = np.array(ca["calls"])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # suite "mapshard": tests/test_torch_mapshard.py
 # ---------------------------------------------------------------------------
@@ -407,8 +479,10 @@ def sc_map_slam(inp, world):
         eng = mapshard.MapShardedGridSLAM(mesh, cfg)
         st = eng.init(Pose.create(size / 2.0, size / 2.0, math.pi / 2))
         for k in range(steps):
-            st = eng.step(st, Odometry.create(0.05, 1.5, 0.05), scan_of(inp, f"ms.{name}.scan"),
-                          noise=noise_of(mesh, inp[f"ms.noise{k}"]), u0=t(inp[f"ms.u0{k}"]))
+            st = eng.eager_step(st, Odometry.create(0.05, 1.5, 0.05),
+                                scan_of(inp, f"ms.{name}.scan"),
+                                noise=noise_of(mesh, inp[f"ms.noise{k}"]),
+                                u0=t(inp[f"ms.u0{k}"]))
         out.update(cloud(mesh, st, f"ms.{name}"))
         out[f"ms.{name}.grid"] = _gather_rows(mesh, st.grid).numpy()
         out[f"ms.{name}.block_rows"] = np.array(st.grid.shape[0])
@@ -497,7 +571,7 @@ SUITES = {
     "distributed": [sc_distributed],
     "mapshard": [sc_map_ops, sc_map_slam],
     "parallel": [sc_mcl, sc_slam_table, sc_resample, sc_lut, sc_fleet, sc_checkpoint,
-                 sc_kidnap, sc_edt_box, sc_scanmatch],
+                 sc_kidnap, sc_edt_box, sc_scanmatch, sc_block_routes],
 }
 
 
