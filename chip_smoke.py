@@ -36,7 +36,13 @@ raises, so the exit code is nonzero):
               (lut_weights) on those clouds and on 100,003 poses a third
               off the map, bf16 and u8 tables: its poses == K1's for the
               same seed bit for bit, its weights vs the plain composition
-              (share within a relative 1e-5, first argmax), timed
+              (share within a relative 1e-5, first argmax), timed; and on
+              adversarial clouds of 100,003 (the table's last cell and off
+              its edge, wrapping segments, u8 rows 8 B off 16 B, the u8
+              table's end 8 B off 16 B), with a shard at i0 != 0 == the
+              whole launch's slice bit for bit; its weights == PyTorch's
+              per-beam terms summed in its order bit for bit; scans of
+              180 and 360 beams
   7. main     bench.py's configuration end to end through mcl.step (init,
               3 warm-up steps, 5 blocks of 20 steps, CUDA-event timed,
               under set_sync_debug_mode("error")), with per-phase times
@@ -136,7 +142,8 @@ raises, so the exit code is nonzero):
               1, 4, 16), R = 1, 4, 8, 16 x 100k (one lut_weights launch a fleet
               step), the kernel at 16 x 100k vs its plain version (poses == K1's
               per robot, weights within phase 6's tolerance) and beside its
-              bound, the fleet_localization app
+              bound, and on adversarial clouds of 16 x 100,003; the
+              fleet_localization app
  22. apps       the apps on the floor plan's PNG: grid_slam's quick start, a
               --checkpoint-dir run cut in two == an uninterrupted one,
               slam_replan at 100k particles, the A*, HA*, RRT*, nearest-
@@ -1202,15 +1209,53 @@ def plain_lut_weights(lut, poses, scan, cfg, max_dist: float):
         lut_dtype=lut.dtype, max_dist=max_dist, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon)
 
 
+def kernel_order_weights(lut, poses, scan, cfg, max_dist: float):
+    """The plain per-beam terms of `poses` (sensor_pose, panorama_index, the
+    table value at each beam's bin, log_pdf_normal_clamp_eps), summed in
+    the fused kernel's order: lane l of a particle's warp adds beams l,
+    l + 32, l + 64, ... in turn (an exact 0 past the scan), and the lanes'
+    sums meet in the xor tree (16, 8, 4, 2, 1), which leaves every lane
+    the same sum. Equal to the kernel's weights bit for bit wherever the
+    kernel's terms equal PyTorch's (its exp and log are those of
+    `torch.exp` and `torch.log`)."""
+    from slam_tpu_torch.core.stats import log_pdf_normal_clamp_eps
+    from slam_tpu_torch.ops import lut as lutlib
+    from slam_tpu_torch.ops import measurement
+
+    h, w, n_bins = lut.shape
+    dev = lut.device
+    n, b = poses.x.shape[0], scan.angles.shape[0]
+    sp = measurement.sensor_pose(poses, cfg.scanner_offset)
+    pidx, inb = lutlib.panorama_index((h, w), sp.x, sp.y)
+    first = torch.remainder(torch.round((sp.theta + scan.angles[0]) / (2.0 * math.pi / n_bins))
+                            .to(torch.int32), n_bins).long()
+    bins = torch.remainder(first[:, None] + cfg.lut_beam_stride * torch.arange(b, device=dev),
+                           n_bins)
+    raw = lut.reshape(h * w, n_bins)[pidx.long()[:, None], bins]
+    pred = lutlib.dequantize(raw, lut.dtype, max_dist)
+    z = scan.dists.to(torch.float32)[None, :]
+    err = torch.where((pred < max_dist) & inb[:, None], pred - z, z - max_dist)
+    passes = -(-b // 32)
+    terms = torch.zeros((n, passes * 32), dtype=torch.float32, device=dev)
+    terms[:, :b] = log_pdf_normal_clamp_eps(cfg.meas_stddev, err, cfg.meas_epsilon)
+    acc = torch.zeros((n, 32), dtype=torch.float32, device=dev)
+    for j in range(passes):
+        acc = acc + terms[:, 32 * j:32 * j + 32]
+    lanes = torch.arange(32, device=dev)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lanes ^ off]
+    return acc[:, 0]
+
+
 def hold_fused_to_plain(lut, poses, scan, cfg, max_dist: float, seed, odom, alphas,
-                        label: str) -> dict:
+                        label: str, ties: bool = False) -> dict:
     """The fused kernel's predict -> weigh launch on one filter's `poses`
     against its plain composition, as in phase 6: its poses == K1's for
     the same seed (int64 [1]) and host odometry bit for bit, its weights
     within a relative LW_RTOL of the plain LUT weights of those poses on
-    LW_SHARE of the particles, the same best particle. Returns the share,
-    the count outside, max |diff|, the best particle and the distinct
-    panorama cells."""
+    LW_SHARE of the particles, the same best particle (`weights_held`,
+    `ties` as there). Returns the share, the count outside, max |diff|,
+    the best particle and the distinct panorama cells."""
     from slam_tpu_torch.ops import lut_weights_cuda, measurement, motion_cuda
 
     pk, lwk = lut_weights_cuda.launch(
@@ -1223,16 +1268,128 @@ def hold_fused_to_plain(lut, poses, scan, cfg, max_dist: float, seed, odom, alph
         check(torch.equal(getattr(pk, f).view(torch.int32), getattr(p1, f).view(torch.int32)),
               f"lut_weights poses != K1's for the same seed ({f}; {label})")
     pidx, lwp = plain_lut_weights(lut, p1, scan, cfg, max_dist)
+    return {**weights_held(lwk, lwp, label, ties),
+            "distinct_cells": int(torch.unique(pidx).numel())}
+
+
+def weights_held(lwk, lwp, label: str, ties: bool = False) -> dict:
+    """The kernel's weights `lwk` against the plain ones `lwp`: finite,
+    within a relative LW_RTOL on LW_SHARE of the particles, the same first
+    best particle. With `ties`, when the plain's two best weights lie so
+    close that weights each within LW_RTOL of theirs may swap them (a tie
+    that the beam sum's order may break either way), the kernel's best
+    particle need only be one whose plain weight lies that close to the
+    best. Returns the share, the count outside, max |diff|, the best
+    particle and whether the best was tied."""
     diff = (lwk - lwp).abs()
     close = diff <= LW_RTOL * lwp.abs()
     share = float(close.float().mean())
     arg_k, arg_p = int(torch.argmax(lwk)), int(torch.argmax(lwp))
     check(bool(torch.isfinite(lwk).all()), f"lut_weights non-finite ({label})")
     check(share >= LW_SHARE, f"lut_weights {label}: {share} within {LW_RTOL} < {LW_SHARE}")
-    check(arg_k == arg_p, f"lut_weights {label}: best particle {arg_k} != plain {arg_p}")
+    top = torch.topk(lwp, 2).values.tolist()
+    tied = ties and top[0] - top[1] <= LW_RTOL * (abs(top[0]) + abs(top[1]))
+    if tied:
+        mine = float(lwp[arg_k])
+        check(top[0] - mine <= LW_RTOL * (abs(top[0]) + abs(mine)),
+              f"lut_weights {label}: best particle {arg_k} not among the plain's tied best")
+    else:
+        check(arg_k == arg_p, f"lut_weights {label}: best particle {arg_k} != plain {arg_p}")
     return {"within_rtol_share": share, "outside": int((~close).sum()),
-            "max_abs_diff": float(diff.max()), "best_particle": arg_k,
-            "distinct_cells": int(torch.unique(pidx).numel())}
+            "max_abs_diff": float(diff.max()), "best_particle": arg_k, "best_tied": int(tied)}
+
+
+def hold_adversarial(lut, scan, cfg, max_dist: float, r: int, label: str, seed0: int) -> dict:
+    """The fused kernel on adversarial clouds of RAGGED_N particles a robot
+    (`tools/lut_weights_ab.adversarial_poses`: sensors in the table's last
+    cell, off its bottom-right edge and so clamped to that cell, on
+    segments that wrap, on rows of odd index (a u8 row 8 B off 16 B), on
+    random cells), r robots in one launch (`scan` [B], or [r, B] for r >
+    1) under the zero odometry with seeds seed0 + q: robot q's poses ==
+    K1's for its seed bit for bit, its weights held to the plain
+    composition (`weights_held`; these clouds put thousands of sensors in
+    one cell, so their best weights may tie). With r = 1 also a shard of
+    the particles from i0 = RAGGED_N // 3 on: its poses == K1's at that i0
+    and its poses and weights == the whole launch's slice bit for bit.
+    Returns the share within LW_RTOL, the count outside, max |diff|, the
+    kinds' counts and, for each kind, the particles whose segment reaches
+    the table's last byte."""
+    from slam_tpu_torch.core.types import Odometry, Pose, Scan
+    from slam_tpu_torch.ops import lut as lutlib
+    from slam_tpu_torch.ops import lut_weights_cuda, measurement, motion_cuda
+    from slam_tpu_torch.tools import lut_weights_ab as ab
+
+    dev = lut.device
+    h, w, n_bins = lut.shape
+    disp = measurement.scanner_displacement(cfg.scanner_offset)
+    g = cfg.lut_beam_stride
+    span = g * (scan.angles.shape[-1] - 1) + 1
+    rng = np.random.default_rng(seed0)
+    scans = [scan] if r == 1 else [Scan(angles=scan.angles[q], dists=scan.dists[q])
+                                   for q in range(r)]
+    clouds, kinds = [], []
+    for q in range(r):
+        xyz, kind = ab.adversarial_poses(h, w, n_bins, RAGGED_N, span, disp,
+                                         float(scans[q].angles[0]), rng)
+        clouds.append([torch.from_numpy(v).to(dev) for v in xyz])
+        kinds.append(kind)
+    poses = Pose(*clouds[0]) if r == 1 else Pose(*(torch.stack(v) for v in zip(*clouds)))
+    zero = Odometry.create(0.0, 0.0, 0.0)
+    seeds = torch.arange(r, dtype=torch.int64, device=dev) + seed0
+    alphas = (0.0005, 0.0005, 0.01, 0.01)
+    wkw = dict(beam_stride=g, displacement=disp, max_dist=max_dist, stddev=cfg.meas_stddev,
+               eps=cfg.meas_epsilon)
+    rows = motion_cuda.odometry_rows(Odometry.create([0.0] * r, [0.0] * r, [0.0] * r), dev)
+    pk, lwk = lut_weights_cuda.launch(lut, n_bins, poses, scan, motion=(seeds, rows, alphas),
+                                      **wkw)
+    outside, max_diff, at_end, ties = 0, 0.0, {}, 0
+    cell_bytes = n_bins * lut.element_size()
+    for q in range(r):
+        pq = poses if r == 1 else Pose(x=poses.x[q], y=poses.y[q], theta=poses.theta[q])
+        kq = pk if r == 1 else Pose(x=pk.x[q], y=pk.y[q], theta=pk.theta[q])
+        lq = lwk if r == 1 else lwk[q]
+        p1 = motion_cuda.launch(seeds[q:q + 1], zero, pq, alphas)
+        for f in ("x", "y", "theta"):
+            check(torch.equal(getattr(kq, f).view(torch.int32), getattr(p1, f).view(torch.int32)),
+                  f"lut_weights poses != K1's ({f}; {label}, robot {q})")
+        pidx, lwp = plain_lut_weights(lut, p1, scans[q], cfg, max_dist)
+        held = weights_held(lq, lwp, f"{label}, robot {q}", ties=True)
+        ties += held["best_tied"]
+        outside += held["outside"]
+        max_diff = max(max_diff, held["max_abs_diff"])
+        # A segment reaches the table's last bytes: the last cell, on the
+        # map, with a segment running to its row's end.
+        sp = measurement.sensor_pose(p1, cfg.scanner_offset)
+        inb = lutlib.panorama_index((h, w), sp.x, sp.y)[1]
+        first = torch.remainder(torch.round((sp.theta + scans[q].angles[0]) / (
+            2 * math.pi / n_bins)), n_bins)
+        end = (pidx == h * w - 1) & inb & (first + span >= n_bins)
+        for k, name in enumerate(ab.KINDS):
+            sel = torch.from_numpy(kinds[q] == k).to(dev)
+            at_end[name] = at_end.get(name, 0) + int((end & sel).sum())
+    share = 1.0 - outside / (r * RAGGED_N)
+    check(share >= LW_SHARE, f"lut_weights {label}: {share} within {LW_RTOL} < {LW_SHARE}")
+    check(at_end["last_cell"] > 0, f"lut_weights {label}: no copy reached the table's end")
+    out = {"robots": r, "particles": RAGGED_N, "table_bytes_mod_16":
+           lut.numel() * lut.element_size() % 16, "row_bytes": cell_bytes,
+           "within_rtol_share": share, "outside": outside, "max_abs_diff": max_diff,
+           "robots_best_tied": ties, "kinds": {name: int(sum((k_ == i).sum() for k_ in kinds))
+                     for i, name in enumerate(ab.KINDS)}, "reach_table_end": at_end}
+    if r == 1:
+        i0 = RAGGED_N // 3
+        part = Pose(*(v[i0:].contiguous() for v in (poses.x, poses.y, poses.theta)))
+        ps, lws = lut_weights_cuda.launch(lut, n_bins, part, scan, motion=(seeds, rows, alphas),
+                                          i0=i0, **wkw)
+        p1 = motion_cuda.launch(seeds, zero, part, alphas, i0=i0)
+        for f in ("x", "y", "theta"):
+            a, b, c = (getattr(v, f) for v in (ps, p1, pk))
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  and torch.equal(a.view(torch.int32), c[i0:].view(torch.int32)),
+                  f"lut_weights shard at i0 = {i0} != K1 / the whole launch ({f}; {label})")
+        check(torch.equal(lws.view(torch.int32), lwk[i0:].view(torch.int32)),
+              f"lut_weights shard at i0 = {i0}: weights != the whole launch's ({label})")
+        out["shard_i0"] = i0
+    return out
 
 
 def clone_generator(g: torch.Generator) -> torch.Generator:
@@ -1898,6 +2055,12 @@ def maze_phase(dev, counts) -> dict:
                 field.lut, motion.sample_motion_model_odometry(odom, pose, mb.ALPHAS,
                                                                generator=gp),
                 scan, cfg, rc.max_dist))[0]
+            n_beams = scan.angles.shape[0]
+            mb_bound = bound(MAZE_PARTICLES * (12 + 12 + 4) + held["distinct_cells"] * n_beams
+                             + n_beams * 8 + 8,
+                             MAZE_PARTICLES * (OPS_SAMPLE + OPS_LOCATE + n_beams * OPS_BEAM))
+            held.update(bound_ms=mb_bound[0], bound_by=mb_bound[1],
+                        bound_share=mb_bound[0] / held["ms"])
             say("maze", f"lut_weights on the u8 table, {MAZE_PARTICLES} particles: poses == "
                 f"K1's bit for bit; {json.dumps(held)}")
 
@@ -2206,6 +2369,11 @@ def fleet_phase(dev, blocked_np, field, counts, map_png, workdir) -> dict:
                            "bound_ms": kb[0], "bound_by": kb[1], "bound_share": kb[0] / k_ms}
     say("fleet", f"lut_weights at R x N = {r} x {n}: poses == K1's bit for bit per robot; "
         f"{json.dumps(out['kernel_fleet'])}")
+    # The same launch on adversarial clouds of RAGGED_N particles a robot.
+    out["kernel_fleet_adversarial"] = hold_adversarial(field.lut, scans, cfg, rc.max_dist, r,
+                                                       f"fleet R={r} adversarial", 41)
+    say("fleet", f"lut_weights at R x N = {r} x {RAGGED_N}, adversarial clouds: poses == K1's "
+        f"bit for bit per robot; {json.dumps(out['kernel_fleet_adversarial'])}")
 
     # The fleet_localization app at its defaults on the plan's PNG.
     reset_counts()
@@ -3959,6 +4127,12 @@ def main() -> None:
             _, lw_only = fused(lut_, 360, p1, scan, **wkw)
             check(torch.equal(lw_only, lwk), f"lut_weights with / without predict ({label})")
             _, pidx, lwp = pano_weights(lut_, p1, plain_rows)
+            # The kernel's log_normal is logf bit for bit: its weights equal
+            # PyTorch's terms summed in its order.
+            same = float((kernel_order_weights(lut_, p1, scan, cfg, rc.max_dist).view(torch.int32)
+                          == lwk.view(torch.int32)).float().mean())
+            check(same >= LW_SHARE, f"lut_weights: {same} of weights == PyTorch's terms summed "
+                  f"in the kernel's order < {LW_SHARE} ({tname}, {label})")
             check(bool(torch.isfinite(lwk).all()), f"lut_weights non-finite ({tname}, {label})")
             diff = (lwk - lwp).abs()
             close = diff <= LW_RTOL * lwp.abs()
@@ -3977,7 +4151,36 @@ def main() -> None:
                 f"{LW_RTOL} of the plain composition ({n_far} outside), max |diff| "
                 f"{float(diff.max()):.3e}, within {float(diff[close].max()):.3e}; best "
                 f"particle {arg_k} in both; {off} sensors off the map; weigh-only launch "
-                "equal bit for bit")
+                f"equal bit for bit; {same} of weights == PyTorch's terms summed in the "
+                "kernel's order bit for bit")
+
+    # The adversarial clouds (the table's last cell and off its edge,
+    # wrapping segments, u8 rows 8 B off 16 B, N = RAGGED_N, a shard at
+    # i0 != 0): the floor plan's 599 x 1297 cells are odd, so the u8
+    # table ends 8 B off a 16 B boundary and its last row's copies clamp.
+    adversarial = {}
+    for tname, lut_ in (("bf16", lut), ("u8", field_u8.lut)):
+        adversarial[tname] = hold_adversarial(lut_, scan, cfg, rc.max_dist, 1,
+                                              f"{tname} adversarial", 31)
+        lw_err = max(lw_err, adversarial[tname]["max_abs_diff"])
+        say("lut_weights", f"{tname}, adversarial clouds: poses == K1's bit for bit, the shard "
+            f"== the whole launch's slice; {json.dumps(adversarial[tname])}")
+
+    # Scans of more than 96 beams take the kernel's wider builds (6 and 12
+    # beams a lane): 180 and 360 beams over 2 pi, on the bench cloud (sums
+    # of 360 terms round further apart: its best weights may tie).
+    wide = {}
+    for n_rays in (180, 360):
+        lid = LidarConfig(start=0.0, stop=2 * math.pi, max_dist=500.0, n_rays=n_rays)
+        cfg_w = dataclasses.replace(cfg, lut_beam_stride=beam_bin_stride(lid, rc))
+        scan_w = fake_lidar.scan(blocked, sensor, lid, RaycastConfig(max_dist=500.0))
+        for tname, lut_ in (("bf16", lut), ("u8", field_u8.lut)):
+            wide[f"{n_rays}_{tname}"] = hold_fused_to_plain(
+                lut_, state.particles.pose, scan_w, cfg_w, rc.max_dist, seed(11), bench_odom,
+                bench_alphas, f"{tname}, {n_rays} beams", ties=True)
+            lw_err = max(lw_err, wide[f"{n_rays}_{tname}"]["max_abs_diff"])
+    say("lut_weights", f"180 and 360 beams over 2 pi (6 and 12 a lane), bench cloud: poses == "
+        f"K1's bit for bit; {json.dumps(wide)}")
 
     def plain_predict_weigh(poses):
         p_ = motion.sample_motion_model_odometry(bench_odom, poses, bench_alphas, generator=g)
@@ -3996,6 +4199,7 @@ def main() -> None:
             "weigh_only_ms": device_ms(lambda: fused(lut, 360, poses, scan, **wkw))[0],
             "plain_ms": device_ms(lambda: plain_predict_weigh(poses))[0],
             "bound_ms": lw_bound[0], "bound_by": lw_bound[1], "distinct_cells": cells}
+        lw_times[label]["bound_share"] = lw_bound[0] / lw_times[label]["ms"]
         say("lut_weights", f"{label}, bf16, N={N_PARTICLES}: device time {json.dumps(lw_times[label])}")
 
     # 7. main path: bench.py's configuration through mcl.step -----------------
@@ -4476,25 +4680,32 @@ def main() -> None:
          "replaces": "slam_tpu/ops/motion_pallas.py:76 (K1, fused as the prologue) + "
                      "slam_tpu/ops/measurement.py:669 (particle_log_weights_lut_fused)",
          "launches": main_launches["lut_weights"],
-         # Largest |weight - plain| over both tables and the three clouds
-         # of phase 6 (a bin or cell on a rounding tie flips a particle's
-         # weight whole; the share within LW_RTOL is checked there); the
-         # poses equal K1's bit for bit. Times on the bench cloud, bf16.
+         # Largest |weight - plain| over both tables, the three clouds of
+         # phase 6 and its adversarial clouds (a bin or cell on a rounding
+         # tie flips a particle's weight whole; the share within LW_RTOL is
+         # checked there); the poses equal K1's bit for bit. Times on the
+         # bench cloud, bf16.
          "max_abs_err": lw_err, "ms": lw_bench["ms"], "plain_ms": lw_bench["plain_ms"],
          "bound_ms": lw_bench["bound_ms"], "bound_by": lw_bench["bound_by"],
-         "library_ms": None,
+         "bound_share": lw_bench["bound_share"], "library_ms": None,
          # Phase 15: step 1 of the 1M uniform global-localization cloud.
          "ms_1m_uniform": lw_1m["ms"], "plain_ms_1m_uniform": lw_1m["plain_ms"],
          "bound_ms_1m_uniform": lw_1m["bound_ms"], "bound_by_1m_uniform": lw_1m["bound_by"],
+         "bound_share_1m_uniform": lw_1m["bound_share"],
          "max_abs_err_1m_uniform": lw_1m["max_abs_diff"],
          # Phase 21: one launch for a fleet of 16 x 100k (robot axis).
          "ms_fleet_16x100k": lw_fleet["ms"], "plain_ms_fleet_16x100k": lw_fleet["plain_ms"],
          "bound_ms_fleet_16x100k": lw_fleet["bound_ms"],
          "bound_by_fleet_16x100k": lw_fleet["bound_by"],
+         "bound_share_fleet_16x100k": lw_fleet["bound_share"],
          "max_abs_err_fleet_16x100k": lw_fleet["max_abs_diff"],
          # Phase 20: the maze's 10k step on its 2400 px u8 table.
          "ms_maze_u8_10k": lw_maze["ms"], "plain_ms_maze_u8_10k": lw_maze["plain_ms"],
-         "max_abs_err_maze_u8_10k": lw_maze["max_abs_diff"]},
+         "bound_ms_maze_u8_10k": lw_maze["bound_ms"], "bound_by_maze_u8_10k": lw_maze["bound_by"],
+         "bound_share_maze_u8_10k": lw_maze["bound_share"],
+         "max_abs_err_maze_u8_10k": lw_maze["max_abs_diff"],
+         # Phase 21: the adversarial clouds of 16 robots x RAGGED_N.
+         "max_abs_err_fleet_adversarial": fl["kernel_fleet_adversarial"]["max_abs_diff"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -34,8 +34,10 @@ from slam_tpu_torch.ops.lut import lut_quant_step
 
 # Table dtype -> the launcher's `table_u8` flag.
 TABLE_DTYPES = {torch.bfloat16: 0, torch.uint8: 1}
-# The scan's ranges sit in the block's shared memory (48 KB by default).
-MAX_BEAMS = 48 * 1024 // 4
+# A lane takes at most 12 of a particle's beams, in registers
+# (`csrc/lut_weights.cu:launch_beams`: 3 up to 96 beams, 6 up to 192, 12
+# up to 384).
+MAX_BEAMS = 384
 
 
 def weigh_params(lut_dtype, *, n_bins: int, displacement, max_dist: float,
@@ -89,7 +91,7 @@ def _robot_inputs(poses: Pose, scan: Scan, seed, odo, dev):
 def launch(
     lut: torch.Tensor, n_bins: int, poses: Pose, scan: Scan, *, beam_stride: int,
     displacement, max_dist: float, stddev: float, eps: float, motion=None,
-    i0: int = 0,
+    i0: int = 0, library=None,
 ):
     """Run the kernel: `lut` [H, W, P] bf16 or u8 on a CUDA device (P >=
     n_bins storage width), poses f32 [N] there (one filter) or [R, N] (R
@@ -101,10 +103,10 @@ def launch(
     are first sampled with K1's sampler, robot r with seed[r] and odo[r],
     particle i with Philox counter `i0` + i (`i0`: the global index of a
     particle shard's first particle, 0 for a whole filter or a fleet).
+    `library`: the loaded kernel library to launch (default the package's,
+    `_build.library()`; `tools/lut_weights_ab.py` passes other builds).
     Returns (the sampled poses, or None without `motion`; lw f32 [N] or
     [R, N])."""
-    if not lut.is_cuda:
-        raise ValueError("the kernel takes a table on a CUDA device")
     if lut.dtype not in TABLE_DTYPES:
         raise ValueError(f"table dtype {lut.dtype}: the kernel reads bf16 or u8 tables")
     if lut.dim() != 3 or not lut.is_contiguous():
@@ -112,10 +114,12 @@ def launch(
     h, w, stride = lut.shape
     g = int(beam_stride)
     n_beams = scan.angles.shape[-1]
-    if not (1 <= g and n_bins <= stride and n_bins % g == 0 and n_beams <= n_bins // g):
+    if not (1 <= g and n_bins <= stride and n_bins % g == 0 and 1 <= n_beams <= n_bins // g):
         raise ValueError(f"{n_beams} beams at stride {g} do not fit {n_bins} bins")
     if n_beams > MAX_BEAMS:
         raise ValueError(f"{n_beams} beams exceed the kernel's {MAX_BEAMS}")
+    if not lut.is_cuda:
+        raise ValueError("the kernel takes a table on a CUDA device")
     dev = lut.device
     seed, odo, alphas = (None, None, (0.0,) * 4) if motion is None else motion
     x, y, th, angles, dists, r, n = _robot_inputs(poses, scan, seed, odo, dev)
@@ -131,7 +135,7 @@ def launch(
         return out, lw
     params = weigh_params(lut.dtype, n_bins=n_bins, displacement=displacement,
                           max_dist=max_dist, stddev=stddev, eps=eps)
-    lib, _ = _build.library()
+    lib = library if library is not None else _build.library()[0]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.lut_weights_launch(

@@ -17,9 +17,11 @@ from slam_tpu.models import fake_lidar as jfake
 from slam_tpu.ops import measurement as jmeas
 from slam_tpu.ops import rayfield as jrf
 from slam_tpu_torch.core.config import RaycastConfig
+from slam_tpu_torch.core.types import Scan
 from slam_tpu_torch.ops import lut as tlut
 from slam_tpu_torch.ops import lut_weights_cuda
 from slam_tpu_torch.ops import measurement as tmeas
+from slam_tpu_torch.tools import lut_weights_ab
 from slam_tpu_torch.utils import convert
 from torch_port import np_, random_poses, room, t_field, t_scan
 
@@ -148,3 +150,49 @@ def test_lut_weights_kernel_wrapper_on_the_cpu():
     codes = torch.arange(256).to(torch.uint8)
     np.testing.assert_array_equal(((codes.float() + 0.5) * float(params[-1])).numpy(),
                                   tlut.dequantize(codes, torch.uint8, MAX_DIST).numpy())
+
+
+@pytest.mark.parametrize("n_beams,refused", [(90, False), (384, False), (385, True),
+                                             (1800, True)])
+def test_lut_weights_kernel_beam_limit(n_beams, refused):
+    """The kernel's lanes hold at most MAX_BEAMS = 384 beams (12 a lane) in
+    registers: a longer scan raises ValueError on any table, before the
+    device check, and counts no launch; a scan within it reaches the
+    device check (a CPU table raises there)."""
+    table = torch.zeros((2, 2, 3600), dtype=torch.bfloat16)
+    scan = Scan(angles=torch.zeros(n_beams), dists=torch.ones(n_beams))
+    poses = convert.pose(*(np.ones(4, np.float32) for _ in range(3)))
+    before = lut_weights_cuda.launch.launches
+    with pytest.raises(ValueError, match="exceed" if refused else "CUDA"):
+        lut_weights_cuda.launch(table, 3600, poses, scan, beam_stride=2,
+                                displacement=tmeas.scanner_displacement(OFFSET),
+                                max_dist=MAX_DIST, stddev=5.0, eps=0.1)
+    assert lut_weights_cuda.launch.launches == before
+
+
+def test_adversarial_poses_land_where_named():
+    """`tools/lut_weights_ab.adversarial_poses` (the kernel's adversarial
+    clouds on the card): through the plain sensor pose and panorama index,
+    each kind's sensors land where it says, every first bin 0.2 bins or
+    more off a rounding tie."""
+    h, w, n_bins, n, span = 37, 53, 360, 2003, 179
+    disp = tmeas.scanner_displacement(OFFSET)
+    angle0 = 0.25
+    (x, y, th), kind = lut_weights_ab.adversarial_poses(h, w, n_bins, n, span, disp, angle0,
+                                                        np.random.default_rng(3))
+    sp = tmeas.sensor_pose(convert.pose(x, y, th), OFFSET)
+    idx, inb = tlut.panorama_index((h, w), sp.x, sp.y)
+    idx, inb = idx.numpy(), inb.numpy()
+    q = ((sp.theta.double().numpy() + angle0) / (2 * math.pi / n_bins))
+    s = np.round(q).astype(np.int64) % n_bins
+    assert (np.abs(q - np.round(q)) <= 0.31).all()
+    kinds = lut_weights_ab.KINDS
+    for name in kinds:
+        assert (kind == kinds.index(name)).sum() >= n // len(kinds)
+    last, off = kind == kinds.index("last_cell"), kind == kinds.index("off_bottom_right")
+    assert (idx[last] == h * w - 1).all() and inb[last].all()
+    assert (idx[off] == h * w - 1).all() and not inb[off].any()
+    wrapped = kind == kinds.index("wrapped")
+    assert (s[wrapped] + span > n_bins).all() and (s[wrapped] == n_bins - 1).any()
+    odd = kind == kinds.index("odd_row")
+    assert (idx[odd] % 2 == 1).all() and inb[odd].all()
