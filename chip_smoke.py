@@ -240,6 +240,9 @@ N_PARTICLES = 100_000
 LW_RTOL = 1e-5
 LW_SHARE = 0.999
 RAGGED_N = 100_003
+# The fused kernel's adversarial clouds (`adversarial_poses`): where their
+# sensors land.
+ADVERSARIAL_KINDS = ("last_cell", "off_bottom_right", "wrapped", "odd_row", "random")
 # Least-time bounds (H100 SXM datasheet: 3.35 TB/s HBM,
 # 67 TFLOP/s FP32 outside the tensor cores, at 700 W). Operations per
 # particle and per beam are counted from the kernels' arithmetic, integer
@@ -1209,6 +1212,50 @@ def plain_lut_weights(lut, poses, scan, cfg, max_dist: float):
         lut_dtype=lut.dtype, max_dist=max_dist, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon)
 
 
+def adversarial_poses(h: int, w: int, n_bins: int, n: int, span: int, displacement,
+                      angle0: float, rng):
+    """n poses (f32 numpy x, y, theta) and their kinds (index into
+    ADVERSARIAL_KINDS),
+    the kinds dealt in turn and shuffled, whose sensors (`displacement` =
+    (d, theta, rot), `measurement.scanner_displacement`) land: in the
+    table's last cell (row (h-1) w + w-1: a segment reaching its end is the
+    table's last bytes); off the map's bottom-right edge (clamped to that
+    cell, off the map); on a random cell with a segment of `span` bins
+    that wraps (first bin in [n_bins - span + 1, n_bins)); on a random cell
+    of odd row index (a u8 row of 360 B starts 8 B off 16 B); on a random
+    cell. Each heading puts the first bin, round((theta + rot + angle0) /
+    binw) mod n_bins, 0.3 bins or less off a chosen bin, so never on a
+    rounding tie; each position sits 0.1 px or more inside its cell."""
+    d, dth, rot = displacement
+    binw = 2.0 * math.pi / n_bins
+    kind = np.arange(n) % len(ADVERSARIAL_KINDS)
+    rng.shuffle(kind)
+    i = rng.integers(0, h, n)
+    j = rng.integers(0, w, n)
+    odd = kind == ADVERSARIAL_KINDS.index("odd_row")
+    flip = odd & ((i * w + j) % 2 == 0)
+    j = np.where(flip, np.where(j + 1 < w, j + 1, j - 1), j)
+    # Cell (i, j) holds sensor y in (h - i - 2, h - i - 1] (i = floor(h - y - 1)).
+    sx = j + rng.uniform(0.1, 0.9, n)
+    sy = h - i - 1 - rng.uniform(0.1, 0.9, n)
+    last = kind == ADVERSARIAL_KINDS.index("last_cell")
+    sx = np.where(last, w - 1 + rng.uniform(0.1, 0.9, n), sx)
+    sy = np.where(last, -rng.uniform(0.1, 0.9, n), sy)
+    off = kind == ADVERSARIAL_KINDS.index("off_bottom_right")
+    sx = np.where(off, w + rng.uniform(0.5, 50.0, n), sx)
+    sy = np.where(off, -rng.uniform(1.5, 50.0, n), sy)
+    first = rng.integers(0, n_bins, n)
+    wrapped = kind == ADVERSARIAL_KINDS.index("wrapped")
+    lo = max(n_bins - span + 1, 0)
+    first = np.where(wrapped, rng.integers(lo, n_bins, n), first)
+    first[np.flatnonzero(wrapped)[:8]] = n_bins - 1
+    heading = (first + rng.uniform(-0.3, 0.3, n)) * binw - angle0 - rot
+    theta = (heading + math.pi) % (2.0 * math.pi) - math.pi
+    x = sx - np.cos(theta + dth) * d
+    y = sy - np.sin(theta + dth) * d
+    return (x.astype(np.float32), y.astype(np.float32), theta.astype(np.float32)), kind
+
+
 def kernel_order_weights(lut, poses, scan, cfg, max_dist: float):
     """The plain per-beam terms of `poses` (sensor_pose, panorama_index, the
     table value at each beam's bin, log_pdf_normal_clamp_eps), summed in
@@ -1247,6 +1294,19 @@ def kernel_order_weights(lut, poses, scan, cfg, max_dist: float):
     return acc[:, 0]
 
 
+def order_held(lwk, lut, poses, scan, cfg, max_dist: float, label: str) -> float:
+    """The share of the kernel's weights `lwk` of `poses` that equal the
+    plain per-beam terms summed in the kernel's order bit for bit
+    (`kernel_order_weights`); fails below LW_SHARE. Where that holds, a
+    weight off the plain one by more than LW_RTOL, or a best particle
+    other than the plain's, comes from the order of the sum alone."""
+    same = float((kernel_order_weights(lut, poses, scan, cfg, max_dist).view(torch.int32)
+                  == lwk.view(torch.int32)).float().mean())
+    check(same >= LW_SHARE, f"lut_weights: {same} of weights == PyTorch's terms summed "
+          f"in the kernel's order < {LW_SHARE} ({label})")
+    return same
+
+
 def hold_fused_to_plain(lut, poses, scan, cfg, max_dist: float, seed, odom, alphas,
                         label: str, ties: bool = False) -> dict:
     """The fused kernel's predict -> weigh launch on one filter's `poses`
@@ -1254,8 +1314,10 @@ def hold_fused_to_plain(lut, poses, scan, cfg, max_dist: float, seed, odom, alph
     the same seed (int64 [1]) and host odometry bit for bit, its weights
     within a relative LW_RTOL of the plain LUT weights of those poses on
     LW_SHARE of the particles, the same best particle (`weights_held`,
-    `ties` as there). Returns the share, the count outside, max |diff|,
-    the best particle and the distinct panorama cells."""
+    `ties` as there), and equal on LW_SHARE of them to the plain terms
+    summed in the kernel's order bit for bit (`order_held`). Returns the
+    share, the count outside, max |diff|, the best particle, the share
+    equal in the kernel's order and the distinct panorama cells."""
     from slam_tpu_torch.ops import lut_weights_cuda, measurement, motion_cuda
 
     pk, lwk = lut_weights_cuda.launch(
@@ -1269,6 +1331,7 @@ def hold_fused_to_plain(lut, poses, scan, cfg, max_dist: float, seed, odom, alph
               f"lut_weights poses != K1's for the same seed ({f}; {label})")
     pidx, lwp = plain_lut_weights(lut, p1, scan, cfg, max_dist)
     return {**weights_held(lwk, lwp, label, ties),
+            "kernel_order_share": order_held(lwk, lut, p1, scan, cfg, max_dist, label),
             "distinct_cells": int(torch.unique(pidx).numel())}
 
 
@@ -1301,14 +1364,15 @@ def weights_held(lwk, lwp, label: str, ties: bool = False) -> dict:
 
 def hold_adversarial(lut, scan, cfg, max_dist: float, r: int, label: str, seed0: int) -> dict:
     """The fused kernel on adversarial clouds of RAGGED_N particles a robot
-    (`tools/lut_weights_ab.adversarial_poses`: sensors in the table's last
+    (`adversarial_poses`: sensors in the table's last
     cell, off its bottom-right edge and so clamped to that cell, on
     segments that wrap, on rows of odd index (a u8 row 8 B off 16 B), on
     random cells), r robots in one launch (`scan` [B], or [r, B] for r >
     1) under the zero odometry with seeds seed0 + q: robot q's poses ==
     K1's for its seed bit for bit, its weights held to the plain
     composition (`weights_held`; these clouds put thousands of sensors in
-    one cell, so their best weights may tie). With r = 1 also a shard of
+    one cell, so their best weights may tie) and to the plain terms summed
+    in the kernel's order bit for bit (`order_held`). With r = 1 also a shard of
     the particles from i0 = RAGGED_N // 3 on: its poses == K1's at that i0
     and its poses and weights == the whole launch's slice bit for bit.
     Returns the share within LW_RTOL, the count outside, max |diff|, the
@@ -1317,7 +1381,6 @@ def hold_adversarial(lut, scan, cfg, max_dist: float, r: int, label: str, seed0:
     from slam_tpu_torch.core.types import Odometry, Pose, Scan
     from slam_tpu_torch.ops import lut as lutlib
     from slam_tpu_torch.ops import lut_weights_cuda, measurement, motion_cuda
-    from slam_tpu_torch.tools import lut_weights_ab as ab
 
     dev = lut.device
     h, w, n_bins = lut.shape
@@ -1329,8 +1392,8 @@ def hold_adversarial(lut, scan, cfg, max_dist: float, r: int, label: str, seed0:
                                    for q in range(r)]
     clouds, kinds = [], []
     for q in range(r):
-        xyz, kind = ab.adversarial_poses(h, w, n_bins, RAGGED_N, span, disp,
-                                         float(scans[q].angles[0]), rng)
+        xyz, kind = adversarial_poses(h, w, n_bins, RAGGED_N, span, disp,
+                                      float(scans[q].angles[0]), rng)
         clouds.append([torch.from_numpy(v).to(dev) for v in xyz])
         kinds.append(kind)
     poses = Pose(*clouds[0]) if r == 1 else Pose(*(torch.stack(v) for v in zip(*clouds)))
@@ -1342,7 +1405,7 @@ def hold_adversarial(lut, scan, cfg, max_dist: float, r: int, label: str, seed0:
     rows = motion_cuda.odometry_rows(Odometry.create([0.0] * r, [0.0] * r, [0.0] * r), dev)
     pk, lwk = lut_weights_cuda.launch(lut, n_bins, poses, scan, motion=(seeds, rows, alphas),
                                       **wkw)
-    outside, max_diff, at_end, ties = 0, 0.0, {}, 0
+    outside, max_diff, at_end, ties, order = 0, 0.0, {}, 0, 1.0
     cell_bytes = n_bins * lut.element_size()
     for q in range(r):
         pq = poses if r == 1 else Pose(x=poses.x[q], y=poses.y[q], theta=poses.theta[q])
@@ -1354,6 +1417,8 @@ def hold_adversarial(lut, scan, cfg, max_dist: float, r: int, label: str, seed0:
                   f"lut_weights poses != K1's ({f}; {label}, robot {q})")
         pidx, lwp = plain_lut_weights(lut, p1, scans[q], cfg, max_dist)
         held = weights_held(lq, lwp, f"{label}, robot {q}", ties=True)
+        order = min(order, order_held(lq, lut, p1, scans[q], cfg, max_dist,
+                                      f"{label}, robot {q}"))
         ties += held["best_tied"]
         outside += held["outside"]
         max_diff = max(max_diff, held["max_abs_diff"])
@@ -1364,7 +1429,7 @@ def hold_adversarial(lut, scan, cfg, max_dist: float, r: int, label: str, seed0:
         first = torch.remainder(torch.round((sp.theta + scans[q].angles[0]) / (
             2 * math.pi / n_bins)), n_bins)
         end = (pidx == h * w - 1) & inb & (first + span >= n_bins)
-        for k, name in enumerate(ab.KINDS):
+        for k, name in enumerate(ADVERSARIAL_KINDS):
             sel = torch.from_numpy(kinds[q] == k).to(dev)
             at_end[name] = at_end.get(name, 0) + int((end & sel).sum())
     share = 1.0 - outside / (r * RAGGED_N)
@@ -1373,8 +1438,8 @@ def hold_adversarial(lut, scan, cfg, max_dist: float, r: int, label: str, seed0:
     out = {"robots": r, "particles": RAGGED_N, "table_bytes_mod_16":
            lut.numel() * lut.element_size() % 16, "row_bytes": cell_bytes,
            "within_rtol_share": share, "outside": outside, "max_abs_diff": max_diff,
-           "robots_best_tied": ties, "kinds": {name: int(sum((k_ == i).sum() for k_ in kinds))
-                     for i, name in enumerate(ab.KINDS)}, "reach_table_end": at_end}
+           "robots_best_tied": ties, "kernel_order_share_min": order, "kinds": {name: int(sum((k_ == i).sum() for k_ in kinds))
+                     for i, name in enumerate(ADVERSARIAL_KINDS)}, "reach_table_end": at_end}
     if r == 1:
         i0 = RAGGED_N // 3
         part = Pose(*(v[i0:].contiguous() for v in (poses.x, poses.y, poses.theta)))
@@ -4129,10 +4194,7 @@ def main() -> None:
             _, pidx, lwp = pano_weights(lut_, p1, plain_rows)
             # The kernel's log_normal is logf bit for bit: its weights equal
             # PyTorch's terms summed in its order.
-            same = float((kernel_order_weights(lut_, p1, scan, cfg, rc.max_dist).view(torch.int32)
-                          == lwk.view(torch.int32)).float().mean())
-            check(same >= LW_SHARE, f"lut_weights: {same} of weights == PyTorch's terms summed "
-                  f"in the kernel's order < {LW_SHARE} ({tname}, {label})")
+            same = order_held(lwk, lut_, p1, scan, cfg, rc.max_dist, f"{tname}, {label}")
             check(bool(torch.isfinite(lwk).all()), f"lut_weights non-finite ({tname}, {label})")
             diff = (lwk - lwp).abs()
             close = diff <= LW_RTOL * lwp.abs()
@@ -4181,6 +4243,33 @@ def main() -> None:
             lw_err = max(lw_err, wide[f"{n_rays}_{tname}"]["max_abs_diff"])
     say("lut_weights", f"180 and 360 beams over 2 pi (6 and 12 a lane), bench cloud: poses == "
         f"K1's bit for bit; {json.dumps(wide)}")
+
+    # A scan of more than 384 beams runs in chunks of 384 (12 beams a lane
+    # a chunk): 720 beams over 2 pi on 720-bin tables at stride 1, so every
+    # segment is a whole row and wraps, on the bench cloud and on the
+    # adversarial clouds. And an eps that is not a normal float (1e-40, a
+    # denormal f32) takes the kernel's other log, logf itself.
+    rc720 = dataclasses.replace(rc, lut_bins=720)
+    lid720 = LidarConfig(start=0.0, stop=2 * math.pi, max_dist=500.0, n_rays=720)
+    cfg720 = dataclasses.replace(cfg, lut_beam_stride=beam_bin_stride(lid720, rc720))
+    check(cfg720.lut_beam_stride == 1, f"720 beams on 720 bins at stride {cfg720.lut_beam_stride}")
+    scan720 = fake_lidar.scan(blocked, sensor, lid720, RaycastConfig(max_dist=500.0))
+    cfg_eps = dataclasses.replace(cfg, meas_epsilon=1e-40)
+    other = {}
+    for tname, lut_ in (("bf16", lut), ("u8", field_u8.lut)):
+        lut720 = rayfield.make_ray_field(blocked, dataclasses.replace(rc720, lut_dtype=tname)).lut
+        other[f"720_{tname}"] = hold_fused_to_plain(
+            lut720, state.particles.pose, scan720, cfg720, rc.max_dist, seed(11), bench_odom,
+            bench_alphas, f"{tname}, 720 beams", ties=True)
+        other[f"720_{tname}_adversarial"] = hold_adversarial(
+            lut720, scan720, cfg720, rc.max_dist, 1, f"{tname}, 720 beams adversarial", 37)
+        del lut720
+        other[f"eps_1e-40_{tname}"] = hold_fused_to_plain(
+            lut_, state.particles.pose, scan, cfg_eps, rc.max_dist, seed(11), bench_odom,
+            bench_alphas, f"{tname}, eps 1e-40", ties=True)
+        lw_err = max(lw_err, *(v["max_abs_diff"] for v in other.values()))
+    say("lut_weights", f"720 beams on 720 bins (chunks of 384), bench and adversarial clouds, and "
+        f"eps 1e-40 (logf): poses == K1's bit for bit; {json.dumps(other)}")
 
     def plain_predict_weigh(poses):
         p_ = motion.sample_motion_model_odometry(bench_odom, poses, bench_alphas, generator=g)

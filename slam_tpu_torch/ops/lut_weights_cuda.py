@@ -34,10 +34,10 @@ from slam_tpu_torch.ops.lut import lut_quant_step
 
 # Table dtype -> the launcher's `table_u8` flag.
 TABLE_DTYPES = {torch.bfloat16: 0, torch.uint8: 1}
-# A lane takes at most 12 of a particle's beams, in registers
-# (`csrc/lut_weights.cu:launch_beams`: 3 up to 96 beams, 6 up to 192, 12
-# up to 384).
-MAX_BEAMS = 384
+# A lane holds 3, 6 or 12 of a particle's beams in registers, a scan of
+# more than 384 beams in chunks of 384 (`csrc/lut_weights.cu:launch_beams`);
+# the C entry point takes at most 12288.
+MAX_BEAMS = 12288
 
 
 def weigh_params(lut_dtype, *, n_bins: int, displacement, max_dist: float,
@@ -91,7 +91,7 @@ def _robot_inputs(poses: Pose, scan: Scan, seed, odo, dev):
 def launch(
     lut: torch.Tensor, n_bins: int, poses: Pose, scan: Scan, *, beam_stride: int,
     displacement, max_dist: float, stddev: float, eps: float, motion=None,
-    i0: int = 0, library=None,
+    i0: int = 0,
 ):
     """Run the kernel: `lut` [H, W, P] bf16 or u8 on a CUDA device (P >=
     n_bins storage width), poses f32 [N] there (one filter) or [R, N] (R
@@ -103,8 +103,6 @@ def launch(
     are first sampled with K1's sampler, robot r with seed[r] and odo[r],
     particle i with Philox counter `i0` + i (`i0`: the global index of a
     particle shard's first particle, 0 for a whole filter or a fleet).
-    `library`: the loaded kernel library to launch (default the package's,
-    `_build.library()`; `tools/lut_weights_ab.py` passes other builds).
     Returns (the sampled poses, or None without `motion`; lw f32 [N] or
     [R, N])."""
     if lut.dtype not in TABLE_DTYPES:
@@ -135,7 +133,7 @@ def launch(
         return out, lw
     params = weigh_params(lut.dtype, n_bins=n_bins, displacement=displacement,
                           max_dist=max_dist, stddev=stddev, eps=eps)
-    lib = library if library is not None else _build.library()[0]
+    lib, _ = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.lut_weights_launch(

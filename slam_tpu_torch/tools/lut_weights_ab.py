@@ -23,8 +23,8 @@ One JSON line a shape, then one with the card's name and power limit.
 
     python -m slam_tpu_torch.tools.lut_weights_ab --sanitize [--other ...]
 
-runs the adversarial cases once a build (`adversarial_poses`: one robot
-of 1003 particles, three robots of 333, both tables of a 37 x 53 map whose
+runs the adversarial cases once a build (`chip_smoke.adversarial_poses`,
+so it runs from the repo's root: one robot of 1003 particles, three robots of 333, both tables of a 37 x 53 map whose
 u8 table ends 8 B off a 16 B boundary, a shard at i0 = 517), synchronizes
 and prints "sanitize ok": the command to run under `compute-sanitizer
 --tool memcheck|racecheck|synccheck`.
@@ -33,6 +33,7 @@ and prints "sanitize ok": the command to run under `compute-sanitizer
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -57,52 +58,8 @@ from slam_tpu_torch.utils.maps import synthetic_floor_plan
 
 ITERS = 20
 REPLAYS = 10
-KINDS = ("last_cell", "off_bottom_right", "wrapped", "odd_row", "random")
 BENCH_ODOM = (2.5, 0.02, 0.02)
 BENCH_ALPHAS = (0.0005, 0.0005, 0.01, 0.01)
-
-
-def adversarial_poses(h: int, w: int, n_bins: int, n: int, span: int, displacement,
-                      angle0: float, rng):
-    """n poses (f32 numpy x, y, theta) and their kinds (index into KINDS),
-    the kinds dealt in turn and shuffled, whose sensors (`displacement` =
-    (d, theta, rot), `measurement.scanner_displacement`) land: in the
-    table's last cell (row (h-1) w + w-1: a segment reaching its end is the
-    table's last bytes); off the map's bottom-right edge (clamped to that
-    cell, off the map); on a random cell with a segment of `span` bins
-    that wraps (first bin in [n_bins - span + 1, n_bins)); on a random cell
-    of odd row index (a u8 row of 360 B starts 8 B off 16 B); on a random
-    cell. Each heading puts the first bin, round((theta + rot + angle0) /
-    binw) mod n_bins, 0.3 bins or less off a chosen bin, so never on a
-    rounding tie; each position sits 0.1 px or more inside its cell."""
-    d, dth, rot = displacement
-    binw = 2.0 * math.pi / n_bins
-    kind = np.arange(n) % len(KINDS)
-    rng.shuffle(kind)
-    i = rng.integers(0, h, n)
-    j = rng.integers(0, w, n)
-    odd = kind == KINDS.index("odd_row")
-    flip = odd & ((i * w + j) % 2 == 0)
-    j = np.where(flip, np.where(j + 1 < w, j + 1, j - 1), j)
-    # Cell (i, j) holds sensor y in (h - i - 2, h - i - 1] (i = floor(h - y - 1)).
-    sx = j + rng.uniform(0.1, 0.9, n)
-    sy = h - i - 1 - rng.uniform(0.1, 0.9, n)
-    last = kind == KINDS.index("last_cell")
-    sx = np.where(last, w - 1 + rng.uniform(0.1, 0.9, n), sx)
-    sy = np.where(last, -rng.uniform(0.1, 0.9, n), sy)
-    off = kind == KINDS.index("off_bottom_right")
-    sx = np.where(off, w + rng.uniform(0.5, 50.0, n), sx)
-    sy = np.where(off, -rng.uniform(1.5, 50.0, n), sy)
-    first = rng.integers(0, n_bins, n)
-    wrapped = kind == KINDS.index("wrapped")
-    lo = max(n_bins - span + 1, 0)
-    first = np.where(wrapped, rng.integers(lo, n_bins, n), first)
-    first[np.flatnonzero(wrapped)[:8]] = n_bins - 1
-    heading = (first + rng.uniform(-0.3, 0.3, n)) * binw - angle0 - rot
-    theta = (heading + math.pi) % (2.0 * math.pi) - math.pi
-    x = sx - np.cos(theta + dth) * d
-    y = sy - np.sin(theta + dth) * d
-    return (x.astype(np.float32), y.astype(np.float32), theta.astype(np.float32)), kind
 
 
 def build(builds: dict) -> dict:
@@ -128,6 +85,18 @@ def build(builds: dict) -> dict:
         lib.lut_weights_launch.restype = ctypes.c_int
         libs[name] = (lib, report)
     return libs
+
+
+@contextlib.contextmanager
+def launching(lib):
+    """`lut_weights_cuda.launch` calls `lib` (a library from `build`, or
+    the package's own) inside the block."""
+    own = _build.library
+    _build.library = lambda: (lib, {})
+    try:
+        yield
+    finally:
+        _build.library = own
 
 
 def graph_ms(fn, anchor: torch.Tensor) -> float:
@@ -226,6 +195,8 @@ def compare(ref, got) -> dict:
 
 def sanitize(dev, libs) -> dict:
     """The adversarial cases once a build (module docstring)."""
+    import chip_smoke  # the repo's root script, which holds the clouds
+
     h, w = 37, 53
     blocked = np.zeros((h, w), bool)
     blocked[[0, -1], :] = blocked[:, [0, -1]] = True
@@ -245,8 +216,8 @@ def sanitize(dev, libs) -> dict:
         rng = np.random.default_rng(5)
 
         def cloud(n):
-            xyz, _ = adversarial_poses(h, w, 360, n, span, kw["displacement"],
-                                       float(scan.angles[0]), rng)
+            xyz, _ = chip_smoke.adversarial_poses(h, w, 360, n, span, kw["displacement"],
+                                                  float(scan.angles[0]), rng)
             return [torch.from_numpy(v).to(dev) for v in xyz]
 
         one = Pose(*cloud(1003))
@@ -255,18 +226,19 @@ def sanitize(dev, libs) -> dict:
                       dists=scan.dists.expand(3, -1).contiguous())
         zero = Odometry.create(0.0, 0.0, 0.0)
         for name, (lib, _) in libs.items():
-            full = lut_weights_cuda.launch(
-                lut, 360, one, scan, motion=(_seed(3, dev), motion_cuda.odometry_rows(
-                    zero, dev), BENCH_ALPHAS), library=lib, **kw)
-            part = lut_weights_cuda.launch(
-                lut, 360, Pose(*(v[517:].contiguous() for v in (one.x, one.y, one.theta))),
-                scan, motion=(_seed(3, dev), motion_cuda.odometry_rows(zero, dev),
-                              BENCH_ALPHAS), i0=517, library=lib, **kw)
-            lut_weights_cuda.launch(lut, 360, three, scans3, library=lib, **kw)
-            lut_weights_cuda.launch(
-                lut, 360, three, scans3, motion=(_seed(7, dev, 3), motion_cuda.odometry_rows(
-                    Odometry.create([0.0] * 3, [0.5] * 3, [0.1] * 3), dev), BENCH_ALPHAS),
-                library=lib, **kw)
+            with launching(lib):
+                full = lut_weights_cuda.launch(
+                    lut, 360, one, scan, motion=(_seed(3, dev), motion_cuda.odometry_rows(
+                        zero, dev), BENCH_ALPHAS), **kw)
+                part = lut_weights_cuda.launch(
+                    lut, 360, Pose(*(v[517:].contiguous() for v in (one.x, one.y, one.theta))),
+                    scan, motion=(_seed(3, dev), motion_cuda.odometry_rows(zero, dev),
+                                  BENCH_ALPHAS), i0=517, **kw)
+                lut_weights_cuda.launch(lut, 360, three, scans3, **kw)
+                lut_weights_cuda.launch(
+                    lut, 360, three, scans3, motion=(_seed(7, dev, 3), motion_cuda.odometry_rows(
+                        Odometry.create([0.0] * 3, [0.5] * 3, [0.1] * 3), dev), BENCH_ALPHAS),
+                    **kw)
             torch.cuda.synchronize()
             shard = torch.equal(full[1][517:], part[1]) and torch.equal(full[0].x[517:],
                                                                          part[0].x)
@@ -302,8 +274,9 @@ def main(argv=None):
     names = list(libs)
     for shape, (lut, poses, scan, kw, motion) in shapes(dev).items():
         def run(name):
-            return lut_weights_cuda.launch(lut, lut.shape[-1], poses, scan, motion=motion,
-                                           library=libs[name][0], **kw)
+            with launching(libs[name][0]):
+                return lut_weights_cuda.launch(lut, lut.shape[-1], poses, scan, motion=motion,
+                                               **kw)
 
         ref = run("new")
         checks = {name: compare(ref, run(name)) for name in names if name != "new"}

@@ -4,6 +4,7 @@ JAX built and `utils.convert` carried across."""
 import functools
 import math
 
+import chip_smoke
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +22,6 @@ from slam_tpu_torch.core.types import Scan
 from slam_tpu_torch.ops import lut as tlut
 from slam_tpu_torch.ops import lut_weights_cuda
 from slam_tpu_torch.ops import measurement as tmeas
-from slam_tpu_torch.tools import lut_weights_ab
 from slam_tpu_torch.utils import convert
 from torch_port import np_, random_poses, room, t_field, t_scan
 
@@ -152,41 +152,42 @@ def test_lut_weights_kernel_wrapper_on_the_cpu():
                                   tlut.dequantize(codes, torch.uint8, MAX_DIST).numpy())
 
 
-@pytest.mark.parametrize("n_beams,refused", [(90, False), (384, False), (385, True),
-                                             (1800, True)])
+@pytest.mark.parametrize("n_beams,refused", [(90, False), (385, False), (720, False),
+                                             (12288, False), (12289, True)])
 def test_lut_weights_kernel_beam_limit(n_beams, refused):
-    """The kernel's lanes hold at most MAX_BEAMS = 384 beams (12 a lane) in
-    registers: a longer scan raises ValueError on any table, before the
+    """The kernel takes up to MAX_BEAMS = 12288 beams (beyond 384 in chunks
+    of 384): a longer scan raises ValueError on any table, before the
     device check, and counts no launch; a scan within it reaches the
     device check (a CPU table raises there)."""
-    table = torch.zeros((2, 2, 3600), dtype=torch.bfloat16)
+    n_bins = 2 * 12289
+    table = torch.zeros((1, 1, n_bins), dtype=torch.bfloat16)
     scan = Scan(angles=torch.zeros(n_beams), dists=torch.ones(n_beams))
     poses = convert.pose(*(np.ones(4, np.float32) for _ in range(3)))
     before = lut_weights_cuda.launch.launches
     with pytest.raises(ValueError, match="exceed" if refused else "CUDA"):
-        lut_weights_cuda.launch(table, 3600, poses, scan, beam_stride=2,
+        lut_weights_cuda.launch(table, n_bins, poses, scan, beam_stride=2,
                                 displacement=tmeas.scanner_displacement(OFFSET),
                                 max_dist=MAX_DIST, stddev=5.0, eps=0.1)
     assert lut_weights_cuda.launch.launches == before
 
 
 def test_adversarial_poses_land_where_named():
-    """`tools/lut_weights_ab.adversarial_poses` (the kernel's adversarial
+    """`chip_smoke.adversarial_poses` (the kernel's adversarial
     clouds on the card): through the plain sensor pose and panorama index,
     each kind's sensors land where it says, every first bin 0.2 bins or
     more off a rounding tie."""
     h, w, n_bins, n, span = 37, 53, 360, 2003, 179
     disp = tmeas.scanner_displacement(OFFSET)
     angle0 = 0.25
-    (x, y, th), kind = lut_weights_ab.adversarial_poses(h, w, n_bins, n, span, disp, angle0,
-                                                        np.random.default_rng(3))
+    (x, y, th), kind = chip_smoke.adversarial_poses(h, w, n_bins, n, span, disp, angle0,
+                                                    np.random.default_rng(3))
     sp = tmeas.sensor_pose(convert.pose(x, y, th), OFFSET)
     idx, inb = tlut.panorama_index((h, w), sp.x, sp.y)
     idx, inb = idx.numpy(), inb.numpy()
     q = ((sp.theta.double().numpy() + angle0) / (2 * math.pi / n_bins))
     s = np.round(q).astype(np.int64) % n_bins
     assert (np.abs(q - np.round(q)) <= 0.31).all()
-    kinds = lut_weights_ab.KINDS
+    kinds = chip_smoke.ADVERSARIAL_KINDS
     for name in kinds:
         assert (kind == kinds.index(name)).sum() >= n // len(kinds)
     last, off = kind == kinds.index("last_cell"), kind == kinds.index("off_bottom_right")
