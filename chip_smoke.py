@@ -24,7 +24,10 @@ raises, so the exit code is nonzero):
   4. K1       motion sampler: moments, seed reproducibility, ragged N; the
               odometry read from device memory: device fields == host
               fields, and poses == the fused kernel's prologue bit for bit
-              for the same seed and device odometry
+              for the same seed and device odometry; its branch-free math
+              == libdevice's on all 2^24 uniforms; the robot axis: 16 rows
+              of 100,003 == one-robot launches and shards at i0 == the
+              slices, bit for bit
   5. LUT      360-bin bf16 table of the synthetic floor plan on the card;
               raycast_lut vs raycast_march; K2 on the real table rows; the
               card's bf16 and u8 tables == the CPU's build bit for bit, and
@@ -142,7 +145,9 @@ raises, so the exit code is nonzero):
               1, 4, 16), R = 1, 4, 8, 16 x 100k (one lut_weights launch a fleet
               step), the kernel at 16 x 100k vs its plain version (poses == K1's
               per robot, weights within phase 6's tolerance) and beside its
-              bound, and on adversarial clouds of 16 x 100,003; the
+              bound, and on adversarial clouds of 16 x 100,003; on the
+              likelihood field (one K1 launch a step with a robot axis) 16
+              x 100k == independent filters bit for bit, K1 timed; the
               fleet_localization app
  22. apps       the apps on the floor plan's PNG: grid_slam's quick start, a
               --checkpoint-dir run cut in two == an uninterrupted one,
@@ -189,8 +194,9 @@ raises, so the exit code is nonzero):
               refresh's three branches, counted), the maze SLAM tool's
               likelihood_field_table:128:e1024 at 10k on the 2400 px maze,
               the auto-tier MCL.step at 1M on a converged and a dispersed
-              cloud, the fleet's auto step at 16 x 100k and the 1M tracking
-              step with ess_threshold 0.5 (what each step chose, counted);
+              cloud, the fleet's auto step at 16 x 100k (one K1 launch a
+              step) and the 1M tracking step with ess_threshold 0.5 (what
+              each step chose, counted);
               the RBPF at 1000 maps (`RBPF.step`, at most RBPF_HOST_CALLS
               host-issued calls a step):
               20 steps each with a new odometry and scan at each, every
@@ -240,6 +246,10 @@ N_PARTICLES = 100_000
 LW_RTOL = 1e-5
 LW_SHARE = 0.999
 RAGGED_N = 100_003
+# Phase 4: K1's robot axis, K1_ROBOTS rows of RAGGED_N, and its shards.
+K1_ROBOTS = 16
+K1_SHARD_I0 = 33_334
+K1_SHARD_I0_1M = 333_334
 # The fused kernel's adversarial clouds (`adversarial_poses`): where their
 # sensors land.
 ADVERSARIAL_KINDS = ("last_cell", "off_bottom_right", "wrapped", "odd_row", "random")
@@ -2241,8 +2251,11 @@ def fleet_phase(dev, blocked_np, field, counts, map_png, workdir) -> dict:
     the 1-D one's, all bit for bit; the bench at R in FLEET_ROBOTS (ms,
     device ms, launches, busy share); the kernel at R x N = 1.6M against
     its plain version (poses == K1's, weights within phase 6's tolerance)
-    and beside its bound; the fleet_localization app at its defaults on
-    the plan's PNG."""
+    and beside its bound; the fleet's other route, on the likelihood field
+    (one K1 launch with a robot axis a step): FLEET_CHECK_R x 100k for three
+    steps == as many independent filters bit for bit, one K1 launch a step,
+    K1 at 16 x 100k timed beside its bound; the fleet_localization app at
+    its defaults on the plan's PNG."""
     import contextlib
     import io
     import re
@@ -2355,6 +2368,45 @@ def fleet_phase(dev, blocked_np, field, counts, map_png, workdir) -> dict:
     check(max(idx_share.values()) == 0.0,
           f"batched vs 1-D resampler indices differ: {idx_share}")
     check(worst == 0.0, f"fleet vs independent filters differ on {worst} of particles")
+
+    # The route without the fused kernel (the direct likelihood field): one
+    # K1 launch a step for every robot (4 particles a thread, 16 B rows),
+    # against independent filters, whose K1 launches take one particle a
+    # thread, bit for bit.
+    from slam_tpu_torch.ops import edt as edtlib
+    from slam_tpu_torch.ops.rayfield import RayField
+
+    lf_cfg = dataclasses.replace(cfg, measurement="likelihood_field")
+    lf = RayField(blocked=blocked, edt=edtlib.edt_capped(blocked, 5.0 * cfg.meas_stddev + 2.0))
+    r = FLEET_CHECK_R
+    pr, odr, scr = fb.fleet_inputs(blocked, r, lidar, cfg, rng)
+    fs = fleet.init_fleet(FLEET_SEED, r, n, pr)
+    singles = [mcl_mod.init(mcl_mod.make_generator(s_, dev), n, fleet._row(pr, q))
+               for q, s_ in enumerate(fleet.fleet_seeds(FLEET_SEED, r))]
+    steps_k1 = []
+    for _ in range(3):
+        reset_counts()
+        fs = fleet.fleet_step(fs, odr, scr, lf, alphas, lf_cfg, rc)
+        steps_k1.append(read_counts()["motion_odometry"])
+        launches["motion_odometry"] += steps_k1[-1]
+        singles = [mcl_mod.step(s_, host_odom(odr, q), alphas, robot_scan(scr, q), lf, lf_cfg, rc)
+                   for q, s_ in enumerate(singles)]
+    lf_vs = [share_differing(fleet.robot(fs, q), s_) for q, s_ in enumerate(singles)]
+    lf_worst = max(max(d.values()) for d in lf_vs)
+    cloud = fs.particles.pose
+    seeds = torch.arange(r, dtype=torch.int64, device=dev) + 200
+    k1_ms = own_kernel_ms(lambda: motion_cuda.launch(seeds, odr, cloud, alphas),
+                          "motion_odometry_kernel")
+    k1_bound = bound(r * n * 24, r * n * OPS_SAMPLE)
+    out["k1_fleet"] = {"robots": r, "particles_total": r * n, "k1_launches_per_step": steps_k1,
+                       "vs_independent_worst_differing_share": lf_worst, "ms": k1_ms,
+                       "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+                       "bound_share": k1_bound[0] / k1_ms}
+    say("fleet", f"likelihood-field route, {r} x {n}: {json.dumps(out['k1_fleet'])}")
+    check(steps_k1 == [1, 1, 1], f"the fleet's K1 launches a step: {steps_k1} (one each)")
+    check(lf_worst == 0.0, f"likelihood-field fleet vs independent filters differ on "
+          f"{lf_worst} of particles")
+    del fs, singles, cloud
 
     # The bench at R in FLEET_ROBOTS: one lut_weights launch a fleet step.
     out["bench"] = {}
@@ -3714,6 +3766,9 @@ def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
                   f"graphs {name}: the graph path launched {n_graph} kernels, eager {n_eager} "
                   f"(+ warm-ups {warm})")
         check(sum(n_graph.values()) > 0, f"graphs {name}: no hand-written kernel launched")
+        if name == "fleet_auto_16x100k":  # every robot's predict in one K1 launch
+            check(n_eager["motion_odometry"] == n_in,
+                  f"graphs {name}: {n_eager['motion_odometry']} K1 launches in {n_in} steps")
         stats = g.stats()
         copies0, bytes0 = g.copies, g.copy_bytes
 
@@ -3995,6 +4050,57 @@ def main() -> None:
                 check(torch.equal(a, b), f"K1 with device odometry != host odometry ({f})")
                 check(torch.equal(a, c), f"K1 != the fused kernel's prologue ({f}, N="
                       f"{poses.x.numel()})")
+    # K1's normals take branch-free forms of libdevice's logf, sqrtf, sincosf
+    # and cosf: equal to them on all 2^24 uniforms it can draw.
+    math_bad = motion_cuda.math_mismatches(dev)
+    check(not any(math_bad.values()),
+          f"K1's branch-free math differs from libdevice's on {math_bad} of 2^24 uniforms")
+    # The robot axis: R = K1_ROBOTS rows of RAGGED_N particles (row q starts
+    # 12 q B off a 16 B boundary; 4 particles a thread, 16 B vectors between
+    # each row's head and tail) == one-robot launches (one particle a
+    # thread) with each row's seed and odometry, bit for bit; a shard at
+    # i0 = K1_SHARD_I0 of every row == the whole launch's slice; and a 1M
+    # cloud's shard at i0 = K1_SHARD_I0_1M (8 B off 16 B: 4 particles a
+    # thread, strided) == its slice.
+    rng_k1 = np.random.default_rng(44)
+
+    def k1_cloud(shape):
+        return Pose(*(torch.from_numpy(v).to(dev) for v in (
+            rng_k1.uniform(0, 1000, shape).astype(np.float32),
+            rng_k1.uniform(0, 1000, shape).astype(np.float32),
+            rng_k1.uniform(-math.pi, math.pi, shape).astype(np.float32))))
+
+    rows = k1_cloud((K1_ROBOTS, RAGGED_N))
+    odo_np = np.stack([rng_k1.uniform(-0.1, 0.1, K1_ROBOTS), rng_k1.uniform(0.5, 3.0, K1_ROBOTS),
+                       rng_k1.uniform(-0.1, 0.1, K1_ROBOTS)], axis=1).astype(np.float32)
+    odo_r = Odometry.create(*(odo_np[:, k].tolist() for k in range(3)))
+    seeds_r = torch.arange(K1_ROBOTS, dtype=torch.int64, device=dev) + 300
+    whole = motion_cuda.launch(seeds_r, odo_r, rows, alphas)
+    for q in range(K1_ROBOTS):
+        one = motion_cuda.launch(seeds_r[q:q + 1], Odometry.create(*odo_np[q].tolist()),
+                                 Pose(x=rows.x[q], y=rows.y[q], theta=rows.theta[q]), alphas)
+        for f in ("x", "y", "theta"):
+            check(torch.equal(getattr(whole, f)[q].view(torch.int32),
+                              getattr(one, f).view(torch.int32)),
+                  f"K1 robot axis: row {q} != its one-robot launch ({f})")
+    part = motion_cuda.launch(seeds_r, odo_r, Pose(*(v[:, K1_SHARD_I0:].contiguous() for v in (
+        rows.x, rows.y, rows.theta))), alphas, i0=K1_SHARD_I0)
+    cloud_1m = k1_cloud((SLAM_PARTICLES,))
+    whole_1m = motion_cuda.launch(seed(9), odom, cloud_1m, alphas)
+    i0_1m = K1_SHARD_I0_1M
+    part_1m = motion_cuda.launch(seed(9), odom, Pose(*(v[i0_1m:] for v in (
+        cloud_1m.x, cloud_1m.y, cloud_1m.theta))), alphas, i0=i0_1m)
+    for f in ("x", "y", "theta"):
+        check(torch.equal(getattr(whole, f)[:, K1_SHARD_I0:].view(torch.int32),
+                          getattr(part, f).view(torch.int32)),
+              f"K1 robot axis: the shard at i0 = {K1_SHARD_I0} != the slice ({f})")
+        check(torch.equal(getattr(whole_1m, f)[i0_1m:].view(torch.int32),
+                          getattr(part_1m, f).view(torch.int32)),
+              f"K1: the 1M cloud's shard at i0 = {i0_1m} != the slice ({f})")
+    say("K1", f"branch-free math == libdevice's on all 2^24 uniforms {math_bad}; robot axis "
+        f"{K1_ROBOTS} x {RAGGED_N}: each row == its one-robot launch, the shard at i0 = "
+        f"{K1_SHARD_I0} == the slice, bit for bit; the 1M shard at i0 = {i0_1m} == the slice")
+    del rows, whole, part, cloud_1m, whole_1m, part_1m
     say("K1", f"theta mean {th.mean():.6f} (want 0.8 +- {5 * want_std / math.sqrt(n):.6f}), "
         f"std/want {th.std() / want_std:.4f}; seed 7 reproduces, 8 differs; "
         f"N=100003 ok; max moment diff vs plain {k1_err:.3e}; the odometry read on the "
@@ -4550,6 +4656,7 @@ def main() -> None:
                              "motion_odometry_kernel")
     k1_1m_plain_ms, _ = device_ms(lambda: motion.sample_motion_model_odometry(
         slam_odom, pp, slam_cfg.motion.alphas, generator=g))
+    k1_1m_bound = bound(SLAM_PARTICLES * 24, SLAM_PARTICLES * OPS_SAMPLE)
     say("slam", json.dumps({
         "metric": f"slam_production_step_ms_{SLAM_PARTICLES // 1000}k",
         "ms_per_step": {"median": slam_med, "min": min(slam_ms), "max": max(slam_ms),
@@ -4567,6 +4674,9 @@ def main() -> None:
         "steps": slam_steps,
         "k1_1m_ms": k1_1m_ms,
         "k1_1m_plain_ms": k1_1m_plain_ms,
+        "k1_1m_bound_ms": k1_1m_bound[0],
+        "k1_1m_bound_by": k1_1m_bound[1],
+        "k1_1m_bound_share": k1_1m_bound[0] / k1_1m_ms,
         "device": name,
         "power_limit": smi.split(",")[-1].strip(),
     }))
@@ -4746,6 +4856,7 @@ def main() -> None:
     lw_maze = mz["maze"]["lut"]["lut_weights_vs_plain"]
     lw_1m = gl["lut_weights_1m_uniform"]
     k1_bound = bound(N_PARTICLES * 24, N_PARTICLES * OPS_SAMPLE)
+    k1_fleet = fl["k1_fleet"]
     lw_bench = lw_times["bench cloud"]
     print(json.dumps({"kernels": [
         {"name": "motion_odometry", "route": "cuda",
@@ -4755,9 +4866,17 @@ def main() -> None:
          # Largest moment gap (mean, std of the x, y, theta displacement)
          # vs the plain version, at N=65536, on the two 100k clouds of
          # phase 6 and the 1M SLAM cloud: the kernel's noise stream is its
-         # own. Times at N = 100k (phase 4); at 1M in the phase 9 line.
+         # own. Times at N = 100k (phase 4).
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "bound_share": k1_bound[0] / k1_ms,
+         "library_ms": None,
+         # Phase 9: the 1M SLAM cloud.
+         "ms_1m": k1_1m_ms, "plain_ms_1m": k1_1m_plain_ms, "bound_ms_1m": k1_1m_bound[0],
+         "bound_by_1m": k1_1m_bound[1], "bound_share_1m": k1_1m_bound[0] / k1_1m_ms,
+         # Phase 21: one launch for a fleet of 16 x 100k (robot axis).
+         "ms_fleet_16x100k": k1_fleet["ms"], "bound_ms_fleet_16x100k": k1_fleet["bound_ms"],
+         "bound_by_fleet_16x100k": k1_fleet["bound_by"],
+         "bound_share_fleet_16x100k": k1_fleet["bound_share"]},
         {"name": "gather_rows", "route": "cuda",
          "source": "slam_tpu_torch/csrc/gather_rows.cu",
          "replaces": "slam_tpu/ops/pano_pallas.py:69",

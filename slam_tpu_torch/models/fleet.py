@@ -12,9 +12,12 @@ launch of `csrc/lut_weights.cu` with a robot axis (every robot's predict
 and weights; `mcl.predict_weigh`, the launch a single filter's step
 makes with R = 1), then the estimate, the EMAs and the resampler batched over
 [R, N] on the last axis (`mcl._finish`), so R filters cost about one
-filter's launches. Elsewhere (the CPU, other backends and measurements)
-each robot predicts and weighs through the single-filter code, then the
-same batched finish runs; that loop is also the kernel's plain version.
+filter's launches. With other backends and measurements on CUDA, every
+robot predicts in ONE launch of `csrc/motion_odometry.cu` with a robot
+axis (seeds [R] drawn in place, as the fused route draws them), then each
+robot weighs its row through the single-filter code. On the CPU each robot
+predicts and weighs through the single-filter code; that loop is also the
+kernels' plain version. The batched finish runs either way.
 The auto tier weighs every robot with each tier some robot needs, under
 a `cond` a tier, and selects per robot, as JAX's `vmap` of `lax.cond`.
 """
@@ -32,8 +35,7 @@ from slam_tpu_torch.core.graph import cond
 from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan, log_f32
 from slam_tpu_torch.models import mcl as mcl_mod
 from slam_tpu_torch.models._graph import StepGraphs
-from slam_tpu_torch.ops import resample
-from slam_tpu_torch.ops.motion_cuda import sample_motion_model_odometry_fused
+from slam_tpu_torch.ops import motion_cuda, resample
 
 
 def fleet_seeds(seed: int, n_robots: int) -> list:
@@ -84,10 +86,6 @@ def robot(states: mcl_mod.MCLState, q: int) -> mcl_mod.MCLState:
         log_w_fast=states.log_w_fast[q])
 
 
-def _stack(poses) -> Pose:
-    return Pose(*(torch.stack([getattr(p, f) for p in poses]) for f in ("x", "y", "theta")))
-
-
 def fleet_step(states, odoms: Odometry, scans: Scan, field, alphas, cfg: MCLConfig,
                rc: RaycastConfig, u0=None, noise=None, inject=None, early_exit: bool = True):
     """One predict -> update step of every robot. `odoms` has [R] fields
@@ -99,25 +97,29 @@ def fleet_step(states, odoms: Odometry, scans: Scan, field, alphas, cfg: MCLConf
     pose = states.particles.pose
     r, n = pose.x.shape
     dev = pose.x.device
+    if pose.x.is_cuda and noise is not None:
+        raise ValueError("injected noise is a CPU-path argument; the CUDA kernels draw their own")
     if mcl_mod._fused_route(pose, field, cfg, rc):
-        if noise is not None:
-            raise ValueError(
-                "injected noise is a CPU-path argument; the CUDA kernel draws its own")
-        seeds = torch.empty((r,), dtype=torch.int64, device=dev)
-        for q, g in enumerate(gens):  # robot q's draw_seed, in place
-            torch.randint(0, 2**62, (1,), generator=g, out=seeds[q:q + 1])
-        new_pose, lw = mcl_mod.predict_weigh(pose, scans, field, cfg, rc, seeds, odoms, alphas)
+        new_pose, lw = mcl_mod.predict_weigh(pose, scans, field, cfg, rc,
+                                             motion_cuda.draw_seeds(gens, dev), odoms, alphas)
         blocked = field.blocked
     else:
-        poses = []
-        for q in range(r):
-            odom = Odometry(rot1=odoms.rot1[q], trans=odoms.trans[q], rot2=odoms.rot2[q])
-            poses.append(sample_motion_model_odometry_fused(
-                odom, _row(pose, q), alphas, generator=gens[q],
-                noise=None if noise is None else noise[q]))
+        if pose.x.is_cuda:
+            new_pose = motion_cuda.launch(motion_cuda.draw_seeds(gens, dev), odoms, pose,
+                                          alphas)
+            poses = [_row(new_pose, q) for q in range(r)]
+        else:
+            poses = []
+            for q in range(r):
+                odom = Odometry(rot1=odoms.rot1[q], trans=odoms.trans[q], rot2=odoms.rot2[q])
+                poses.append(motion_cuda.sample_motion_model_odometry_fused(
+                    odom, _row(pose, q), alphas, generator=gens[q],
+                    noise=None if noise is None else noise[q]))
+            new_pose = Pose(*(torch.stack([getattr(p, f) for p in poses])
+                              for f in ("x", "y", "theta")))
         rows = [Scan(angles=scans.angles[q], dists=scans.dists[q]) for q in range(r)]
         lw, f = _weigh_rows(poses, rows, field, cfg, rc, early_exit)
-        new_pose, blocked = _stack(poses), f.blocked
+        blocked = f.blocked
     states = states.replace(
         particles=states.particles.replace(pose=new_pose), step=states.step + 1)
 

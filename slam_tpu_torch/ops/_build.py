@@ -40,10 +40,13 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # (seed*, odo*, a0, a1, a2, a3, x*, y*, th*, ox*, oy*, oth*, n, i0,
-    #  stream)
+    #  n_robots, stream)
     "motion_odometry_launch": (
-        [_P] * 2 + [ctypes.c_float] * 4 + [_P] * 6 + [ctypes.c_longlong] * 2 + [_P]
+        [_P] * 2 + [ctypes.c_float] * 4 + [_P] * 6 + [ctypes.c_longlong] * 2
+        + [ctypes.c_int, _P]
     ),
+    # (mismatches*, stream)
+    "motion_odometry_math_check": [_P, _P],
     # (rows*, idx*, out*, n, row_bytes, vec_bytes, stream)
     "gather_rows_launch": (
         [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P]

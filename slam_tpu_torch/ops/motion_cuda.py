@@ -7,6 +7,8 @@ Philox noise from a seed and reads the odometry from device memory, as the
 TPU kernel reads its parameters from a ref); poses on the CPU go to the
 plain PyTorch version `ops/motion.py:sample_motion_model_odometry` with
 noise from the generator (or injected). A failed build or launch raises.
+`launch` also takes R robots at once: poses [R, N], seeds [R] and R
+odometry rows, one launch for a fleet's predict (`models/fleet.py`).
 
 The kernel is held to the plain version by moments and seed
 reproducibility, not bitwise: its noise stream is its own.
@@ -60,51 +62,87 @@ def draw_seed(generator, device) -> torch.Tensor:
                          dtype=torch.int64)
 
 
-def kernel_inputs(pose: Pose, seed, dev):
-    """(x, y, theta) of `pose` after checking what the kernels take: f32[N]
-    contiguous fields of one shape on `dev`, and a `seed` (unless None)
-    int64[1] there."""
+def draw_seeds(generators, device) -> torch.Tensor:
+    """int64 [R]: robot q's `draw_seed` from `generators[q]`, drawn in place
+    into one tensor (each generator advances exactly as `draw_seed`
+    advances it): a fleet's seeds for one launch with a robot axis."""
+    seeds = torch.empty((len(generators),), dtype=torch.int64, device=device)
+    for q, g in enumerate(generators):
+        torch.randint(0, 2**62, (1,), generator=g, out=seeds[q:q + 1])
+    return seeds
+
+
+def kernel_inputs(pose: Pose, seed, odo):
+    """(x, y, theta, R, N) of `pose` after checking what the kernel takes:
+    f32 fields of one shape, [N] (one filter, R = 1) or [R, N] (R robots),
+    contiguous, on one device; `seed` int64 [R] there and `odo` (the
+    odometry's `odometry_rows`) f32 [R, 3] there, contiguous. Raises
+    ValueError otherwise, whatever the device."""
     fields = (pose.x, pose.y, pose.theta)
+    dev, shape = pose.x.device, pose.x.shape
     for name, v in zip(("x", "y", "theta"), fields):
-        if v.device != dev or v.dtype != torch.float32 or v.dim() != 1:
-            raise ValueError(f"pose.{name} must be f32[N] on {dev}")
+        if (v.device != dev or v.dtype != torch.float32 or v.shape != shape
+                or v.dim() not in (1, 2)):
+            raise ValueError(f"pose.{name} must be f32 [N] or [R, N] on {dev}, like pose.x")
         if not v.is_contiguous():
             raise ValueError(f"pose.{name} must be contiguous")
-    if not pose.x.shape == pose.y.shape == pose.theta.shape:
-        raise ValueError("pose fields must share one shape")
-    if seed is not None and (seed.device != dev or seed.dtype != torch.int64
-                             or seed.numel() != 1):
-        raise ValueError(f"seed must be int64[1] on {dev}")
-    return fields
+    r, n = (1, shape[0]) if len(shape) == 1 else shape
+    if seed.device != dev or seed.dtype != torch.int64 or seed.shape != (r,):
+        raise ValueError(f"seed must be int64 [{r}] on {dev} for poses {tuple(shape)}")
+    if (odo.device != dev or odo.dtype != torch.float32 or odo.shape != (r, 3)
+            or not odo.is_contiguous()):
+        raise ValueError(f"odometry must be {r} row(s) for poses {tuple(shape)}, "
+                         f"got {tuple(odo.shape)}")
+    return (*fields, r, n)
 
 
 def launch(seed: torch.Tensor, odom: Odometry, pose: Pose, alphas, i0: int = 0) -> Pose:
-    """Run the CUDA kernel: poses f32[N] on one CUDA device, `seed` an
-    int64[1] on that device, `odom` one odometry (host or device fields:
-    `odometry_rows` puts it on the device, where the kernel reads it);
-    particle i draws Philox counter `i0` + i (the global index of a
-    particle shard's first particle). Returns the sampled poses, theta
-    wrapped."""
-    dev = pose.x.device
-    x, y, th = kernel_inputs(pose, seed, dev)
-    odo = odometry_rows(odom, dev)
-    if odo.shape != (1, 3):
-        raise ValueError(f"K1 samples one odometry, got rows {tuple(odo.shape)}")
+    """Run the CUDA kernel: poses f32 [N] (one filter) or [R, N] (R robots,
+    one launch with a robot axis) on one CUDA device, `seed` int64 [R]
+    there, `odom` one odometry (scalar fields) or R (fields [R]) on the
+    host or the device (`odometry_rows` puts its rows on the device, where
+    the kernel reads them). Robot r samples with seed[r] and its odometry
+    row; particle i draws Philox counter `i0` + i (`i0`: the global index
+    of a particle shard's first particle), so robot r's poses equal a
+    one-robot launch with its seed. Returns the sampled poses, theta
+    wrapped, in the poses' shape."""
+    odo = odometry_rows(odom, pose.x.device)
+    x, y, th, r, n = kernel_inputs(pose, seed, odo)
+    if not x.is_cuda:
+        raise ValueError("the kernel takes poses on a CUDA device")
     ox, oy, oth = (torch.empty_like(x) for _ in range(3))
-    if x.numel() == 0:
+    if n == 0:
         return Pose(x=ox, y=oy, theta=oth)
     lib, _ = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.motion_odometry_launch(
             seed.data_ptr(), odo.data_ptr(), *(float(a) for a in alphas),
             x.data_ptr(), y.data_ptr(), th.data_ptr(),
             ox.data_ptr(), oy.data_ptr(), oth.data_ptr(),
-            x.numel(), int(i0), stream,
+            n, int(i0), r, stream,
         )
     _build.check(code, "motion_odometry_launch")
     count_launch(sample_motion_model_odometry_fused)
     return Pose(x=ox, y=oy, theta=oth)
+
+
+MATH_CHECKS = ("log", "sqrt", "sincos", "cos")
+
+
+def math_mismatches(device) -> dict:
+    """Of the 2^24 uniforms the sampler can draw, those on which a
+    branch-free form of `csrc/motion_odometry.cuh` (log_normal,
+    sqrt_nonneg, sincos_small, cos_small) differs from libdevice's logf,
+    sqrtf, sincosf or cosf in any bit, counted on the CUDA `device`: {name:
+    count}, all 0 when the kernels' noise equals libdevice's."""
+    bad = torch.zeros((len(MATH_CHECKS),), dtype=torch.int64, device=device)
+    lib, _ = _build.library()
+    with torch.cuda.device(bad.device):
+        code = lib.motion_odometry_math_check(
+            bad.data_ptr(), torch.cuda.current_stream(bad.device).cuda_stream)
+    _build.check(code, "motion_odometry_math_check")
+    return dict(zip(MATH_CHECKS, bad.tolist()))
 
 
 def sample_motion_model_odometry_fused(

@@ -6,9 +6,9 @@ size, for `compute-sanitizer`.
 
     python -m slam_tpu_torch.tools.lut_weights_ab --other parent=PATH --rounds 4
 
-builds each `--other NAME=PATH` (another `lut_weights.cu` with the same C
-entry point, e.g. an earlier commit's, `git show REV:slam_tpu_torch/csrc/
-lut_weights.cu > PATH`) into its own library under
+builds each `--other NAME=PATH[::FLAGS]` (another `lut_weights.cu` with the
+same C entry point, e.g. an earlier commit's, `git show REV:slam_tpu_torch/
+csrc/lut_weights.cu > PATH`; `tools/_ab.py:parse_builds`) into its own library under
 `slam_tpu_torch/_build/ab/`, all at once, beside the package's own build
 (`new`). The shapes:
 `bench` bench.py's 100k cloud after three steps on the synthetic floor
@@ -18,7 +18,7 @@ of 16 x 100k (phase 21), `maze_u8_10k` the 2400 px maze's u8 10k cloud
 (phase 20). Each round times every build once a shape, the order
 reversed every other round (A, B, B, A); a time is the device ms of one
 launch from CUDA events around replays of a CUDA graph of ITERS launches
-(`core/graph.py:Block`).
+(`tools/_ab.py:graph_ms`).
 One JSON line a shape, then one with the card's name and power limit.
 
     python -m slam_tpu_torch.tools.lut_weights_ab --sanitize [--other ...]
@@ -33,92 +33,26 @@ and prints "sanitize ok": the command to run under `compute-sanitizer
 from __future__ import annotations
 
 import argparse
-import contextlib
-import ctypes
 import json
 import math
-import statistics
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from slam_tpu_torch.core.config import LidarConfig, MCLConfig, RaycastConfig, beam_bin_stride
-from slam_tpu_torch.core.graph import Block
 from slam_tpu_torch.core.types import Odometry, Pose, Scan
 from slam_tpu_torch.models import fake_lidar, fleet
 from slam_tpu_torch.models import mcl as mcl_mod
 from slam_tpu_torch.models.simulate import forward_arc_commands
-from slam_tpu_torch.ops import _build, lut_weights_cuda, measurement, motion_cuda, rayfield
+from slam_tpu_torch.ops import lut_weights_cuda, measurement, motion_cuda, rayfield
+from slam_tpu_torch.tools import _ab
 from slam_tpu_torch.tools import fleet_bench as fb
 from slam_tpu_torch.tools import global_loc_bench as glb
 from slam_tpu_torch.tools import maze_bench as mb
 from slam_tpu_torch.utils.maps import synthetic_floor_plan
 
-ITERS = 20
-REPLAYS = 10
 BENCH_ODOM = (2.5, 0.02, 0.02)
 BENCH_ALPHAS = (0.0005, 0.0005, 0.01, 0.01)
-
-
-def build(builds: dict) -> dict:
-    """{name: (ctypes library, ptxas report)} of `builds` {name: source
-    path}, one nvcc each, all at once, into `slam_tpu_torch/_build/ab/`."""
-    out = _build.BUILD_DIR / "ab"
-    out.mkdir(parents=True, exist_ok=True)
-    nvcc = _build._nvcc()
-    procs = {}
-    for name, src in builds.items():
-        so = out / f"lut_weights_{name}.so"
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(Path(src).parent), "-I",
-               str(_build.CSRC), "-shared", "-o", str(so), str(src)]
-        procs[name] = (so, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, cmd, p) in procs.items():
-        report = p.communicate()[0]
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{report}")
-        lib = ctypes.CDLL(str(so))
-        lib.lut_weights_launch.argtypes = _build._SIGNATURES["lut_weights_launch"]
-        lib.lut_weights_launch.restype = ctypes.c_int
-        libs[name] = (lib, report)
-    return libs
-
-
-@contextlib.contextmanager
-def launching(lib):
-    """`lut_weights_cuda.launch` calls `lib` (a library from `build`, or
-    the package's own) inside the block."""
-    own = _build.library
-    _build.library = lambda: (lib, {})
-    try:
-        yield
-    finally:
-        _build.library = own
-
-
-def graph_ms(fn, anchor: torch.Tensor) -> float:
-    """Device ms of one call of `fn`: CUDA events around REPLAYS replays of
-    a CUDA graph of ITERS calls (`core/graph.py:Block`, which warms up
-    eagerly first; `anchor` is a tensor on the card that the block
-    holds)."""
-    def body(static):
-        for _ in range(ITERS):
-            fn()
-        return {}
-
-    block = Block(body, {"anchor": anchor})
-    block.run()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(REPLAYS):
-        block.run()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / (ITERS * REPLAYS)
 
 
 def _kw(cfg, rc):
@@ -225,8 +159,8 @@ def sanitize(dev, libs) -> dict:
         scans3 = Scan(angles=scan.angles.expand(3, -1).contiguous(),
                       dists=scan.dists.expand(3, -1).contiguous())
         zero = Odometry.create(0.0, 0.0, 0.0)
-        for name, (lib, _) in libs.items():
-            with launching(lib):
+        for name, (lib, *_) in libs.items():
+            with _ab.launching(lib):
                 full = lut_weights_cuda.launch(
                     lut, 360, one, scan, motion=(_seed(3, dev), motion_cuda.odometry_rows(
                         zero, dev), BENCH_ALPHAS), **kw)
@@ -251,19 +185,16 @@ def sanitize(dev, libs) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", action="append", default=[], metavar="NAME=PATH")
+    ap.add_argument("--other", action="append", default=[], metavar="NAME=PATH[::FLAGS]")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--sanitize", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("lut_weights_ab: needs a CUDA device")
     dev = torch.device("cuda", 0)
-    builds = {}
-    for spec in args.other:
-        name, path = spec.split("=", 1)
-        builds[name] = Path(path).resolve()
-    libs = {"new": (_build.library()[0], _build.library()[1]["ptxas"]), **build(builds)}
-    for name, (_, report) in libs.items():
+    libs = {"new": _ab.own_build(),
+            **_ab.build(_ab.parse_builds(args.other), "lut_weights_launch")}
+    for name, (_, report, _) in libs.items():
         for line in report.splitlines():
             if "lut_weights" in line or "registers" in line:
                 print(f"# {name}: {line.strip()}", flush=True)
@@ -274,24 +205,16 @@ def main(argv=None):
     names = list(libs)
     for shape, (lut, poses, scan, kw, motion) in shapes(dev).items():
         def run(name):
-            with launching(libs[name][0]):
+            with _ab.launching(libs[name][0]):
                 return lut_weights_cuda.launch(lut, lut.shape[-1], poses, scan, motion=motion,
                                                **kw)
 
         ref = run("new")
         checks = {name: compare(ref, run(name)) for name in names if name != "new"}
-        times = {name: [] for name in names}
-        for k in range(args.rounds):
-            for name in (names if k % 2 == 0 else names[::-1]):
-                times[name].append(graph_ms(lambda: run(name), poses.x))
-        print(json.dumps({
-            "shape": shape, "particles": poses.x.numel(), "vs_new": checks,
-            "ms": {name: {"median": statistics.median(t), "min": min(t), "max": max(t),
-                          "all": t} for name, t in times.items()}}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-                      "iters": ITERS, "replays": REPLAYS, "rounds": args.rounds}), flush=True)
+        ms = _ab.in_turns(names, lambda name: lambda: run(name), poses.x, args.rounds)
+        print(json.dumps({"shape": shape, "particles": poses.x.numel(), "vs_new": checks,
+                          "ms": ms}), flush=True)
+    _ab.device_line(rounds=args.rounds)
 
 
 if __name__ == "__main__":

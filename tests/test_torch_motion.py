@@ -17,7 +17,7 @@ from slam_tpu.core.types import Pose as JPose
 from slam_tpu.models import mcl as jmcl
 from slam_tpu.ops import motion as jmotion
 from slam_tpu.ops.pano_pallas import gather_rows as pallas_gather_rows
-from slam_tpu_torch.core.types import Odometry
+from slam_tpu_torch.core.types import Odometry, Pose
 from slam_tpu_torch.models import mcl as tmcl
 from slam_tpu_torch.ops import motion as tmotion
 from slam_tpu_torch.ops import motion_cuda, pano_cuda
@@ -157,3 +157,72 @@ def test_vector_width_choice():
     assert pano_cuda.vector_bytes(364, 0, 256) == 4
     assert pano_cuda.vector_bytes(361, 0, 256) == 1
     assert pano_cuda.vector_bytes(720, 8, 256) == 8  # misaligned base
+
+
+def _robot_inputs(r=3, n=8):
+    """CPU poses [r, n] (or [n] for r = 0), r odometries (one scalar one
+    for r = 0) and int64 seeds, one a robot: what K1's wrapper takes."""
+    rng = np.random.default_rng(6)
+    pose = convert.pose(*(rng.uniform(0, 50, (r, n) if r else (n,)) for _ in range(3)))
+    odom = (Odometry.create([0.1 * q for q in range(r)], [1.0] * r, [-0.1 * q for q in range(r)])
+            if r else Odometry.create(0.1, 1.0, -0.1))
+    return pose, odom, torch.arange(max(r, 1), dtype=torch.int64) + 5
+
+
+def _bad_launch(case):
+    """K1's wrapper inputs with one fault each (CPU tensors)."""
+    pose, odom, seed = _robot_inputs()
+    if case == "seed_rows":
+        return seed[:2], odom, pose
+    if case == "odometry_rows":
+        return seed, Odometry.create([0.1, 0.2], [1.0, 1.0], [0.0, 0.0]), pose
+    if case == "one_robot_two_seeds":
+        one, odom1, _ = _robot_inputs(r=0)
+        return torch.tensor([5, 6]), odom1, one
+    if case == "non_contiguous":
+        wide, _, _ = _robot_inputs(n=16)
+        return seed, odom, Pose(x=wide.x[:, ::2], y=pose.y, theta=pose.theta)
+    if case == "field_shapes":
+        return seed, odom, Pose(x=pose.x, y=pose.y[:, :4].contiguous(), theta=pose.theta)
+    if case == "pose_dtype":
+        return seed, odom, Pose(x=pose.x.double(), y=pose.y, theta=pose.theta)
+    if case == "seed_dtype":
+        return seed.int(), odom, pose
+    if case == "three_dims":
+        return seed, odom, Pose(*(v[None] for v in (pose.x, pose.y, pose.theta)))
+    assert case == "cpu_poses"
+    return seed, odom, pose
+
+
+@pytest.mark.parametrize("case", ["seed_rows", "odometry_rows", "one_robot_two_seeds",
+                                  "non_contiguous", "field_shapes", "pose_dtype",
+                                  "seed_dtype", "three_dims", "cpu_poses"])
+def test_kernel_robot_axis_checks_raise_before_the_build(monkeypatch, case):
+    """K1's wrapper (`motion_cuda.launch`) checks its robot axis before it
+    builds or launches anything: rows of seeds, odometry and poses that
+    disagree, a non-contiguous or mistyped field, and poses off the card
+    each raise ValueError, here on the CPU with no library built."""
+    from slam_tpu_torch.ops import _build
+
+    def no_build():
+        raise AssertionError("the wrapper reached the build")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    seed, odom, pose = _bad_launch(case)
+    before = motion_cuda.sample_motion_model_odometry_fused.launches
+    with pytest.raises(ValueError):
+        motion_cuda.launch(seed, odom, pose, ALPHAS)
+    assert motion_cuda.sample_motion_model_odometry_fused.launches == before
+
+
+def test_draw_seeds_advance_each_generator_as_draw_seed():
+    """A fleet's R seeds drawn in place into one tensor (`draw_seeds`) are
+    robot q's `draw_seed` from generator q, and leave each generator where
+    `draw_seed` leaves it."""
+    gens = [tmcl.make_generator(s) for s in (3, 4, 5)]
+    twins = [tmcl.make_generator(s) for s in (3, 4, 5)]
+    got = motion_cuda.draw_seeds(gens, "cpu")
+    want = torch.cat([motion_cuda.draw_seed(g, "cpu") for g in twins])
+    assert got.dtype == torch.int64 and got.shape == (3,) and torch.equal(got, want)
+    for g, t in zip(gens, twins):
+        assert torch.equal(g.get_state(), t.get_state())
