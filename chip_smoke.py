@@ -217,6 +217,23 @@ raises, so the exit code is nonzero):
               card (gloo): every rank exits 0 with finite states in every
               layout, the HA* results of the queries over 'p'
 
+ 27. padded     the port's public names (`from slam_tpu_torch import Pose`,
+              `slam_tpu_torch.ops.lut.pad_lut_rows`); `lut.pad_lut_rows`
+              of the floor plan's tables (360 bins in rows of 512 bf16 and
+              384 u8): K2 on the padded rows == rows[idx] exactly, the
+              panorama rows == the unpadded table's; the fused kernel on
+              both padded tables == its launch on the unpadded ones bit
+              for bit (poses, weights) on the bench cloud, 100k poses over
+              free space, step 1 of the 1M uniform cloud and the
+              adversarial clouds with a shard at i0 != 0; both kernels
+              timed padded against unpadded in turns beside their bounds
+              (K2 beside index_select); MCL.step through its CUDA graph
+              with the padded bf16 field == the unpadded field's over 20
+              steps (states, generators), and the panorama-row route (K1,
+              K2, plain weights) likewise, graphed ms/step both ways in
+              turns; MCL.update(state, scan, blocked=<bool grid>) == the
+              call with the mask's RayField
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device; without one it
 raises and prints no result. Phase 23 starts its worlds itself, on that
@@ -408,6 +425,16 @@ GRAPH_PROFILE = 5
 ENTRY_STEPS = 4
 ENTRY_WORLDS = (2, 4)
 ENTRY_DRYRUN_LIMIT_S = 300.0
+# Phase 27: both kernels on row-padded tables (`ops/lut.py:pad_lut_rows`:
+# the floor plan's 360-bin rows stored 512 bf16 or 384 u8 wide). Device ms
+# in turns (A, B, B, A) over PAD_ROUNDS rounds, a launch's from a graph of
+# `tools/_ab.py`'s ITERS; PAD_STEPS graphed MCL steps and PAD_K2_STEPS steps
+# of the panorama-row route compared padded against unpadded; MCL.update
+# with a raw mask at PAD_MARCH_N particles (the march backend).
+PAD_ROUNDS = 4
+PAD_STEPS = 20
+PAD_K2_STEPS = 5
+PAD_MARCH_N = 2000
 # Phase 22: the apps. GRID_SLAM_ATE_PX is the JAX app test's bound
 # (`tests/test_apps.py:27`); the checkpoint runs take CKPT_STEPS steps.
 GRID_SLAM_ATE_PX = 30.0
@@ -3917,6 +3944,275 @@ def entry_phase(dev, counts) -> dict:
     return out
 
 
+def padded_phase(dev, field, field_u8, clouds, scan, cfg, rc, odom, alphas, counts) -> dict:
+    """Phase 27: the port's public names on the card, and both kernels on
+    row-padded tables (`lut.pad_lut_rows`: the floor plan's 360-bin bf16
+    table in rows of 512, its u8 table in rows of 384) against the same
+    tables unpadded. K2 on the padded rows == rows[idx] exactly and the
+    panorama rows of the bench cloud == the unpadded table's; the fused
+    kernel's poses and weights == its launch on the unpadded table bit for
+    bit on the bench cloud, 100k poses over free space, step 1 of the 1M
+    uniform cloud and phase 6's adversarial clouds (the table's last cell,
+    off the map, wrapping segments, a shard at i0 != 0); both kernels timed
+    padded against unpadded in turns beside their bounds (K2 also beside
+    `index_select`); `MCL.step` through its CUDA graph with the padded bf16
+    field == with the unpadded field over PAD_STEPS steps (states and
+    generators) and the earlier panorama-row route (K1, K2, plain weights)
+    likewise, then graphed ms/step both ways in turns; `MCL.update(state,
+    scan, blocked=<bool grid>)` == the call with the mask's RayField. The
+    launch counts are the padded steps' (the slice's main path)."""
+    import slam_tpu_torch
+    from slam_tpu_torch import Pose as TopPose
+    from slam_tpu_torch.core.config import RaycastConfig
+    from slam_tpu_torch.core.types import Odometry, Pose
+    from slam_tpu_torch.entry import _bits, clone_state, state_difference
+    from slam_tpu_torch.models import mcl as mcl_mod
+    from slam_tpu_torch.models.simulate import forward_arc_commands
+    from slam_tpu_torch.ops import lut as lutlib
+    from slam_tpu_torch.ops import lut_weights_cuda, measurement, motion_cuda, pano_cuda, rayfield
+    from slam_tpu_torch.tools import _ab
+    from slam_tpu_torch.tools import global_loc_bench as glb
+
+    reset_counts, read_counts = counts
+    t_phase = time.perf_counter()
+    gather, fused = pano_cuda.gather_rows, lut_weights_cuda.launch
+    h, w = field.blocked.shape
+    n_bins = field.lut_bins
+    out = {}
+
+    # The names a user reaches from the package.
+    check(TopPose is Pose, "from slam_tpu_torch import Pose is not core.types.Pose")
+    check(slam_tpu_torch.ops.lut.pad_lut_rows is lutlib.pad_lut_rows,
+          "slam_tpu_torch.ops.lut.pad_lut_rows does not resolve")
+    check(slam_tpu_torch.ops.edt.edt_jfa_refresh is slam_tpu_torch.ops.edt.edt_refresh,
+          "slam_tpu_torch.ops.edt.edt_jfa_refresh is not edt_refresh")
+
+    # The padded tables.
+    tables = {"bf16": field.lut, "u8": field_u8.lut}
+    padded = {k: lutlib.pad_lut_rows(v) for k, v in tables.items()}
+    out["tables"] = {}
+    for k, t in tables.items():
+        p = padded[k]
+        width = lutlib.padded_bins(n_bins, t.dtype)
+        check(p.shape == (h, w, width) and width > n_bins and p.is_contiguous(),
+              f"pad_lut_rows {k}: shape {tuple(p.shape)}")
+        check(torch.equal(_bits(p[..., :n_bins]), _bits(t)) and not bool(_bits(p[..., n_bins:])
+                                                                        .any()),
+              f"pad_lut_rows {k}: the rows or the zero pad differ")
+        out["tables"][k] = {"cells": h * w, "row_bins": width,
+                            "row_bytes": width * p.element_size(),
+                            "mb": p.numel() * p.element_size() / 1e6,
+                            "unpadded_mb": t.numel() * t.element_size() / 1e6}
+    say("padded", f"pad_lut_rows on the card: {json.dumps(out['tables'])}")
+
+    # K2 on the padded rows: exact, and the panorama rows of the bench
+    # cloud == the unpadded table's (the pad bins sliced off).
+    g = torch.Generator(device=dev)
+    g.manual_seed(27)
+    ridx = torch.randint(0, h * w, (N_PARTICLES,), generator=g, device=dev, dtype=torch.int32)
+    edge = torch.tensor([0, h * w - 1, h * w - 1, 0, 7, h * w - 2], dtype=torch.int32,
+                        device=dev)
+    rows = {f"{k}_{t.shape[-1]}": t.reshape(h * w, t.shape[-1])
+            for k in tables for t in (tables[k], padded[k])}
+    vectors = {}
+    for name, r in rows.items():
+        for ix in (ridx, edge):
+            got = gather(r, ix)
+            check(torch.equal(_bits(got), _bits(r[ix.long()])), f"K2 {name} != rows[idx]")
+        vectors[name] = pano_cuda.vector_bytes(r.shape[1] * r.element_size(), r.data_ptr(),
+                                               got.data_ptr())
+    bench = clouds[0][1]
+    sp = measurement.sensor_pose(bench, cfg.scanner_offset)
+    for k in tables:
+        a, ia = lutlib.panorama_rows(tables[k], sp.x, sp.y, n_bins)
+        b, ib = lutlib.panorama_rows(padded[k], sp.x, sp.y, n_bins)
+        check(b.shape == a.shape and torch.equal(_bits(a), _bits(b)) and torch.equal(ia, ib),
+              f"panorama_rows on the padded {k} table != unpadded")
+    bench_idx = lutlib.panorama_index((h, w), sp.x, sp.y)[0].contiguous()
+    idx_sets = {"random_100k": ridx, "bench": bench_idx}
+    k2_fns = {}
+    for rn, r in rows.items():
+        for iname, ix in idx_sets.items():
+            k2_fns[f"{rn}_{iname}"] = lambda r=r, ix=ix: gather(r, ix)
+        k2_fns[f"{rn}_random_100k_index_select"] = lambda r=r: torch.index_select(r, 0, ridx)
+    k2_ms = _ab.in_turns(list(k2_fns), lambda name: k2_fns[name], ridx, PAD_ROUNDS)
+    k2 = {}
+    for rn, r in rows.items():
+        rb = r.shape[1] * r.element_size()
+        for iname, ix in idx_sets.items():
+            b_ = bound(ix.numel() * (rb + 4) + int(torch.unique(ix).numel()) * rb, 0)
+            ms = k2_ms[f"{rn}_{iname}"]["median"]
+            k2[f"{rn}_{iname}"] = {"ms": ms, "ms_spread": k2_ms[f"{rn}_{iname}"],
+                                   "bound_ms": b_[0], "bound_by": b_[1],
+                                   "bound_share": b_[0] / ms, "vector_bytes": vectors[rn]}
+        k2[f"{rn}_random_100k"]["library_ms"] = k2_ms[f"{rn}_random_100k_index_select"]["median"]
+    out["k2"] = k2
+    say("padded", f"K2 on rows of 360 and 512 bf16, 360 and 384 u8: == rows[idx] exactly on "
+        f"{N_PARTICLES} random and the edge indices; panorama rows of the bench cloud padded "
+        f"== unpadded; device ms in turns ({PAD_ROUNDS} rounds) {json.dumps(k2)}")
+
+    # The fused kernel: padded == unpadded bit for bit on four clouds.
+    n_beams = scan.angles.shape[0]
+    wkw = dict(beam_stride=cfg.lut_beam_stride,
+               displacement=measurement.scanner_displacement(cfg.scanner_offset),
+               max_dist=rc.max_dist, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon)
+    seed = torch.tensor([12], dtype=torch.int64, device=dev)
+    motion = (seed, motion_cuda.odometry_rows(odom, dev), alphas)
+    lidar_g, rc_g, scan_rc_g, cfg_g = glb.configs(GL_PARTICLES)
+    cmds = forward_arc_commands(1, trans=2.5, rot=0.04)
+    _, scans_g = glb.truth_and_scans(field.blocked, lidar_g, scan_rc_g, cfg_g, 0, cmds)
+    cloud_1m = mcl_mod.init_uniform(mcl_mod.make_generator(0, dev), GL_PARTICLES,
+                                    field.blocked).particles.pose
+    gkw = dict(beam_stride=cfg_g.lut_beam_stride,
+               displacement=measurement.scanner_displacement(cfg_g.scanner_offset),
+               max_dist=rc_g.max_dist, stddev=cfg_g.meas_stddev, eps=cfg_g.meas_epsilon)
+    span = cfg.lut_beam_stride * (n_beams - 1) + 1
+    xyz, kinds = adversarial_poses(h, w, n_bins, RAGGED_N, span, wkw["displacement"],
+                                   float(scan.angles[0]), np.random.default_rng(271))
+    adv = Pose(*(torch.from_numpy(v).to(dev) for v in xyz))
+    zero = (torch.tensor([31], dtype=torch.int64, device=dev),
+            motion_cuda.odometry_rows(Odometry.create(0.0, 0.0, 0.0), dev), alphas)
+    cases = {"bench": (bench, scan, cfg, wkw, motion),
+             "free_space": (clouds[1][1], scan, cfg, wkw, motion),
+             "uniform_1m": (cloud_1m, scans_g[0], cfg_g, gkw,
+                            (torch.tensor([13], dtype=torch.int64, device=dev),
+                             motion_cuda.odometry_rows(cmds[0], dev), glb.ALPHAS)),
+             "adversarial": (adv, scan, cfg, wkw, zero)}
+    lw = {}
+    i0 = RAGGED_N // 3
+    luts = {f"{k}_{t.shape[-1]}": t for k in tables for t in (tables[k], padded[k])}
+    names = list(luts)
+    for case, (poses, z, cfg_c, kw, mo) in cases.items():
+        for k in tables:
+            ref = fused(tables[k], n_bins, poses, z, motion=mo, **kw)
+            got = fused(padded[k], n_bins, poses, z, motion=mo, **kw)
+            only = fused(padded[k], n_bins, ref[0], z, **kw)[1]
+            for f in ("x", "y", "theta"):
+                check(torch.equal(_bits(getattr(ref[0], f)), _bits(getattr(got[0], f))),
+                      f"lut_weights {case} {k}: padded poses != unpadded ({f})")
+            check(torch.equal(_bits(ref[1]), _bits(got[1])) and torch.equal(
+                _bits(ref[1]), _bits(only)), f"lut_weights {case} {k}: padded weights != unpadded")
+            check(bool(torch.isfinite(got[1]).all()), f"lut_weights {case} {k}: non-finite")
+            if case == "adversarial":
+                part = Pose(*(v[i0:].contiguous() for v in (poses.x, poses.y, poses.theta)))
+                ps, lws = fused(padded[k], n_bins, part, z, motion=mo, i0=i0, **kw)
+                check(torch.equal(_bits(ps.x), _bits(got[0].x[i0:])) and torch.equal(
+                    _bits(lws), _bits(got[1][i0:])),
+                    f"lut_weights {case} {k}: the padded shard at i0 = {i0} != the slice")
+            spk = measurement.sensor_pose(got[0], cfg_c.scanner_offset)
+            pidx, inb = lutlib.panorama_index((h, w), spk.x, spk.y)
+            n = poses.x.numel()
+            b_ = bound(n * (12 + 12 + 4) + int(torch.unique(pidx).numel()) * z.angles.shape[0]
+                       * tables[k].element_size() + z.angles.shape[0] * 8 + 8,
+                       n * (OPS_SAMPLE + OPS_LOCATE + z.angles.shape[0] * OPS_BEAM))
+            lw[f"{case}_{k}"] = {"particles": n, "off_map": int((~inb).sum()),
+                                 "distinct_cells": int(torch.unique(pidx).numel()),
+                                 "bound_ms": b_[0], "bound_by": b_[1]}
+        ms = _ab.in_turns(names, lambda name: lambda: fused(luts[name], n_bins, poses, z,
+                                                            motion=mo, **kw),
+                          poses.x, PAD_ROUNDS)
+        for k in tables:
+            rec = lw[f"{case}_{k}"]
+            for name in names:
+                if name.startswith(k):
+                    tag = "padded" if luts[name].shape[-1] > n_bins else "unpadded"
+                    rec[f"ms_{tag}"] = ms[name]["median"]
+                    rec[f"ms_{tag}_spread"] = ms[name]
+                    rec[f"bound_share_{tag}"] = rec["bound_ms"] / ms[name]["median"]
+            rec["padded_over_unpadded"] = rec["ms_padded"] / rec["ms_unpadded"]
+        say("padded", f"lut_weights {case}: padded == unpadded bit for bit (poses, weights, "
+            f"weigh-only{'; the shard at i0 = %d == the slice' % i0 if case == 'adversarial' else ''}"
+            f"), bf16 and u8; {json.dumps({k: lw[f'{case}_{k}'] for k in tables})}")
+    out["adversarial_kinds"] = {name: int((kinds == i).sum())
+                                for i, name in enumerate(ADVERSARIAL_KINDS)}
+    out["lut_weights"] = lw
+    del cloud_1m
+
+    # MCL.step through its CUDA graph with the padded bf16 field: the
+    # slice's main path, counted; then the unpadded field's steps == it.
+    pose0 = Pose.create(400.0, 400.0, math.pi, device=dev)
+    fields = {"padded": rayfield.RayField(blocked=field.blocked, lut=padded["bf16"],
+                                          lut_bins=n_bins), "unpadded": field}
+    engines = {name: mcl_mod.MCL(cfg, rc, device=dev) for name in fields}
+    for e in engines.values():
+        e.graphs.guard = sync_error
+
+    def init():
+        return mcl_mod.init(mcl_mod.make_generator(0, dev), N_PARTICLES, pose0)
+
+    def k2_route(st, f):
+        st = mcl_mod.predict(st, odom, alphas)
+        sp_ = measurement.sensor_pose(st.particles.pose, cfg.scanner_offset)
+        pano, inb_ = lutlib.panorama_rows(f.lut, sp_.x, sp_.y, f.lut_bins)
+        lw_ = measurement.pano_log_weights(
+            pano, inb_, sp_.theta, scan, n_bins=n_bins, beam_stride=cfg.lut_beam_stride,
+            lut_dtype=f.lut.dtype, max_dist=rc.max_dist, stddev=cfg.meas_stddev,
+            eps=cfg.meas_epsilon)
+        return mcl_mod._finish(st, lw_, cfg)
+
+    reset_counts()
+    st, saved = init(), []
+    for _ in range(PAD_STEPS):
+        st = engines["padded"].step(st, odom, alphas, scan, fields["padded"])
+        saved.append(clone_state(st))
+    k2_st, k2_saved = init(), []
+    for _ in range(PAD_K2_STEPS):
+        k2_st = k2_route(k2_st, fields["padded"])
+        k2_saved.append(clone_state(k2_st))
+    torch.cuda.synchronize()
+    launches, warm = read_counts(), warmup_counts()
+    check(launches["lut_weights"] >= PAD_STEPS and launches["gather_rows"] == PAD_K2_STEPS
+          and launches["motion_odometry"] == PAD_K2_STEPS,
+          f"padded path launches {launches} (warm-ups {warm})")
+    box = {"padded": st}
+    st = init()
+    for k in range(PAD_STEPS):
+        st = engines["unpadded"].step(st, odom, alphas, scan, fields["unpadded"])
+        diff = state_difference(saved[k], st)
+        check(diff is None, f"MCL.step padded != unpadded after step {k} ({diff})")
+    box["unpadded"] = st
+    st = init()
+    for k in range(PAD_K2_STEPS):
+        st = k2_route(st, fields["unpadded"])
+        diff = state_difference(k2_saved[k], st)
+        check(diff is None, f"panorama-row route padded != unpadded after step {k} ({diff})")
+    del saved, k2_saved
+
+    def advance(name):
+        box[name] = engines[name].step(box[name], odom, alphas, scan, fields[name])
+
+    step_ms = {name: [] for name in fields}
+    for r in range(PAD_ROUNDS):
+        for name in (list(fields) if r % 2 == 0 else list(fields)[::-1]):
+            torch.cuda.synchronize()
+            step_ms[name].append(event_ms(lambda: [advance(name) for _ in range(PAD_STEPS)])
+                                 / PAD_STEPS)
+    out["mcl_step"] = {"steps_equal": PAD_STEPS, "k2_route_steps_equal": PAD_K2_STEPS,
+                       "graph_ms_per_step": {n_: spread(v) for n_, v in step_ms.items()}}
+    say("padded", f"MCL.step through its graph, padded bf16 field == unpadded bit for bit over "
+        f"{PAD_STEPS} steps (states, generators), the panorama-row route over {PAD_K2_STEPS}; "
+        f"{json.dumps(out['mcl_step'])}; launches {launches} (warm-ups {warm})")
+
+    # MCL.update under JAX's keyword, on a raw bool grid (the march).
+    rc_m = RaycastConfig(step=0.5, max_dist=rc.max_dist, backend="march")
+    cfg_m = dataclasses.replace(cfg, n_particles=PAD_MARCH_N, lut_beam_stride=None)
+    st = init()
+    st = st.replace(particles=st.particles.replace(
+        pose=Pose(*(v[:PAD_MARCH_N].contiguous() for v in (bench.x, bench.y, bench.theta))),
+        log_weight=st.particles.log_weight[:PAD_MARCH_N].contiguous()))
+    a = mcl_mod.MCL(cfg_m, rc_m, device=dev).update(clone_state(st), scan,
+                                                     blocked=field.blocked)
+    b = mcl_mod.MCL(cfg_m, rc_m, device=dev).update(
+        clone_state(st), scan, blocked=rayfield.make_ray_field(field.blocked, rc_m))
+    diff = state_difference(a, b)
+    check(diff is None and bool(torch.isfinite(a.particles.log_weight).all()),
+          f"MCL.update(blocked=<bool grid>) != the RayField call ({diff})")
+    out["update_blocked_equal"] = True
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -4834,7 +5130,14 @@ def main() -> None:
     en = entry_phase(dev, counts)
     phase_s["entry"] = time.perf_counter() - t0
     say("entry", json.dumps({**en, "device": name, "power_limit": power}))
-    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-26 "
+
+    # 27. both kernels on row-padded tables, and the port's public names.
+    pd = padded_phase(dev, field, field_u8, clouds, scan, cfg, rc, bench_odom, bench_alphas,
+                      counts)
+    phase_s["padded"] = pd["seconds"]
+    say("padded", json.dumps({**{k: v for k, v in pd.items() if k not in ("k2", "lut_weights")},
+                              "device": name, "power_limit": power}))
+    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-27 "
         f"{time.perf_counter() - t_new:.1f} s {json.dumps(phase_s)}")
 
     # Launches: the counts of the main paths' runs (phase 7's mcl.step,
@@ -4843,15 +5146,17 @@ def main() -> None:
     # maze steps through both tables, phase 21's fleet steps, phase 22's
     # apps, phase 23's sharded engines on every rank of every world and
     # their graph and eager routes, phase 24's tools, phase 25's graphed and
-    # eager steps, phase 26's entry step; a graph replay counts the launches
-    # its capture recorded, a warm-up its own). K2
+    # eager steps, phase 26's entry step, phase 27's padded steps; a graph
+    # replay counts the launches its capture recorded, a warm-up its own). K2
     # left the MCL step with this kernel line's third entry; phases 3, 5
-    # and 6 still hold it to rows[idx].
+    # and 6 still hold it to rows[idx], phase 27's panorama-row route
+    # launches it on padded rows.
     main_launches = {k: launches[k] + slam_launches[k] + gl["launches"][k]
                      + auto["launches_after_step_5"][k] + sm["launches"][k] + rb["launches"][k]
                      + mz["launches"][k] + fl["launches"][k] + ap["launches"][k]
                      + par["launches"].get(k, 0) + tl["launches"][k] + gr["launches"][k]
-                     + en["launches"][k] for k in launches}
+                     + en["launches"][k] + pd["launches"][k] for k in launches}
+    k2_pad, lw_pad = pd["k2"], pd["lut_weights"]
     lw_fleet = fl["kernel_fleet"]
     lw_maze = mz["maze"]["lut"]["lut_weights_vs_plain"]
     lw_1m = gl["lut_weights_1m_uniform"]
@@ -4882,11 +5187,21 @@ def main() -> None:
          "replaces": "slam_tpu/ops/pano_pallas.py:69",
          "launches": main_launches["gather_rows"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": k2_library_ms},
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": k2_library_ms,
+         # Phase 27, in turns: rows of 360 and 512 bf16, 360 and 384 u8 (the
+         # padded widths), on 100k random rows and the bench cloud's rows.
+         **{f"{key}_{rows}_{cloud}": k2_pad[f"{rows}_{cloud}"][key]
+            for rows in ("bf16_360", "bf16_512", "u8_360", "u8_384")
+            for cloud in ("random_100k", "bench")
+            for key in ("ms", "bound_ms", "bound_share")},
+         **{f"library_ms_{rows}_random_100k": k2_pad[f"{rows}_random_100k"]["library_ms"]
+            for rows in ("bf16_360", "bf16_512", "u8_360", "u8_384")},
+         "ms_padded_bench": k2_pad["bf16_512_bench"]["ms"],
+         "bound_share_padded_bench": k2_pad["bf16_512_bench"]["bound_share"]},
         {"name": "lut_weights", "route": "cuda",
          "source": "slam_tpu_torch/csrc/lut_weights.cu",
          "replaces": "slam_tpu/ops/motion_pallas.py:76 (K1, fused as the prologue) + "
-                     "slam_tpu/ops/measurement.py:669 (particle_log_weights_lut_fused)",
+                     "slam_tpu/ops/measurement.py:671 (particle_log_weights_lut_fused)",
          "launches": main_launches["lut_weights"],
          # Largest |weight - plain| over both tables, the three clouds of
          # phase 6 and its adversarial clouds (a bin or cell on a rounding
@@ -4913,7 +5228,18 @@ def main() -> None:
          "bound_share_maze_u8_10k": lw_maze["bound_share"],
          "max_abs_err_maze_u8_10k": lw_maze["max_abs_diff"],
          # Phase 21: the adversarial clouds of 16 robots x RAGGED_N.
-         "max_abs_err_fleet_adversarial": fl["kernel_fleet_adversarial"]["max_abs_diff"]},
+         "max_abs_err_fleet_adversarial": fl["kernel_fleet_adversarial"]["max_abs_diff"],
+         # Phase 27, in turns: padded (512 bf16, 384 u8) against unpadded
+         # rows on four clouds, equal bit for bit.
+         **{f"{key}_{cloud}_{t}": lw_pad[f"{cloud}_{t}"][key]
+            for cloud in ("bench", "free_space", "uniform_1m", "adversarial")
+            for t in ("bf16", "u8")
+            for key in ("ms_padded", "ms_unpadded", "bound_ms", "bound_share_padded",
+                        "bound_share_unpadded")},
+         "ms_padded_bench": lw_pad["bench_bf16"]["ms_padded"],
+         "bound_share_padded_bench": lw_pad["bench_bf16"]["bound_share_padded"],
+         "ms_padded_1m_uniform": lw_pad["uniform_1m_bf16"]["ms_padded"],
+         "bound_share_padded_1m_uniform": lw_pad["uniform_1m_bf16"]["bound_share_padded"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,8 @@
 
 Dataclasses of tensors with a shared leading batch shape: the same type
 describes one pose (shape ()) or N particles (shape (N,)). `replace`
-returns a copy with fields swapped; `to(device)` moves every tensor.
+returns a copy with fields swapped; `to(device)` moves every tensor. The
+`create` methods take JAX's `dtype` (float32 by default) and a `device`.
 """
 
 from __future__ import annotations
@@ -14,8 +15,8 @@ import numpy as np
 import torch
 
 
-def _as_f32(v, device=None) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
+def _as(v, dtype, device=None) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=dtype, device=device)
 
 
 class _TensorDataclass:
@@ -41,10 +42,19 @@ class Pose(_TensorDataclass):
     theta: torch.Tensor
 
     @classmethod
-    def create(cls, x, y, theta, device=None) -> "Pose":
+    def create(cls, x, y, theta, dtype=torch.float32, device=None) -> "Pose":
         return cls(
-            x=_as_f32(x, device), y=_as_f32(y, device), theta=_as_f32(theta, device)
+            x=_as(x, dtype, device), y=_as(y, dtype, device), theta=_as(theta, dtype, device)
         )
+
+    @property
+    def batch_shape(self):
+        return self.x.shape
+
+    def replace_theta(self, theta) -> "Pose":
+        """A copy with `theta` swapped, cast to the old theta's dtype."""
+        return self.replace(theta=torch.as_tensor(theta, dtype=self.theta.dtype,
+                                                  device=self.theta.device))
 
 
 @dataclasses.dataclass
@@ -58,11 +68,11 @@ class Odometry(_TensorDataclass):
     rot2: torch.Tensor
 
     @classmethod
-    def create(cls, rot1, trans, rot2, device=None) -> "Odometry":
+    def create(cls, rot1, trans, rot2, dtype=torch.float32, device=None) -> "Odometry":
         return cls(
-            rot1=_as_f32(rot1, device),
-            trans=_as_f32(trans, device),
-            rot2=_as_f32(rot2, device),
+            rot1=_as(rot1, dtype, device),
+            trans=_as(trans, dtype, device),
+            rot2=_as(rot2, dtype, device),
         )
 
 
@@ -74,8 +84,8 @@ class Velocity(_TensorDataclass):
     w: torch.Tensor
 
     @classmethod
-    def create(cls, v, w, device=None) -> "Velocity":
-        return cls(v=_as_f32(v, device), w=_as_f32(w, device))
+    def create(cls, v, w, dtype=torch.float32, device=None) -> "Velocity":
+        return cls(v=_as(v, dtype, device), w=_as(w, dtype, device))
 
 
 @dataclasses.dataclass
@@ -91,13 +101,13 @@ class Particles(_TensorDataclass):
         return self.pose.x.shape[-1]
 
     @classmethod
-    def uniform_at(cls, pose: Pose, n: int) -> "Particles":
+    def uniform_at(cls, pose: Pose, n: int, dtype=torch.float32) -> "Particles":
         """All particles at one pose with uniform weights (`slam/mcl.cpp:27-39`)."""
         dev = pose.x.device
-        ones = torch.ones((n,), dtype=torch.float32, device=dev)
+        ones = torch.ones((n,), dtype=dtype, device=dev)
         return cls(
             pose=Pose(x=ones * pose.x, y=ones * pose.y, theta=ones * pose.theta),
-            log_weight=torch.full((n,), -log_f32(n), device=dev),
+            log_weight=torch.full((n,), -log_f32(n), dtype=dtype, device=dev),
         )
 
 
@@ -108,6 +118,11 @@ class Scan(_TensorDataclass):
 
     angles: torch.Tensor  # f32[B]
     dists: torch.Tensor  # f32[B]
+
+    @property
+    def n_beams(self) -> int:
+        """Beams per scan (the last axis; a fleet stacks [R, B])."""
+        return self.angles.shape[-1]
 
 
 class Box:

@@ -1,0 +1,1 @@
+from slam_tpu_torch.models import fake_lidar, mcl, slam  # noqa: F401

@@ -576,11 +576,14 @@ class MCL:
         return self.graphs.run(lambda s, o, _: predict(s, o, alphas), state, odom,
                                key=("predict", alphas))
 
-    def update(self, state, scan: Scan, field) -> MCLState:
+    def update(self, state, scan: Scan, blocked) -> MCLState:
+        """Weigh against `scan`, then resample as `cfg` says. `blocked` (JAX's
+        name) is a prebuilt `RayField` or a raw bool[H, W] mask, as `update`
+        takes it."""
         cfg = self.cfg
         return self.graphs.run(
-            lambda s, _, z: update(s, z, field, cfg, self.rc, early_exit=False), state,
-            scan=scan, key=("update", cfg, self.rc, id(field)),
+            lambda s, _, z: update(s, z, blocked, cfg, self.rc, early_exit=False), state,
+            scan=scan, key=("update", cfg, self.rc, id(blocked)),
             gates=(cfg.resample_every,))
 
     def step(self, state, odom: Odometry, alphas, scan: Scan, field) -> MCLState:

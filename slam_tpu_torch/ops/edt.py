@@ -284,3 +284,7 @@ def edt_refresh(
 
     return cond(any_diff, changed_fn, lambda prev, mask, si, sj: prev,
                 edt_prev, blocked_new, si, sj, host_read=True)
+
+
+# JAX's older name of the refresh (it first ran over the capped JFA).
+edt_jfa_refresh = edt_refresh

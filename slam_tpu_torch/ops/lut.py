@@ -182,6 +182,31 @@ def angle_bin(theta, n_bins: int):
     return torch.remainder(b, n_bins)
 
 
+def padded_bins(n_bins: int, dtype) -> int:
+    """Storage row width of a row-padded table: bf16 and f32 rows round up
+    to a multiple of 512 bins, u8 rows to a multiple of 384 (JAX's widths;
+    a padded bf16 row is 1024 B, a u8 row 384 B, both 128 B aligned). Not
+    applied by default, as in JAX, whose docstring weighs the aligned rows
+    of uniform-random queries against the hot rows of clustered clouds on
+    its own chip; `chip_smoke.py` phase 27 times both tables on the card."""
+    mult = 384 if dtype == torch.uint8 else 512
+    return -(-n_bins // mult) * mult
+
+
+def pad_lut_rows(lut: torch.Tensor) -> torch.Tensor:
+    """[H, W, n_bins] -> [H, W, padded_bins(n_bins)], zeros in the pad bins
+    (the same tensor when no pad is due). Query it with the semantic bin
+    count: `RayField(lut=pad_lut_rows(lut), lut_bins=n_bins)`, or `n_bins=`
+    of `raycast_lut` and `panorama_rows`; no query reads a pad bin."""
+    n = lut.shape[-1]
+    p = padded_bins(n, lut.dtype)
+    if p == n:
+        return lut
+    out = lut.new_zeros((*lut.shape[:-1], p))
+    out[..., :n] = lut
+    return out
+
+
 def raycast_lut(lut: torch.Tensor, x, y, theta, *, max_dist: float = 500.0,
                 n_bins: int | None = None):
     """Query the table: one gather per ray. Returns (dist, hit) with the

@@ -204,6 +204,7 @@ def particle_log_weights_lut_fused(
     scanner_offset=(0.0, 0.0, 0.0),
     stddev: float = 5.0,
     eps: float = 0.1,
+    ray_sharding=None,
 ):
     """Fused beam-model weights via LUT panorama rows: ONE row gather per
     particle (all bins of its sensor cell; every beam of a particle starts
@@ -214,7 +215,15 @@ def particle_log_weights_lut_fused(
     CPU to the composition above, its plain version.
 
     `beam_stride` g is the static promise that beam angles are evenly
-    spaced by exactly g bins (`config.beam_bin_stride`)."""
+    spaced by exactly g bins (`config.beam_bin_stride`). The table's rows
+    may be wider than `field.lut_bins` (`lut.pad_lut_rows`); the pad bins
+    are never read.
+
+    `ray_sharding` changes no value, as in JAX, where it only pins the
+    panorama's layout: the beams do not split over 'b', so under the
+    sharded engines each rank weighs every beam of its particle shard
+    (`parallel/sharded.py:ShardedMCL`)."""
+    del ray_sharding
     lut = field.lut
     if lut is None:
         raise ValueError("lut-fused measurement needs field.lut")
@@ -270,6 +279,7 @@ def particle_log_weights(
         return particle_log_weights_lut_fused(
             field, poses, scan, rc=rc, beam_stride=lut_beam_stride,
             scanner_offset=scanner_offset, stddev=stddev, eps=eps,
+            ray_sharding=ray_sharding,
         )
     scan, bax = _beam_part(scan, ray_sharding)
     sp = sensor_pose(poses, scanner_offset)

@@ -33,12 +33,17 @@ class RayField:
     # the likelihood-field measurements read it (the SLAM step builds it
     # with `ops/edt.py:edt_capped`).
     edt: Optional[torch.Tensor] = None
-    # [H, W, P] bins-last table; P >= lut_bins is the storage width.
+    # [H, W, P] bins-last table; P >= lut_bins is the storage width
+    # (`lut.pad_lut_rows` pads rows; no build pads them by default).
     lut: Optional[torch.Tensor] = None
     # Semantic angular bin count.
     lut_bins: Optional[int] = None
     # Compressed directional table (cddt backend).
     cddt: Optional[cddtlib.CDDTTable] = None
+
+    @property
+    def shape(self):
+        return self.blocked.shape
 
 
 def _cache_path(host: np.ndarray, rc: RaycastConfig, cache_dir: str) -> str:

@@ -162,12 +162,13 @@ class ShardedMCL:
         return self.graphs.run(lambda s, o, _: mcl_mod.predict(s, o, alphas, ray_sharding=rs),
                                state, odom, key=("predict", alphas))
 
-    def update(self, state, scan: Scan, field):
+    def update(self, state, scan: Scan, blocked):
+        """`blocked` (JAX's name): a `RayField` or a raw bool[H, W] mask."""
         cfg, rc, rs, rfn = self.cfg, self.rc, self.sharding, self._rfn
         return self.graphs.run(
-            lambda s, _, z: mcl_mod.update(s, z, field, cfg, rc, ray_sharding=rs,
+            lambda s, _, z: mcl_mod.update(s, z, blocked, cfg, rc, ray_sharding=rs,
                                            resample_fn=rfn, early_exit=False),
-            state, scan=scan, key=("update", cfg, rc, id(field)), gates=(cfg.resample_every,))
+            state, scan=scan, key=("update", cfg, rc, id(blocked)), gates=(cfg.resample_every,))
 
     def step(self, state, odom: Odometry, alphas, scan: Scan, field):
         alphas = tuple(float(a) for a in alphas)

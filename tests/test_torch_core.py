@@ -16,18 +16,22 @@ import torch
 import slam_tpu.core.config as jcfg
 from slam_tpu.core import grid as jgrid
 from slam_tpu.core import stats as jstats
+from slam_tpu.core import types as jtypes
 from slam_tpu.ops import lut as jlut
+from slam_tpu.ops import rayfield as jrf
 from slam_tpu_torch.core import config as tcfg
 from slam_tpu_torch.core import grid as tgrid
 from slam_tpu_torch.core import stats as tstats
 from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch import entry as tentry
+from slam_tpu_torch.core import types as ttypes
 from slam_tpu_torch.core.types import Box, Pose, Velocity
 from slam_tpu_torch.models.fleet import MCLFleet
 from slam_tpu_torch.models.mcl import MCL
 from slam_tpu_torch.models.rbpf import RBPF
 from slam_tpu_torch.models.slam import GridSLAM
 from slam_tpu_torch.ops import lut as tlut
+from slam_tpu_torch.ops import rayfield as trf
 from slam_tpu_torch.planners import AStar, HybridAStar, RRTStar
 from slam_tpu_torch.utils import convert
 from torch_port import np_
@@ -206,6 +210,67 @@ def test_triangular_and_blocked_helpers_match(rng):
     assert vel.v.dtype == torch.float32 and float(vel.w) == -0.25
     box = Box(1, 2, 3, 4)
     assert (box.start_i, box.start_j, box.stop_i, box.stop_j) == (1, 2, 3, 4)
+
+
+# JAX dtype -> the port's, for the `dtype=` parameters.
+DTYPES = [(jnp.float32, torch.float32), (jnp.float16, torch.float16),
+          (jnp.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=["f32", "f16", "bf16"])
+def test_dtype_parameters_match_jax(jdt, tdt, rng):
+    """`dtype=` of `Pose.create`, `Odometry.create`, `Velocity.create`,
+    `Particles.uniform_at` and `grid.cell_to_world`: the same values in
+    the counterpart dtype; float32 without it, as in JAX."""
+    v = [rng.uniform(-50, 50, 5).astype(np.float32) for _ in range(3)]
+    for jcls, tcls, args in ((jtypes.Pose, ttypes.Pose, v), (jtypes.Odometry, ttypes.Odometry, v),
+                             (jtypes.Velocity, ttypes.Velocity, v[:2])):
+        for kw_j, kw_t in (({"dtype": jdt}, {"dtype": tdt}), ({}, {})):
+            j, t = jcls.create(*args, **kw_j), tcls.create(*args, **kw_t)
+            for f in dataclasses.fields(t):
+                tv, jv = getattr(t, f.name), getattr(j, f.name)
+                assert tv.dtype == (tdt if kw_t else torch.float32)
+                np.testing.assert_array_equal(np_(tv), np_(jv))
+    jp = jtypes.Particles.uniform_at(jtypes.Pose.create(3.5, -2.0, 0.25), 7, dtype=jdt)
+    tp = ttypes.Particles.uniform_at(ttypes.Pose.create(3.5, -2.0, 0.25), 7, dtype=tdt)
+    for tv, jv in ((tp.pose.x, jp.pose.x), (tp.pose.theta, jp.pose.theta),
+                   (tp.log_weight, jp.log_weight)):
+        assert tv.dtype == tdt and tv.shape == (7,)
+    np.testing.assert_array_equal(np_(tp.pose.x), np_(jp.pose.x))
+    np.testing.assert_array_equal(np_(tp.pose.theta), np_(jp.pose.theta))
+    # -log(7) in f32: torch's log and XLA's differ by an ulp here.
+    np.testing.assert_allclose(np_(tp.log_weight), np_(jp.log_weight), rtol=1e-6)
+    i = rng.integers(-3, 40, 9).astype(np.int32)
+    j = rng.integers(-3, 60, 9).astype(np.int32)
+    for kw_j, kw_t in (({"dtype": jdt}, {"dtype": tdt}), ({}, {})):
+        tx, ty = tgrid.cell_to_world((37, 55), torch.from_numpy(i), torch.from_numpy(j), **kw_t)
+        jx, jy = jgrid.cell_to_world((37, 55), jnp.asarray(i), jnp.asarray(j), **kw_j)
+        assert tx.dtype == ty.dtype == (tdt if kw_t else torch.float32)
+        np.testing.assert_array_equal(np_(tx), np_(jx))
+        np.testing.assert_array_equal(np_(ty), np_(jy))
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=["f32", "f16", "bf16"])
+def test_members_match_jax(jdt, tdt, rng):
+    """`Pose.batch_shape`, `Pose.replace_theta` (which keeps theta's
+    dtype), `Scan.n_beams` and `RayField.shape`, as JAX's."""
+    for shape in ((), (6,), (2, 3)):
+        args = [rng.uniform(-5, 5, shape).astype(np.float32) for _ in range(3)]
+        jp, tp = jtypes.Pose.create(*args, dtype=jdt), ttypes.Pose.create(*args, dtype=tdt)
+        assert tp.batch_shape == jp.batch_shape == shape
+        new = rng.uniform(-3, 3, shape)  # float64: cast to theta's dtype
+        jr, tr = jp.replace_theta(new), tp.replace_theta(new)
+        assert tr.theta.dtype == tdt and jr.theta.dtype == jdt
+        np.testing.assert_array_equal(np_(tr.theta), np_(jr.theta))
+        np.testing.assert_array_equal(np_(tr.x), np_(tp.x))
+    angles = np.linspace(0.0, 3.0, 11, dtype=np.float32)
+    js = jtypes.Scan(angles=jnp.asarray(angles), dists=jnp.ones(11))
+    ts = ttypes.Scan(angles=torch.from_numpy(angles), dists=torch.ones(11))
+    assert ts.n_beams == js.n_beams == 11
+    blocked = rng.random((13, 17)) < 0.2
+    jf = jrf.RayField(blocked=jnp.asarray(blocked))
+    tf = trf.RayField(blocked=torch.from_numpy(blocked))
+    assert tuple(tf.shape) == tuple(jf.shape) == (13, 17)
 
 
 _IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|flax|slam_tpu)(\.|\s|$)", re.M)

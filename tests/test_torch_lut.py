@@ -1,6 +1,8 @@
 """slam_tpu_torch LUT build and queries, the march raycaster and the
 simulated lidar against the JAX package on small maps."""
 
+import dataclasses
+import functools
 import math
 
 import jax.numpy as jnp
@@ -9,19 +11,24 @@ import pytest
 import torch
 
 from slam_tpu.core.config import LidarConfig as JLidar
+from slam_tpu.core.config import MCLConfig as JMCLConfig
 from slam_tpu.core.config import RaycastConfig as JRaycast
 from slam_tpu.core.types import Pose as JPose
 from slam_tpu.models import fake_lidar as jfake
 from slam_tpu.ops import lut as jlut
+from slam_tpu.ops import measurement as jmeas
 from slam_tpu.ops import rayfield as jrf
 from slam_tpu.ops.raycast import raycast_march as jmarch
-from slam_tpu_torch.core.config import LidarConfig, RaycastConfig
+from slam_tpu_torch.core.config import LidarConfig, MCLConfig, RaycastConfig, beam_bin_stride
+from slam_tpu_torch.core.types import Odometry
 from slam_tpu_torch.models import fake_lidar as tfake
+from slam_tpu_torch.models import mcl as tmcl
 from slam_tpu_torch.ops import lut as tlut
+from slam_tpu_torch.ops import measurement as tmeas
 from slam_tpu_torch.ops import rayfield as trf
 from slam_tpu_torch.ops.raycast import raycast_march as tmarch
 from slam_tpu_torch.utils import convert
-from torch_port import np_, random_poses, room, table_bits, torch_table_bits
+from torch_port import np_, random_poses, room, t_field, t_scan, table_bits, torch_table_bits
 
 H, W, BINS, MAX_DIST = 96, 128, 360, 80.0
 DTYPES = {"bf16": (jnp.bfloat16, torch.bfloat16), "u8": (jnp.uint8, torch.uint8)}
@@ -168,3 +175,136 @@ def test_unported_backends_raise(blocked):
     assert field.cddt is not None and field.cddt.n_bins == 16
     with pytest.raises(ValueError, match="unknown raycast backend"):
         trf.make_ray_field(torch.from_numpy(blocked), RaycastConfig(backend="dense"))
+
+
+# Row-padded tables (`lut.pad_lut_rows`): PAD_BINS semantic bins stored in
+# rows of `padded_bins` (512 bf16, 384 u8); 24 beams over pi at stride 2.
+PAD_BINS = 96
+PAD_LIDAR = dict(start=0.0, stop=math.pi, max_dist=MAX_DIST, n_rays=24)
+PAD_OFFSET = (0.0, 10.0, 0.0)
+JDTYPES = {"bf16": jnp.bfloat16, "u8": jnp.uint8, "f32": jnp.float32}
+TDTYPES = {"bf16": torch.bfloat16, "u8": torch.uint8, "f32": torch.float32}
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "u8", "f32"])
+@pytest.mark.parametrize("n_bins", [8, 90, 96, 360, 512, 720])
+def test_padded_bins_matches_jax(n_bins, dtype):
+    got = tlut.padded_bins(n_bins, TDTYPES[dtype])
+    assert got == jlut.padded_bins(n_bins, JDTYPES[dtype])
+    assert got >= n_bins and got % (384 if dtype == "u8" else 512) == 0
+
+
+@functools.cache
+def _padded_fields(dtype):
+    """The room's JAX-built PAD_BINS field, unpadded and padded in each
+    package (the port's tables carried from JAX's, `utils.convert`)."""
+    jrc = JRaycast(step=0.5, max_dist=MAX_DIST, backend="lut", lut_bins=PAD_BINS,
+                   lut_dtype=dtype)
+    jfield = jrf.make_ray_field(jnp.asarray(room(H, W)), jrc)
+    jpad = jfield.replace(lut=jlut.pad_lut_rows(jfield.lut))
+    tfield = t_field(jfield)
+    tpad = dataclasses.replace(tfield, lut=tlut.pad_lut_rows(tfield.lut))
+    return jrc, jfield, jpad, tfield, tpad
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "u8"])
+def test_pad_lut_rows_matches_jax(dtype):
+    """The port's padded table == JAX's bit for bit (bf16 as its bits):
+    the rows widened to `padded_bins`, zeros in the pad bins; a table
+    already at that width comes back as it is."""
+    _, jfield, jpad, tfield, tpad = _padded_fields(dtype)
+    width = tlut.padded_bins(PAD_BINS, TDTYPES[dtype])
+    assert tpad.lut.shape == (H, W, width) == jpad.lut.shape and width > PAD_BINS
+    assert tpad.lut.dtype == tfield.lut.dtype and tpad.lut.is_contiguous()
+    np.testing.assert_array_equal(torch_table_bits(tpad.lut), table_bits(jpad.lut))
+    np.testing.assert_array_equal(torch_table_bits(tpad.lut[..., :PAD_BINS]),
+                                  torch_table_bits(tfield.lut))
+    assert not torch_table_bits(tpad.lut[..., PAD_BINS:]).any()
+    assert tlut.pad_lut_rows(tpad.lut) is tpad.lut
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "u8"])
+def test_padded_queries_match_unpadded_and_jax(dtype, rng):
+    """`raycast_lut` and `panorama_rows` on padded rows with the semantic
+    bin count == the unpadded table's answers == JAX's on its padded table
+    (the counterpart of tests/test_rayfield.py's padded-storage test),
+    positions off the map included."""
+    _, jfield, jpad, tfield, tpad = _padded_fields(dtype)
+    x, y, th = random_poses(rng, 3000, room(H, W), margin=-10.0)
+    tx, ty, tth = (torch.from_numpy(v) for v in (x, y, th))
+    d0, h0 = tlut.raycast_lut(tfield.lut, tx, ty, tth, max_dist=MAX_DIST)
+    d1, h1 = tlut.raycast_lut(tpad.lut, tx, ty, tth, max_dist=MAX_DIST, n_bins=PAD_BINS)
+    jd, jh = jlut.raycast_lut(jpad.lut, x, y, th, max_dist=MAX_DIST, n_bins=PAD_BINS)
+    assert torch.equal(d1, d0) and torch.equal(h1, h0)
+    np.testing.assert_array_equal(np_(d1), np_(jd))
+    np.testing.assert_array_equal(np_(h1), np_(jh))
+    assert (~np_(jh)).any() and np_(jh).any()
+    p0, i0 = tlut.panorama_rows(tfield.lut, tx, ty)
+    p1, i1 = tlut.panorama_rows(tpad.lut, tx, ty, PAD_BINS)
+    jp, ji = jlut.panorama_rows(jpad.lut, x, y, PAD_BINS)
+    assert p1.shape == p0.shape == (3000, PAD_BINS) and p1.dtype == tfield.lut.dtype
+    np.testing.assert_array_equal(torch_table_bits(p1), torch_table_bits(p0))
+    np.testing.assert_array_equal(torch_table_bits(p1), table_bits(jp))
+    assert torch.equal(i1, i0)
+    np.testing.assert_array_equal(np_(i1), np_(ji))
+
+
+def _pad_scan():
+    lidar = JLidar(**PAD_LIDAR)
+    return jfake.scan(jnp.asarray(room(H, W)), JPose.create(50.0, 30.0, 0.4), lidar,
+                      JRaycast(max_dist=MAX_DIST))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "u8"])
+def test_fused_weights_on_padded_rows(dtype, rng):
+    """`particle_log_weights_lut_fused` on a padded field (`lut_bins` =
+    PAD_BINS) == the port's unpadded field bit for bit, and == JAX's on
+    its padded field within rtol 1e-5, atol 1e-3 (the tolerance
+    tests/test_torch_measurement.py states for this function: exp/log ulps
+    and the beam sum's order)."""
+    jrc, _, jpad, tfield, tpad = _padded_fields(dtype)
+    stride = beam_bin_stride(LidarConfig(**PAD_LIDAR), RaycastConfig(lut_bins=PAD_BINS))
+    assert stride == 2
+    jscan = _pad_scan()
+    x, y, th = random_poses(rng, 2048, room(H, W), margin=-4.0)
+    rc = RaycastConfig(**dataclasses.asdict(jrc))
+    kw = dict(rc=rc, beam_stride=stride, scanner_offset=PAD_OFFSET, stddev=5.0, eps=0.1)
+    poses = convert.pose(x, y, th)
+    got = tmeas.particle_log_weights_lut_fused(tpad, poses, t_scan(jscan), **kw)
+    flat = tmeas.particle_log_weights_lut_fused(tfield, poses, t_scan(jscan), **kw)
+    assert torch.equal(got.view(torch.int32), flat.view(torch.int32))
+    want = jmeas.particle_log_weights_lut_fused(
+        jpad, JPose.create(x, y, th), jscan, rc=jrc, beam_stride=stride,
+        scanner_offset=PAD_OFFSET, stddev=5.0, eps=0.1)
+    np.testing.assert_allclose(np_(got), np_(want), rtol=1e-5, atol=1e-3)
+    assert np.ptp(np_(want)) > 10.0  # the poses score differently
+
+
+def test_mcl_step_on_padded_rows():
+    """Two `MCL(..., device="cpu")` filters from one seed, one on the
+    unpadded bf16 field and one on its padded copy, give the same states
+    bit for bit (particles, weights, estimates, generator) after two
+    `step`s and an `update(..., blocked=)`."""
+    jrc, _, _, tfield, tpad = _padded_fields("bf16")
+    rc = RaycastConfig(**dataclasses.asdict(jrc))
+    cfg = MCLConfig(n_particles=512, meas_stddev=5.0, scanner_offset=PAD_OFFSET,
+                    lut_beam_stride=2)
+    scan = t_scan(_pad_scan())
+    odom = Odometry.create(0.02, 1.5, 0.01)
+    alphas = (0.0005, 0.0005, 0.01, 0.01)
+    states = []
+    for field in (tfield, tpad):
+        m = tmcl.MCL(cfg, rc, seed=3, device="cpu")
+        st = m.init(H, W)
+        for _ in range(2):
+            st = m.step(st, odom, alphas, scan, field)
+        # JAX's keyword for the update's map.
+        states.append(m.update(st, scan, blocked=field))
+    a, b = states
+    for f in ("x", "y", "theta"):
+        for pa, pb in ((a.particles.pose, b.particles.pose), (a.best_pose, b.best_pose),
+                       (a.mode_pose, b.mode_pose)):
+            assert torch.equal(getattr(pa, f), getattr(pb, f)), f
+    assert torch.equal(a.particles.log_weight, b.particles.log_weight)
+    assert torch.isfinite(a.particles.log_weight).all() and int(a.updates) == 3
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
