@@ -48,6 +48,8 @@ from typing import Callable, Dict, Iterable, Tuple
 
 import torch
 
+from slam_tpu_torch.utils import profiling
+
 # Eager runs of a block on a side stream before its capture.
 _WARMUP = 1
 # Blocks a cache keeps by default (one a search kind and query count).
@@ -62,6 +64,8 @@ _WARMING = False
 # that capture conditional bodies, by (device index, nesting depth).
 _CAPTURE = None
 _BODY_STREAMS: Dict[Tuple[int, int], torch.cuda.Stream] = {}
+# Slots of a graph's clock: the timed span boundaries one graph may hold.
+_CLOCK_SLOTS = 64
 
 
 def count_launch(wrapper) -> None:
@@ -108,9 +112,38 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
             and a.stride() == b.stride() and a.dtype == b.dtype)
 
 
+class _Clock:
+    """The clock of a graph's timed spans (`utils/profiling.py:span`):
+    pinned host slots that its kernel nodes stamp with the device's
+    nanosecond timer (`csrc/span_clock.cu`), the spans that stamped them
+    ((name, start slot, end slot)), and an event recorded after a replay
+    whose stamps are to be read. Made before the capture starts."""
+
+    def __init__(self):
+        self.slots = torch.zeros(_CLOCK_SLOTS, dtype=torch.int64, pin_memory=True)
+        self.stamps = 0
+        self.spans = []
+        self.done = torch.cuda.Event()
+
+    def stamp(self) -> int:
+        """Capture, on the current stream, the kernel that stamps the next
+        slot; returns the slot."""
+        from slam_tpu_torch.ops import _build
+
+        i = self.stamps
+        if i == _CLOCK_SLOTS:
+            raise RuntimeError(f"more than {_CLOCK_SLOTS} timed span boundaries in one graph")
+        _build.check(_build.library()[0].span_clock_launch(
+            self.slots[i:].data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "span_clock_launch")
+        self.stamps += 1
+        return i
+
+
 class _Capture:
     """A block's capture under way: its device and memory pool, the
-    nesting depth of the body being captured, and the IF nodes recorded."""
+    nesting depth of the body being captured, the IF nodes recorded, and
+    the graph's clock (`_Clock`)."""
 
     def __init__(self, dev: torch.device, pool):
         self.dev = dev
@@ -119,6 +152,7 @@ class _Capture:
         self.depth = 0
         self.routed = False
         self.if_nodes = 0
+        self.clock = _Clock()
 
     def route_pool(self) -> None:
         """Route every allocation of this thread to the capture's pool, on
@@ -271,11 +305,13 @@ class Block:
         self.replays = 0
         self.capture_ms = 0.0
         # The kernel wrappers' launches a replay makes (`count_launch`), the
-        # host counter updates (`count_host`), and the conditional nodes the
-        # graph holds (`cond`, `Chain`).
+        # host counter updates (`count_host`), the conditional nodes the
+        # graph holds (`cond`, `Chain`), and its clock (`_Clock`, read by
+        # `profiling.replayed`).
         self.tally = {}
         self.notes = []
         self.if_nodes = 0
+        self.clock = None
         # Set at the capture: the device memory the graph's private pool
         # took (the rise of reserved memory over the capture; the peak of
         # allocated memory does not see it, as the pool's blocks are free
@@ -317,6 +353,10 @@ class Block:
         self._step()
 
     def _capture(self) -> None:
+        with profiling.span("graph.capture"):
+            self._capture_graph()
+
+    def _capture_graph(self) -> None:
         dev = next(iter(self.static.values())).device
         t0 = time.perf_counter()
         # The warm-up advances the block's state and the generators: both
@@ -361,6 +401,7 @@ class Block:
             self.tally, _TALLY = _TALLY, None
             self.notes, _NOTES = _NOTES, None
             self.if_nodes, _CAPTURE = cap.if_nodes, None
+            self.clock = cap.clock
         torch.cuda.synchronize(dev)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.capture_ms = (time.perf_counter() - t0) * 1e3
@@ -368,22 +409,25 @@ class Block:
 
     def run(self) -> None:
         if not self.capture or not next(iter(self.static.values())).is_cuda:
-            with self.guard():
+            with profiling.span("graph.replay"), self.guard():
                 self._step()
             return
         if self.graph is None:
             self._capture()
-        with self.guard():
-            self.graph.replay()
-        self._replayed()
+        self._launch()
 
-    def _replayed(self) -> None:
-        """Count a replay, and the launches and host counts it made."""
+    def _launch(self) -> None:
+        """Replay the graph; count the replay, and the launches, host
+        counts and span timings it made."""
+        profiling.settle(self)
+        with profiling.span("graph.replay"), self.guard():
+            self.graph.replay()
         self.replays += 1
         for wrapper, n in self.tally.items():
             wrapper.launches += n
         for fn, args in self.notes:
             fn(*args)
+        profiling.replayed(self, self.clock)
 
 
 class Chain(Block):
@@ -451,9 +495,7 @@ class Chain(Block):
         if self.graph is None:
             self._capture()
         offsets = [g.get_offset() for g in self.generators]
-        with self.guard():
-            self.graph.replay()
-        self._replayed()
+        self._launch()
         flag, after = self._read()
         done = (after - it) // self.per_run
         for g, o, a in zip(self.generators, offsets, self._advance):

@@ -34,6 +34,13 @@ warm-up, each replay, each eager run): a check may make a host read raise
 there. A step's data-dependent branches (the auto measurement tier, the
 ESS gate, the `edt_box` refresh) are `core/graph.py:cond`s, CUDA graph IF
 nodes inside the step's graph, so no step reads the host.
+
+Spans (`utils/profiling.py`): `graph.run` covers a run, with the
+children `graph.prepare` (the state's leaves, the odometry rows, the
+layout, buffers and block), `graph.load` (its child `graph.wait`: a
+pinned buffer's wait), the block's `graph.capture` and `graph.replay`
+(`core/graph.py`), and `graph.output` (the copy out and the rebuilt
+state).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 from slam_tpu_torch.core.graph import Block, Cache, _same
 from slam_tpu_torch.core.types import Odometry, Scan
 from slam_tpu_torch.ops.motion_cuda import odometry_rows
+from slam_tpu_torch.utils import profiling
 
 # Elements of one dtype a buffer view is aligned to: 512 B, the caching
 # allocator's alignment, so a kernel picks the same vector path on a view
@@ -194,7 +202,8 @@ class StepGraphs:
             pinned, event = torch.empty(s.shape, dtype=s.dtype, pin_memory=True), None
         else:
             pinned, event = ring.pop(0)
-            event.synchronize()
+            with profiling.span("graph.wait"):
+                event.synchronize()
         pinned.copy_(v)
         s.copy_(pinned, non_blocking=True)
         event = torch.cuda.Event()
@@ -217,7 +226,10 @@ class StepGraphs:
             bufs.held[hk] = (weakref.ref(v), v._version)
             self.loads += 1
 
-    def _prepare(self, state, odom, scan):
+    def _prepare(self, fn, state, odom, scan, key, gates):
+        """(the state's host fields, its buffers, the static buffers of the
+        block, the values to load into them, the block) of a run: the
+        block from the cache, or made (captured at its first run)."""
         leaves, host = {}, {}
         _flatten(state, "", leaves, host)
         dev = next(iter(leaves.values())).device
@@ -231,24 +243,7 @@ class StepGraphs:
         if bufs is None:
             bufs = self._bufs[layout] = _Buffers(leaves, dev)
         static = bufs.static(inputs)
-        self._load(bufs, static, {**leaves, **inputs})
         bkey = (layout, tuple((n, tuple(v.shape)) for n, v in inputs.items()))
-        return host, dev, bkey, bufs, static
-
-    def _get(self, full: Tuple, static: Dict[str, torch.Tensor], make_fn, gens, dev) -> Block:
-        if dev.type == "cuda" and self.capture and self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        return self.cache.get(full, lambda: Block(make_fn(), static, gens, pool=self._pool,
-                                                  capture=self.capture))
-
-    # -- steps ---------------------------------------------------------------
-    def run(self, fn: Callable, state, odom: Optional[Odometry] = None,
-            scan: Optional[Scan] = None, *, key: Tuple = (), gates: Tuple[int, ...] = ()):
-        """`fn(state, odom, scan)` as one block: a graph replay on the card.
-        `key` names what fixes the step besides the shapes, generators and
-        gates (its config, map, alphas); `gates` the moduli of the
-        host-side gates on the state's update counter."""
-        host, dev, bkey, bufs, static = self._prepare(state, odom, scan)
         names = bufs.leaf_names
         # One odometry (scalar fields) or R of them ([R] fields, a fleet).
         scalar = odom is not None and torch.as_tensor(odom.rot1).dim() == 0
@@ -280,8 +275,30 @@ class StepGraphs:
         phases = tuple(_updates(host) % m for m in gates)
         block = self._get((key, bkey, scalar, phases, tuple(id(g) for g in gens)), static,
                           make_fn, gens, dev)
-        block.run()
-        return self._output(state, host, bufs, block)
+        return host, bufs, static, {**leaves, **inputs}, block
+
+    def _get(self, full: Tuple, static: Dict[str, torch.Tensor], make_fn, gens, dev) -> Block:
+        if dev.type == "cuda" and self.capture and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self.cache.get(full, lambda: Block(make_fn(), static, gens, pool=self._pool,
+                                                  capture=self.capture))
+
+    # -- steps ---------------------------------------------------------------
+    def run(self, fn: Callable, state, odom: Optional[Odometry] = None,
+            scan: Optional[Scan] = None, *, key: Tuple = (), gates: Tuple[int, ...] = ()):
+        """`fn(state, odom, scan)` as one block: a graph replay on the card.
+        `key` names what fixes the step besides the shapes, generators and
+        gates (its config, map, alphas); `gates` the moduli of the
+        host-side gates on the state's update counter."""
+        with profiling.span("graph.run"):
+            with profiling.span("graph.prepare"):
+                host, bufs, static, values, block = self._prepare(fn, state, odom, scan, key,
+                                                                  gates)
+            with profiling.span("graph.load"):
+                self._load(bufs, static, values)
+            block.run()
+            with profiling.span("graph.output"):
+                return self._output(state, host, bufs, block)
 
     def _output(self, state, host, bufs: _Buffers, block: Block):
         """The state after a run: the host counters advanced by the step's

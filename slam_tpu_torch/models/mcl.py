@@ -44,6 +44,13 @@ over free space (`init_uniform` is the global-localization start).
 The `MCL` class runs each `predict`, `update` and `step` as one CUDA graph
 replay on the card (`models/_graph.py`), as the JAX class jits them; the
 functions here stay eager and are the graphs' reference.
+
+Spans (`utils/profiling.py`): `MCL.predict`, `MCL.update`, `MCL.step` and
+`init_uniform` each open a request; the layers inside a step are sibling
+spans that time the device, inside a step's graph too: `lut_weights` (the
+fused launch with its seed), `motion` (the sampler), `measurement` (the
+weights), `estimate` and `resample` (the gated block: ESS, draws and the
+resampler).
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from slam_tpu_torch.ops.motion_cuda import (
     draw_seed, odometry_rows, sample_motion_model_odometry_fused,
 )
 from slam_tpu_torch.parallel.mesh import particle_axis, particle_shard
+from slam_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -123,11 +131,12 @@ def init_uniform(generator, n_particles: int, blocked: torch.Tensor, draws=None)
     canvas-center cloud, so a draw that lands on a blocked cell keeps the
     center start pose, as in JAX. `draws` injects (u, i, j, theta) (see
     `resample.injection_draws`)."""
-    h, w = blocked.shape
-    state = init(generator, n_particles, starting_pose(h, w, blocked.device))
-    particles = resample.inject_random_particles(
-        state.particles, blocked, 1.0, draws=draws, generator=state.generator)
-    return state.replace(particles=particles)
+    with profiling.root("mcl.init_uniform"):
+        h, w = blocked.shape
+        state = init(generator, n_particles, starting_pose(h, w, blocked.device))
+        particles = resample.inject_random_particles(
+            state.particles, blocked, 1.0, draws=draws, generator=state.generator)
+        return state.replace(particles=particles)
 
 
 def predict(state: MCLState, odom: Odometry, alphas, noise=None,
@@ -135,10 +144,11 @@ def predict(state: MCLState, odom: Odometry, alphas, noise=None,
     """Diffuse every particle through the odometry motion model. `noise`
     (CPU only) injects the three standard-normal draws; under
     `ray_sharding` the particles draw by their global index."""
-    pose = sample_motion_model_odometry_fused(
-        odom, state.particles.pose, alphas, generator=state.generator, noise=noise,
-        shard=_shard(ray_sharding, state.particles.pose),
-    )
+    with profiling.span("motion", state.particles.pose.x.device):
+        pose = sample_motion_model_odometry_fused(
+            odom, state.particles.pose, alphas, generator=state.generator, noise=noise,
+            shard=_shard(ray_sharding, state.particles.pose),
+        )
     return state.replace(
         particles=state.particles.replace(pose=pose), step=state.step + 1
     )
@@ -345,10 +355,11 @@ def _finish(state: MCLState, lw, cfg: MCLConfig, u0=None, blocked=None,
     log_weight = state.particles.log_weight + lw
     ax = particle_axis(ray_sharding)
     ess = None
-    if ax is None:
-        best_pose, mode_pose = estimate(pp, log_weight, lw, cfg.mode_tau)
-    else:
-        best_pose, mode_pose, ess = estimate_sharded(pp, log_weight, lw, cfg.mode_tau, ax)
+    with profiling.span("estimate", pp.x.device):
+        if ax is None:
+            best_pose, mode_pose = estimate(pp, log_weight, lw, cfg.mode_tau)
+        else:
+            best_pose, mode_pose, ess = estimate_sharded(pp, log_weight, lw, cfg.mode_tau, ax)
     particles = state.particles.replace(log_weight=log_weight)
 
     # Resample when ESS <= ess_threshold * N (1.0 == every update, the
@@ -358,37 +369,38 @@ def _finish(state: MCLState, lw, cfg: MCLConfig, u0=None, blocked=None,
     # (`slam_tpu/models/mcl.py:331`, `core/graph.py:cond`) with its draws
     # made first; a fleet's rows and a shard select, as JAX's vmap does.
     if state.updates % cfg.resample_every == 0:
-        n = particles.n if ax is None else ax.size * particles.n
-        if ess is None:
-            ess = resample.effective_sample_size(log_weight)
-        do_it = (ess <= cfg.ess_threshold * n)[..., None]
-        if resample_fn is None and ax is None and log_weight.dim() == 1:
-            u0, u = resample.resample_draws(log_weight, cfg.resample, u0=u0, u=u,
-                                            generator=state.generator)
+        with profiling.span("resample", pp.x.device):
+            n = particles.n if ax is None else ax.size * particles.n
+            if ess is None:
+                ess = resample.effective_sample_size(log_weight)
+            do_it = (ess <= cfg.ess_threshold * n)[..., None]
+            if resample_fn is None and ax is None and log_weight.dim() == 1:
+                u0, u = resample.resample_draws(log_weight, cfg.resample, u0=u0, u=u,
+                                                generator=state.generator)
 
-            def do_resample(x, y, theta, lw):
-                new = resample.resample(Particles(pose=Pose(x=x, y=y, theta=theta),
-                                                  log_weight=lw), cfg.resample, u0=u0, u=u)
-                return new.pose.x, new.pose.y, new.pose.theta, new.log_weight
+                def do_resample(x, y, theta, lw):
+                    new = resample.resample(Particles(pose=Pose(x=x, y=y, theta=theta),
+                                                      log_weight=lw), cfg.resample, u0=u0, u=u)
+                    return new.pose.x, new.pose.y, new.pose.theta, new.log_weight
 
-            pp_ = particles.pose
-            x, y, theta, lw_ = cond(do_it[0], do_resample, lambda *p: p,
-                                    pp_.x, pp_.y, pp_.theta, particles.log_weight)
-            particles = Particles(pose=Pose(x=x, y=y, theta=theta), log_weight=lw_)
-        else:
-            if resample_fn is not None:
-                new = resample_fn(particles, u0=u0, generator=state.generator)
-            elif ax is not None:
-                new = _resample_gathered(particles, cfg.resample, ax, u0=u0, u=u,
-                                         generator=state.generator)
+                pp_ = particles.pose
+                x, y, theta, lw_ = cond(do_it[0], do_resample, lambda *p: p,
+                                        pp_.x, pp_.y, pp_.theta, particles.log_weight)
+                particles = Particles(pose=Pose(x=x, y=y, theta=theta), log_weight=lw_)
             else:
-                new = resample.resample(
-                    particles, cfg.resample, u0=u0, u=u, generator=state.generator
+                if resample_fn is not None:
+                    new = resample_fn(particles, u0=u0, generator=state.generator)
+                elif ax is not None:
+                    new = _resample_gathered(particles, cfg.resample, ax, u0=u0, u=u,
+                                             generator=state.generator)
+                else:
+                    new = resample.resample(
+                        particles, cfg.resample, u0=u0, u=u, generator=state.generator
+                    )
+                particles = Particles(
+                    pose=_select(do_it, new.pose, particles.pose),
+                    log_weight=torch.where(do_it, new.log_weight, particles.log_weight),
                 )
-            particles = Particles(
-                pose=_select(do_it, new.pose, particles.pose),
-                log_weight=torch.where(do_it, new.log_weight, particles.log_weight),
-            )
 
     log_w_slow, log_w_fast = state.log_w_slow, state.log_w_fast
     if cfg.adaptive is not None:
@@ -447,7 +459,8 @@ def update(
         lw = measurement_fn(state.particles.pose, scan)
         return _finish(state, lw, cfg, u0, None, inject, ray_sharding=ray_sharding,
                        resample_fn=resample_fn)
-    lw, field = _weigh(state.particles.pose, scan, field, cfg, rc, ray_sharding, early_exit)
+    with profiling.span("measurement", state.particles.pose.x.device):
+        lw, field = _weigh(state.particles.pose, scan, field, cfg, rc, ray_sharding, early_exit)
     return _finish(state, lw, cfg, u0, field.blocked, inject, ray_sharding=ray_sharding,
                    resample_fn=resample_fn)
 
@@ -513,9 +526,10 @@ def step(
         )
     pose = state.particles.pose
     shard = _shard(ray_sharding, pose)
-    new_pose, lw = predict_weigh(pose, scan, field, cfg, rc,
-                                 draw_seed(state.generator, pose.x.device), odom, alphas,
-                                 i0=0 if shard is None else shard[0])
+    with profiling.span("lut_weights", pose.x.device):
+        new_pose, lw = predict_weigh(pose, scan, field, cfg, rc,
+                                     draw_seed(state.generator, pose.x.device), odom, alphas,
+                                     i0=0 if shard is None else shard[0])
     state = state.replace(
         particles=state.particles.replace(pose=new_pose), step=state.step + 1
     )
@@ -572,31 +586,34 @@ class MCL:
         )
 
     def predict(self, state, odom: Odometry, alphas) -> MCLState:
-        alphas = tuple(float(a) for a in alphas)
-        return self.graphs.run(lambda s, o, _: predict(s, o, alphas), state, odom,
-                               key=("predict", alphas))
+        with profiling.root("MCL.predict"):
+            alphas = tuple(float(a) for a in alphas)
+            return self.graphs.run(lambda s, o, _: predict(s, o, alphas), state, odom,
+                                   key=("predict", alphas))
 
     def update(self, state, scan: Scan, blocked) -> MCLState:
         """Weigh against `scan`, then resample as `cfg` says. `blocked` (JAX's
         name) is a prebuilt `RayField` or a raw bool[H, W] mask, as `update`
         takes it."""
         cfg = self.cfg
-        return self.graphs.run(
-            lambda s, _, z: update(s, z, blocked, cfg, self.rc, early_exit=False), state,
-            scan=scan, key=("update", cfg, self.rc, id(blocked)),
-            gates=(cfg.resample_every,))
+        with profiling.root("MCL.update"):
+            return self.graphs.run(
+                lambda s, _, z: update(s, z, blocked, cfg, self.rc, early_exit=False), state,
+                scan=scan, key=("update", cfg, self.rc, id(blocked)),
+                gates=(cfg.resample_every,))
 
     def step(self, state, odom: Odometry, alphas, scan: Scan, field) -> MCLState:
         """predict -> update as one block (`step`: on the card with the
         beam measurement on the LUT route, one fused kernel launch for
         both; with the auto tier, K1 then the tier under `cond`)."""
-        alphas = tuple(float(a) for a in alphas)
-        cfg = self.cfg
-        return self.graphs.run(lambda s, o, z: step(s, o, alphas, z, field, cfg, self.rc,
-                                                    early_exit=False),
-                               state, odom, scan,
-                               key=("step", cfg, self.rc, alphas, id(field)),
-                               gates=(cfg.resample_every,))
+        with profiling.root("MCL.step"):
+            alphas = tuple(float(a) for a in alphas)
+            cfg = self.cfg
+            return self.graphs.run(lambda s, o, z: step(s, o, alphas, z, field, cfg, self.rc,
+                                                        early_exit=False),
+                                   state, odom, scan,
+                                   key=("step", cfg, self.rc, alphas, id(field)),
+                                   gates=(cfg.resample_every,))
 
     @staticmethod
     def sensor_position(pose: Pose, scanner_offset) -> Pose:

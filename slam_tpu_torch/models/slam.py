@@ -23,6 +23,11 @@ Under a `ray_sharding` (`slam_tpu_torch/parallel/sharded.py`) each rank
 steps its particle shard with the sharded `mcl` functions; the map pose
 is a global estimate, so every rank applies the same map update and the
 replicated grids stay identical.
+
+Spans (`utils/profiling.py`): `GridSLAM.step` and `GridSLAM.predict` each
+open a request; beside `mcl`'s layer spans, a step times `edt` (the
+capped EDT of the frozen grid, or the `edt_box` refresh) and `mapping`
+(the log-odds update).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from slam_tpu_torch.models import mcl as mcl_mod
 from slam_tpu_torch.models._graph import StepGraphs
 from slam_tpu_torch.ops import edt as edtlib
 from slam_tpu_torch.ops import mapping, measurement, rayfield, scanmatch
+from slam_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -144,7 +150,8 @@ def step(
                 )
             edt = state.edt
         else:
-            edt = edtlib.edt_capped(blocked, _lf_cap(cfg))
+            with profiling.span("edt", blocked.device):
+                edt = edtlib.edt_capped(blocked, _lf_cap(cfg))
         lf_field = rayfield.RayField(blocked=blocked, edt=edt)
 
     st = mcl_mod.update(
@@ -178,17 +185,19 @@ def step(
     # leaves the grid, and so the EDT cache, as they were.
     new_grid, new_edt = state.grid, state.edt
     if (st.updates - 1) % cfg.map_every == 0:
-        new_grid = mapping.scan_logodds_update(
-            state.grid, map_pose, scan,
-            scanner_offset=cfg.mcl.scanner_offset, step=cfg.raycast.step,
-            max_dist=cfg.raycast.max_dist, l_occ=cfg.map.l_occ,
-            l_free=cfg.map.l_free, l_min=cfg.map.l_min, l_max=cfg.map.l_max,
-        )
-        if cfg.edt_box is not None and lf_field is not None:
-            new_edt = edtlib.edt_refresh(
-                state.edt, blocked, gridlib.blocked_from_logodds(new_grid),
-                max_dist=_lf_cap(cfg), box=cfg.edt_box,
+        with profiling.span("mapping", blocked.device):
+            new_grid = mapping.scan_logodds_update(
+                state.grid, map_pose, scan,
+                scanner_offset=cfg.mcl.scanner_offset, step=cfg.raycast.step,
+                max_dist=cfg.raycast.max_dist, l_occ=cfg.map.l_occ,
+                l_free=cfg.map.l_free, l_min=cfg.map.l_min, l_max=cfg.map.l_max,
             )
+        if cfg.edt_box is not None and lf_field is not None:
+            with profiling.span("edt", blocked.device):
+                new_edt = edtlib.edt_refresh(
+                    state.edt, blocked, gridlib.blocked_from_logodds(new_grid),
+                    max_dist=_lf_cap(cfg), box=cfg.edt_box,
+                )
     return SLAMState(mcl=st, grid=new_grid, est_pose=est_pose, edt=new_edt)
 
 
@@ -323,14 +332,16 @@ class GridSLAM:
         )
 
     def step(self, state: SLAMState, odom: Odometry, scan: Scan) -> SLAMState:
-        if self._auto is not None:
-            return self._auto.step(state, odom, scan)
-        return self._step(state, odom, scan, self.cfg)
+        with profiling.root("GridSLAM.step"):
+            if self._auto is not None:
+                return self._auto.step(state, odom, scan)
+            return self._step(state, odom, scan, self.cfg)
 
     def predict(self, state: SLAMState, odom: Odometry) -> SLAMState:
         cfg = self.cfg
-        return self.graphs.run(lambda s, o, _: predict_only(s, o, cfg), state, odom,
-                               key=("predict", cfg))
+        with profiling.root("GridSLAM.predict"):
+            return self.graphs.run(lambda s, o, _: predict_only(s, o, cfg), state, odom,
+                                   key=("predict", cfg))
 
     def prob_map(self, state: SLAMState) -> torch.Tensor:
         """P(occupied) in [0, 1] from the log-odds grid."""

@@ -1,5 +1,6 @@
 """Build and load the hand-written CUDA kernels under `slam_tpu_torch/csrc/`,
-and the conditional-node binding of the graphs (`csrc/graph_cond.cu`).
+the conditional-node binding of the graphs (`csrc/graph_cond.cu`) and the
+clock of the spans timed inside them (`csrc/span_clock.cu`).
 
 Each `csrc/*.cu` file compiles with its own `nvcc` for `sm_90a`, all
 started at once, and the objects link into ONE shared library with a
@@ -69,6 +70,8 @@ _SIGNATURES = {
     "graph_cond_stream": [ctypes.POINTER(_P)],
     # (handle, pred*, stream)
     "graph_cond_set": [ctypes.c_ulonglong, _P, _P],
+    # (pinned slot*, stream)
+    "span_clock_launch": [_P, _P],
 }
 
 

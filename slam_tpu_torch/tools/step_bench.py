@@ -16,12 +16,16 @@ Each case prints one JSON line with the step run two ways in the same
 call, through the entry point's CUDA graph (`mcl.MCL.step`,
 `slam.GridSLAM.step`: one replay a step, `graph`) and through the eager
 free function (`mcl.step`, `slam.step`: `eager`): ms per step (CUDA
-events; median, min and max over the blocks, or over the 60 steps), device
-ms and launches per step (torch.profiler); and the device ms of one
-`resample` call on the case's own weights (the last state's; for globalloc
-the uniform cloud's weights after step 1, as dispersed as the step ever
-sees). A tree whose package predates the graphed entry points reports
-`graph` as null.
+events; median, min and max over the blocks, or over the 60 steps); the
+graph's device ms per step, the sum of the program's layer spans
+(`utils/profiling.py`: fused kernel or K1, EDT, measurement, estimate,
+resampler, mapping) over the requests of a profiler session, null for the
+eager way (the free functions open no request), on the CPU and for a tree
+without spans; and the ms of one `resample` call on the case's own
+weights (CUDA events over 20 calls in a row; the last state's weights,
+for globalloc the uniform cloud's after step 1, as dispersed as the step
+ever sees). A tree whose package predates the graphed entry points
+reports `graph` as null.
 
     env PYTHONPATH=<tree> python slam_tpu_torch/tools/step_bench.py --label NAME
 
@@ -54,6 +58,7 @@ from slam_tpu_torch.models import slam as slam_mod
 from slam_tpu_torch.models.simulate import forward_arc_commands
 from slam_tpu_torch.ops import measurement, rayfield, resample
 from slam_tpu_torch.tools import global_loc_bench as glb
+from slam_tpu_torch.utils import profiling
 from slam_tpu_torch.utils.maps import synthetic_floor_plan
 
 BENCH_ODOM = (2.5, 0.02, 0.02)
@@ -66,26 +71,26 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def device_ms(fn, dev, iters: int = 20, warmup: int = 3):
-    """(device ms, kernel launches) per call of `fn` from torch.profiler
-    (the CPU: (None, None))."""
-    if dev.type != "cuda":
-        return None, None
+def layers_device_ms(advance, dev, iters: int = 20, warmup: int = 3):
+    """Device ms a step of `advance` (an entry point's step) from the
+    program's layer spans: their device ms summed over a profiler session
+    of `iters` steps, a request; None on the CPU, when no request was
+    opened (the eager free functions) and for a package without spans."""
+    recorded = getattr(profiling, "recorded", None)
+    if dev.type != "cuda" or recorded is None:
+        return None
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
-        fn()
+        advance()
     _sync(dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CUDA]):
         for _ in range(iters):
-            fn()
+            advance()
         _sync(dev)
-    ms = n = 0.0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time > 0:
-            ms += e.device_time / 1e3 / iters
-            n += 1 / iters
-    return ms, n
+    r = recorded()
+    return sum(r["device_ms"].values()) / r["roots"] if r["roots"] else None
 
 
 def blocks_ms(advance, dev, blocks: int, iters: int) -> list:
@@ -116,16 +121,23 @@ def spread(ms) -> dict:
     return {"median": statistics.median(ms), "min": min(ms), "max": max(ms), "n": len(ms)}
 
 
-def resample_ms(particles, dev, seed: int) -> float:
+def resample_ms(particles, dev, seed: int, iters: int = 20):
+    """ms a `resample` call on the card (CUDA events over `iters` calls in
+    a row, after 3); None on the CPU."""
+    if dev.type != "cuda":
+        return None
     g = mcl_mod.make_generator(seed, dev)
-    return device_ms(lambda: resample.resample(particles, "systematic", generator=g), dev)[0]
+    call = lambda: resample.resample(particles, "systematic", generator=g)  # noqa: E731
+    for _ in range(3):
+        call()
+    return blocks_ms(call, dev, 1, iters)[0]
 
 
 def both_ways(make_advance, dev, blocks, iters, warmup) -> dict:
     """{"graph": ..., "eager": ...}: for each way, `make_advance(graphed)`
     (None when the tree lacks the graphed entry point) run `warmup` steps,
-    then timed in `blocks` blocks of `iters` steps and profiled; the last
-    state's box under "box"."""
+    then timed in `blocks` blocks of `iters` steps and traced by its spans;
+    the last state's box under "box"."""
     out = {}
     for way in ("graph", "eager"):
         made = make_advance(way == "graph")
@@ -136,9 +148,8 @@ def both_ways(make_advance, dev, blocks, iters, warmup) -> dict:
         for _ in range(warmup):
             advance()
         ms = blocks_ms(advance, dev, blocks, iters)
-        dms, launches = device_ms(advance, dev, iters, warmup=0)
-        out[way] = {"ms_per_step": spread(ms), "device_ms_per_step": dms,
-                    "launches_per_step": launches}
+        out[way] = {"ms_per_step": spread(ms),
+                    "device_ms_per_step": layers_device_ms(advance, dev, iters, warmup=0)}
         out["box"] = box
     return out
 
@@ -237,9 +248,8 @@ def globalloc_case(dev, blocked, field, n, steps) -> dict:
             else:
                 box[0] = mcl_mod.step(box[0], cmds[-1], glb.ALPHAS, scans[-1], field, cfg, rc)
 
-        dms, launches = device_ms(advance, dev, 10)
         out[way] = {"ms_per_step": spread(ms), "step_1_ms": ms[0],
-                    "converged_device_ms_per_step": dms, "launches_per_step": launches}
+                    "converged_device_ms_per_step": layers_device_ms(advance, dev, 10)}
     out["resample_device_ms_uniform_step_1"] = resample_ms(one.particles, dev, 3)
     return out
 

@@ -10,16 +10,58 @@ traces (port of `slam_tpu/utils/profiling.py`).
   * `trace` records a `torch.profiler` trace (CPU and, where there is a
     card, CUDA activity) and writes it as a Chrome trace into a directory.
   * `Stopwatch` accumulates per-phase times in step loops.
+  * `span` and `root` name the program's own layers inside any
+    `torch.profiler` session (`trace`, an operator's own, a benchmark's
+    traced slice); `recorded` gives each span's host and device ms.
+
+Spans. With no session recording, `span(name)` and `root(name)` read one
+flag and return a shared no-op. While one records, a span opens a host
+range of the profiler's (`_RecordFunction`), so it sits in the
+profiler's trace on the clock the device events are aligned to, and
+keeps a record in a bounded ring: its name, start and end from
+`time.time_ns()` (the profiler's Unix-converted clock, inside the
+range's own), its parent span and its request. A root (`MCL.step`,
+`GridSLAM.step`, ...) opens a request; the spans inside it take its id,
+a span outside every root takes none, and no per-request total counts
+it.
+
+A span given a CUDA `device` also times the device work inside it, on
+the device's current stream:
+
+  * inside a step graph's capture (`core/graph.py`), each end of the span
+    is a one-thread kernel node that writes the device's nanosecond
+    clock into a slot of the graph's clock (`csrc/span_clock.cu`),
+    captured whether a session records or not: such a node costs a
+    replay a third of a timing event-record node's device time. After
+    each replay that ran while a session recorded, the span's stamps are
+    read and added to its device ms, in that replay's request
+    (`replayed`; read once the replay has completed, before the block's
+    next replay or at `recorded`);
+  * inside a conditional body the span times nothing (a replay may skip
+    the body);
+  * in an eager run on the card two timing CUDA events, recorded only
+    while a session records.
+
+On the CPU a span has no device time: nothing is filed under a device
+name.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import os
 import time
 from contextlib import contextmanager
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+from slam_tpu_torch.core import graph as _graph
+
+# Span records kept at most: a longer session keeps its newest.
+RING = 1 << 16
 
 
 def _has_cuda(tree) -> bool:
@@ -93,3 +135,184 @@ class Stopwatch:
             n = self.counts[name]
             lines.append(f"{name}: {total * 1e3:.1f} ms total, {total / n * 1e3:.2f} ms/call x{n}")
         return "\n".join(lines)
+
+
+Record = collections.namedtuple("Record", "name start_ns end_ns parent request")
+Record.__doc__ = """One closed span: its name, its start and end (`time.time_ns()`),
+the name of the span it opened inside (None at the top) and its request
+id (None outside every root)."""
+
+
+class _Recorder:
+    """The process's spans: the ring of records, each name's host and
+    device ms summed over request-scoped spans, the roots opened, the
+    spans open now (innermost last) and the device readings not yet
+    taken."""
+
+    def __init__(self):
+        self.open: list = []
+        self.reset()
+
+    def reset(self) -> None:
+        self.records = collections.deque(maxlen=RING)
+        self.host_ms: dict = {}
+        self.device_ms: dict = {}
+        self.roots = 0
+        # Device readings not taken yet, oldest first: (an event recorded
+        # after the timed work, a function giving [(span name, ms)] once
+        # it has completed).
+        self.pending = collections.deque()
+        # Blocks whose clock a reading still waits for: their next replay
+        # would write over it.
+        self.owners: set = set()
+
+    def drain(self, wait: bool) -> None:
+        """Take the pending device readings in order; with `wait` all of
+        them, waiting for the card, else up to the first whose work has
+        not completed."""
+        while self.pending:
+            done, read = self.pending[0]
+            if not done.query():
+                if not wait:
+                    return
+                done.synchronize()
+            for name, ms in read():
+                self.device_ms[name] = self.device_ms.get(name, 0.0) + ms
+            self.pending.popleft()
+        self.owners.clear()
+
+
+_REC = _Recorder()
+_NOOP = contextlib.nullcontext()
+# The profiler's record of a span: an ordinary host range (function
+# scope). `torch.profiler.record_function` opens a user scope, which the
+# profiler also draws on the device's timeline over the kernels launched
+# inside it, so a device-time reading of the trace would count a span's
+# gaps as busy; and it costs ~12 us a span against ~1.
+_RecordFunction = torch._C._profiler._RecordFunctionFast
+
+
+def _recording() -> bool:
+    return _autograd_profiler._is_profiler_enabled
+
+
+class _Span:
+    __slots__ = ("name", "device", "is_root", "host", "fn", "parent", "request", "start_ns",
+                 "timer")
+
+    def __init__(self, name: str, device, is_root: bool):
+        self.name, self.device, self.is_root = name, device, is_root
+        self.parent = self.request = None
+
+    def __enter__(self):
+        self.host = _recording()
+        if self.host:
+            outer = _REC.open[-1] if _REC.open else None
+            self.parent = outer.name if outer is not None else None
+            self.request = outer.request if outer is not None else None
+            if self.is_root and self.request is None:
+                self.request = _REC.roots
+                _REC.roots += 1
+                _REC.drain(wait=False)
+            _REC.open.append(self)
+            self.fn = _RecordFunction(self.name)
+            self.fn.__enter__()
+            self.start_ns = time.time_ns()
+        self.timer = _device_start(self.device, self.host)
+        return self
+
+    def __exit__(self, *exc):
+        if self.timer is not None:
+            cap, start = self.timer
+            if cap is not None:
+                cap.clock.spans.append((self.name, start, cap.clock.stamp()))
+            elif self.request is not None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(torch.cuda.current_stream(self.device))
+                name = self.name
+                _REC.pending.append((end, lambda: [(name, start.elapsed_time(end))]))
+        if self.host:
+            end_ns = time.time_ns()
+            self.fn.__exit__(*exc)
+            _REC.open.pop()
+            _REC.records.append(Record(self.name, self.start_ns, end_ns, self.parent,
+                                       self.request))
+            if self.request is not None:
+                _REC.host_ms[self.name] = (_REC.host_ms.get(self.name, 0.0)
+                                           + (end_ns - self.start_ns) * 1e-6)
+        return False
+
+
+def _device_start(device, host: bool):
+    """The start of a span that times `device`: (the capture under way,
+    the clock slot it stamped), or (None, a timing event recorded now) in
+    an eager run while a session records; None where it times nothing."""
+    if device is None or device.type != "cuda":
+        return None
+    cap = _graph._CAPTURE
+    if cap is not None:
+        return None if _graph.in_conditional_body() else (cap, cap.clock.stamp())
+    if not host:
+        return None
+    start = torch.cuda.Event(enable_timing=True)
+    start.record(torch.cuda.current_stream(device))
+    return None, start
+
+
+def span(name: str, device=None):
+    """A context that names a layer: recorded while a torch.profiler
+    session records, a shared no-op otherwise. With a CUDA `device` it
+    also times the device work inside it (the module's docstring)."""
+    if _autograd_profiler._is_profiler_enabled or (
+            device is not None and _graph._CAPTURE is not None):
+        return _Span(name, device, False)
+    return _NOOP
+
+
+def root(name: str):
+    """A span that opens a request (an entry point's call): the spans
+    inside it carry the request's id. A root opened inside another takes
+    the outer one's id and opens none."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _Span(name, None, True)
+    return _NOOP
+
+
+def replayed(owner, clock) -> None:
+    """After a replay of `owner`'s graph, whose capture stamped its timed
+    spans into `clock` (`core/graph.py:_Clock`): while a session records
+    and inside a root, their readings are due, in the current request,
+    once the replay has completed."""
+    if (clock is None or not clock.spans or not _recording() or not _REC.open
+            or _REC.open[-1].request is None):
+        return
+    clock.done.record()
+
+    def read():
+        ns = clock.slots.tolist()
+        return [(name, (ns[j] - ns[i]) * 1e-6) for name, i, j in clock.spans]
+
+    _REC.pending.append((clock.done, read))
+    _REC.owners.add(owner)
+
+
+def settle(owner) -> None:
+    """Before a replay of `owner`'s graph: take the readings its last
+    replay left pending, whose clock the replay would write over."""
+    if owner in _REC.owners:
+        _REC.drain(wait=True)
+
+
+def recorded() -> dict:
+    """What the spans recorded since the last `reset`: `records` (the
+    ring's `Record`s, oldest first), `host_ms` and `device_ms` (each
+    span name's total ms over the spans inside a root; device ms only for
+    spans that timed a CUDA device), and `roots` (requests opened)."""
+    _REC.drain(wait=True)
+    return {"records": list(_REC.records), "host_ms": dict(_REC.host_ms),
+            "device_ms": dict(_REC.device_ms), "roots": _REC.roots}
+
+
+def reset() -> None:
+    """Forget every record, total and pending reading."""
+    _REC.reset()
