@@ -233,6 +233,17 @@ raises, so the exit code is nonzero):
               K2, plain weights) likewise, graphed ms/step both ways in
               turns; MCL.update(state, scan, blocked=<bool grid>) == the
               call with the mask's RayField
+ 28. resample   the systematic resampler's kernel chain (csrc/resample.cu)
+              against the plain path from the same softmax weights and
+              draws: 1M dispersed and collapsed clouds (on a random, the
+              first and the last particle), 100k, 100,003, 1000 (one
+              tile), N = 1, 16 x 100k rows with the gate off on every
+              third, 4 x 100k with -inf log weights: indices == the plain
+              path's but for draws within RESAMPLE_EDGE of a bin edge (their
+              count), poses == the gather of its indices and log weights
+              -log(n) bit for bit, gated-off rows copied; device ms at 1M,
+              100k and 16 x 100k beside the 32 N bytes bound, the plain
+              chain's and the public resample's
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device; without one it
@@ -333,8 +344,10 @@ LEAD_SPIN_CYCLES = 2_000
 TRAIL_SPIN_CYCLES = 100_000
 SPIN_SPLIT_US = 20.0
 # The hand-written kernels by wrapper count, as the profiler names them.
+# The resampler's chain counts one launch a call: its select kernel (the
+# multi-block one, or the one-tile form), whose names share this part.
 KERNEL_NAMES = {"gather_rows": "gather_rows_kernel", "motion_odometry": "motion_odometry_kernel",
-                "lut_weights": "lut_weights_kernel"}
+                "lut_weights": "lut_weights_kernel", "resample": "resample_select"}
 SPATIAL_POINTS = 1_000_000
 SPATIAL_BOXES = 1000
 SPATIAL_QUERIES = 1024
@@ -415,6 +428,13 @@ FLEET_APP_ATE_PX = 10.0
 # compared bit for bit per case (a new odometry and scan at each), steps a
 # timed turn (two turns a way) and steps profiled a way.
 GRAPH_STEPS = 20
+# Phase 25's IF nodes a case (two a `cond`): the `edt_box` refreshes and
+# the auto tiers. The ESS gate adds none on the card: the resampler's
+# kernel chain reads it (the single filters' cases held two more for it
+# before).
+GRAPH_IF_NODES = {"slam_edt512_1m": 16, "maze_slam_e1024_10k": 4,
+                  "auto_step_1m_converged": 8, "auto_step_1m_dispersed": 8,
+                  "fleet_auto_16x100k": 4}
 # The `edt_box` case's first steps, standing still on one scan; the rest
 # alternate scans.
 EDT_STILL = 6
@@ -435,6 +455,13 @@ PAD_ROUNDS = 4
 PAD_STEPS = 20
 PAD_K2_STEPS = 5
 PAD_MARCH_N = 2000
+# Phase 28: the resampler's kernel chain against the plain path. A slot
+# may take another particle than the plain path's only where the plain
+# path's draw lies within RESAMPLE_EDGE of a bin edge (the two sum the f64
+# prefix in other orders); timed at RESAMPLE_TIMED.
+RESAMPLE_SEED = 2024
+RESAMPLE_EDGE = 1e-9
+RESAMPLE_TIMED = ("dispersed_1m", "dispersed_100k", "rows_16x100k")
 # Phase 22: the apps. GRID_SLAM_ATE_PX is the JAX app test's bound
 # (`tests/test_apps.py:27`); the checkpoint runs take CKPT_STEPS steps.
 GRID_SLAM_ATE_PX = 30.0
@@ -1596,7 +1623,7 @@ def globalloc_phase(dev, blocked_np, field, counts) -> dict:
 
     lw_kw = dict(scanner_offset=cfg.scanner_offset, stddev=cfg.meas_stddev,
                  eps=cfg.meas_epsilon, lut_beam_stride=cfg.lut_beam_stride)
-    launches = {"gather_rows": 0, "motion_odometry": 0, "lut_weights": 0}
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
 
     engine = mcl_mod.MCL(cfg, rc, device=dev)
     engine.graphs.guard = sync_error
@@ -2120,7 +2147,7 @@ def maze_phase(dev, counts) -> dict:
     from slam_tpu_torch.tools import maze_bench as mb
 
     reset_counts, read_counts = counts
-    launches = {"gather_rows": 0, "motion_odometry": 0, "lut_weights": 0}
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
     out = {}
 
     def mcl_run(blocked_np, field, backend, start):
@@ -2300,7 +2327,7 @@ def fleet_phase(dev, blocked_np, field, counts, map_png, workdir) -> dict:
 
     reset_counts, read_counts = counts
     fused = lut_weights_cuda.launch
-    launches = {"gather_rows": 0, "motion_odometry": 0, "lut_weights": 0}
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
     blocked = torch.from_numpy(blocked_np).to(dev)
     n = FLEET_N
     lidar, rc, cfg = fb.configs(n)
@@ -2447,7 +2474,8 @@ def fleet_phase(dev, blocked_np, field, counts, map_png, workdir) -> dict:
         steps = FLEET_ITERS + 3
         w = warmup_counts()  # MCLFleet.step replays a graph: one block, one warm-up
         check(c == {"gather_rows": 0, "motion_odometry": 0,
-                    "lut_weights": steps + w["lut_weights"]} and w["lut_weights"] == 1,
+                    "lut_weights": steps + w["lut_weights"], "resample": steps + w["resample"]}
+              and w["lut_weights"] == 1 and w["resample"] == 1,
               f"fleet R={r}: launches {c} for {steps} fleet steps (warm-ups {w})")
         for k_ in launches:
             launches[k_] += c[k_]
@@ -2559,7 +2587,7 @@ def apps_phase(dev, counts, map_png, workdir) -> dict:
                                      nearest_neighbor, regions, rrt_planner, slam_replan)
 
     reset_counts, read_counts = counts
-    launches = {"gather_rows": 0, "motion_odometry": 0, "lut_weights": 0}
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
     out = {}
 
     def run(fn, argv, **kw):
@@ -3095,6 +3123,7 @@ def par_rank_main(outdir: str) -> None:
     from slam_tpu_torch.ops import edt as edtlib
     from slam_tpu_torch.ops import lut_weights_cuda, measurement, motion_cuda, pano_cuda
     from slam_tpu_torch.ops import resample as resample_mod
+    from slam_tpu_torch.ops import resample_cuda
     from slam_tpu_torch.ops.raycast import raycast_march
     from slam_tpu_torch.parallel import ShardedGridSLAM, ShardedMCL, ShardedMCLFleet
     from slam_tpu_torch.parallel import _collectives, distributed, make_mesh, shard_state
@@ -3113,14 +3142,15 @@ def par_rank_main(outdir: str) -> None:
     gather = pano_cuda.gather_rows
     sampler = motion_cuda.sample_motion_model_odometry_fused
     fused = lut_weights_cuda.launch
-    launches = {"gather_rows": 0, "motion_odometry": 0, "lut_weights": 0}
+    chain = resample_cuda.launch
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
 
     def counted(fn):
         """Run a main-path call with the launch counts zeroed; add its."""
-        gather.launches = sampler.launches = fused.launches = 0
+        gather.launches = sampler.launches = fused.launches = chain.launches = 0
         r = fn()
         for k, v in (("gather_rows", gather.launches), ("motion_odometry", sampler.launches),
-                     ("lut_weights", fused.launches)):
+                     ("lut_weights", fused.launches), ("resample", chain.launches)):
             launches[k] += v
         return r
 
@@ -3391,11 +3421,12 @@ def parallel_phase(dev, counts) -> dict:
 def warmup_counts() -> dict:
     """The kernel wrappers' launches made by graph warm-ups since the last
     reset (a block's one eager run before its capture; `core/graph.py`)."""
-    from slam_tpu_torch.ops import lut_weights_cuda, motion_cuda, pano_cuda
+    from slam_tpu_torch.ops import lut_weights_cuda, motion_cuda, pano_cuda, resample_cuda
 
     return {"gather_rows": pano_cuda.gather_rows.warmup_launches,
             "motion_odometry": motion_cuda.sample_motion_model_odometry_fused.warmup_launches,
-            "lut_weights": lut_weights_cuda.launch.warmup_launches}
+            "lut_weights": lut_weights_cuda.launch.warmup_launches,
+            "resample": resample_cuda.launch.warmup_launches}
 
 
 def capture_gc_check(dev) -> dict:
@@ -3762,7 +3793,7 @@ def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
                                                       "begin_capture_to_if_node"),
         "cudagraph_conditional_nodes module": cond_module,
         "route": "csrc/graph_cond.cu"}, "capture_gc": capture_gc_check(dev)}
-    launches = {"gather_rows": 0, "motion_odometry": 0, "lut_weights": 0}
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
     for name, c in cases.items():
         g = c["graphs"]
         g.guard = sync_error  # the warm-up and every replay
@@ -3793,10 +3824,14 @@ def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
                   f"graphs {name}: the graph path launched {n_graph} kernels, eager {n_eager} "
                   f"(+ warm-ups {warm})")
         check(sum(n_graph.values()) > 0, f"graphs {name}: no hand-written kernel launched")
+        check(n_eager["resample"] > 0, f"graphs {name}: the resampler's chain never launched")
         if name == "fleet_auto_16x100k":  # every robot's predict in one K1 launch
             check(n_eager["motion_odometry"] == n_in,
                   f"graphs {name}: {n_eager['motion_odometry']} K1 launches in {n_in} steps")
         stats = g.stats()
+        if_nodes = sum(b["if_nodes"] for b in stats["blocks"].values())
+        check(if_nodes == GRAPH_IF_NODES.get(name, 0),
+              f"graphs {name}: {if_nodes} IF nodes, not {GRAPH_IF_NODES.get(name, 0)}")
         copies0, bytes0 = g.copies, g.copy_bytes
 
         # Timed in turns from the compared states, inputs cycling.
@@ -3853,7 +3888,7 @@ def graphs_phase(dev, blocked_np, field, maze, counts) -> dict:
                    state_copy_bytes_per_step=(g.copy_bytes - bytes0) / steps_timed,
                    launches_compared={"graph": n_graph, "eager": n_eager, "warm_ups": warm},
                    kernels_profiled=ran,
-                   if_nodes=sum(b["if_nodes"] for b in stats["blocks"].values()),
+                   if_nodes=if_nodes,
                    graph_equals_eager=True, **({"chose": seen} if seen else {}))
         out["cases"][name] = res
         say("graphs", f"{name}: graph == eager bit for bit over {n_in} steps; "
@@ -4213,6 +4248,148 @@ def padded_phase(dev, field, field_u8, clouds, scan, cfg, rc, odom, alphas, coun
     return out
 
 
+def resample_phase(dev, counts) -> dict:
+    """Phase 28: the systematic resampler's kernel chain
+    (`csrc/resample.cu`, `ops/resample_cuda.py`) against the plain path
+    (`ops/resample.py:systematic_ends` + `indices_from_ends`, then the
+    packed gather) on the card, both from the same torch.softmax weights
+    and draws. Clouds: 1M dispersed weights (relocalize's kind), 1M
+    collapsed on one particle (a random one, the first, the last), 100k,
+    100,003 (not a multiple of the 4096-particle tile), 1000 (the one-tile
+    form), N = 1, 16 rows of 100k with the gate off on every third, and 4
+    rows of 100k with -inf log weights on every fifth particle of row 2.
+    Per cloud: the indices == the plain path's but where the plain draw
+    lies within RESAMPLE_EDGE of a bin edge (their count, expected 0), the
+    same bits from a second launch, non-decreasing in range; the poses ==
+    the packed gather of the kernel's indices bit for bit and the log
+    weights -log(n); a gated-off row == its particles and log weights. The
+    launch makes no host sync and counts one launch a call. Timed at
+    RESAMPLE_TIMED: the chain's device ms (its kernels, from the profiler)
+    beside its 32 N bytes bound and the plain chain's device ms, and the
+    public `resample.resample` (softmax + chain) beside the previous public
+    path (softmax + plain chain)."""
+    from slam_tpu_torch.core.types import Particles, Pose, log_f32
+    from slam_tpu_torch.ops import resample as res
+    from slam_tpu_torch.ops import resample_cuda
+
+    reset_counts, read_counts = counts
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(RESAMPLE_SEED)
+
+    def randn(*shape, scale=6.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def collapsed(at):
+        lw = torch.full((SLAM_PARTICLES,), -math.inf, device=dev)
+        lw[at] = 0.0
+        return lw
+
+    inf_rows = randn(4, N_PARTICLES)
+    inf_rows[2, ::5] = -math.inf
+    clouds = {
+        "dispersed_1m": (randn(SLAM_PARTICLES), None),
+        "collapsed_random_1m": (collapsed(int(torch.randint(
+            0, SLAM_PARTICLES, (), generator=g, device=dev))), None),
+        "collapsed_first_1m": (collapsed(0), None),
+        "collapsed_last_1m": (collapsed(SLAM_PARTICLES - 1), None),
+        "dispersed_100k": (randn(N_PARTICLES), None),
+        "ragged_100003": (randn(RAGGED_N), None),
+        "one_tile_1000": (randn(1000), None),
+        "one_particle": (randn(1), None),
+        "rows_16x100k": (randn(16, N_PARTICLES),
+                         torch.arange(16, device=dev) % 3 != 0),
+        "minus_inf_4x100k": (inf_rows, None),
+    }
+    out = {"clouds": {}}
+    reset_counts()
+    calls = 0
+    for name, (lw, gate) in clouds.items():
+        rows, n = (1, lw.shape[0]) if lw.dim() == 1 else lw.shape
+        w = torch.softmax(lw, dim=-1)
+        u0 = torch.rand(lw.shape[:-1], generator=g, device=dev)
+        ar = torch.arange(rows * n, dtype=torch.float32, device=dev).reshape(lw.shape)
+        pose = Pose(x=ar, y=ar * 0.5 + 1.0, theta=ar * -0.25)
+        want = res.indices_from_ends(res.systematic_ends(w, u0))
+        with sync_error():
+            got = resample_cuda.launch(w, u0)
+            again = resample_cuda.launch(w, u0)
+            new_pose, new_lw = resample_cuda.launch(w, u0, gate=gate, pose=pose, log_weight=lw)
+        calls += 3
+        check(torch.equal(got, again), f"resample {name}: two launches differ")
+        g2 = got.reshape(rows, n)
+        check(bool((g2[:, 1:] >= g2[:, :-1]).all()) and int(got.min()) >= 0
+              and int(got.max()) < n, f"resample {name}: indices not non-decreasing in [0, n)")
+        differ = torch.nonzero((got != want).reshape(rows, n))
+        check(differ.shape[0] <= 1000, f"resample {name}: {differ.shape[0]} slots differ from "
+              f"the plain path")
+        # The plain draw's distance from the bin edge between the two owners.
+        c = torch.cumsum(w.reshape(rows, n), dim=-1, dtype=torch.float64)
+        c = c / c[:, -1:]
+        gaps = []
+        for r_, k in differ.tolist():
+            edge = min(int(g2[r_, k]), int(want.reshape(rows, n)[r_, k]))
+            gaps.append(abs(float(c[r_, edge]) * n - float(u0.reshape(rows)[r_]) - k) / n)
+        check(all(gp <= RESAMPLE_EDGE for gp in gaps),
+              f"resample {name}: {len(gaps)} slots differ from the plain path, draws "
+              f"{max(gaps, default=0.0)} from an edge")
+        on = torch.ones(rows, dtype=torch.bool, device=dev) if gate is None else gate
+        packed = res.gather_pose_packed(pose, got)
+        full = torch.full_like(lw, -log_f32(n))
+        for field_, a, b in (("x", new_pose.x, packed.x), ("y", new_pose.y, packed.y),
+                             ("theta", new_pose.theta, packed.theta), ("log_weight", new_lw, full)):
+            a2, b2 = a.reshape(rows, n), b.reshape(rows, n)
+            check(torch.equal(a2[on], b2[on]), f"resample {name}: {field_} != the gather of "
+                  f"its indices")
+        for a, b in ((new_pose.x, pose.x), (new_pose.theta, pose.theta), (new_lw, lw)):
+            check(torch.equal(a.reshape(rows, n)[~on], b.reshape(rows, n)[~on]),
+                  f"resample {name}: a gated-off row changed")
+        out["clouds"][name] = {"rows": rows, "particles": n,
+                               "gate_off_rows": int((~on).sum()),
+                               "slots_differing": len(gaps), "widest_edge_gap": max(gaps, default=0.0),
+                               "survivors": int(torch.unique_consecutive(got).numel())}
+        say("resample", f"{name}: {json.dumps(out['clouds'][name])}")
+    c_ = read_counts()
+    check(c_["resample"] == calls, f"resample: {c_['resample']} launches counted for {calls} calls")
+
+    times = {}
+    for name in RESAMPLE_TIMED:
+        lw = clouds[name][0]
+        n = lw.numel()
+        w = torch.softmax(lw, dim=-1)
+        u0 = torch.rand(lw.shape[:-1], generator=g, device=dev)
+        ar = torch.arange(n, dtype=torch.float32, device=dev).reshape(lw.shape)
+        pose = Pose(x=ar, y=ar * 0.5, theta=ar * 0.25)
+        p_ = Particles(pose=pose, log_weight=lw)
+
+        def chain():
+            resample_cuda.launch(w, u0, pose=pose, log_weight=lw)
+
+        def plain():
+            res.gather_pose_packed(pose, res.indices_from_ends(res.systematic_ends(w, u0)))
+            torch.full_like(lw, -log_f32(lw.shape[-1]))
+
+        def public_plain():
+            w_ = torch.softmax(lw, dim=-1)
+            res.gather_pose_packed(pose, res.indices_from_ends(res.systematic_ends(w_, u0)))
+            torch.full_like(lw, -log_f32(lw.shape[-1]))
+
+        rows_ = kernel_profile(chain)
+        ms = sum(r[0] for k, r in rows_.items() if "resample_" in k)
+        launches_ = sum(r[1] for k, r in rows_.items() if "resample_" in k)
+        b_ms, b_by = bound(32.0 * n, 0.0)
+        times[name] = {
+            "ms": ms, "kernels_per_call": launches_, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / ms, "plain_ms": device_ms(plain)[0],
+            "public_ms": device_ms(lambda: res.resample(p_, "systematic", u0=u0))[0],
+            "public_plain_ms": device_ms(public_plain)[0],
+            "softmax_ms": device_ms(lambda: torch.softmax(lw, dim=-1))[0]}
+        say("resample", f"timed {name}: {json.dumps(times[name])}")
+    out["timed"] = times
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -4228,7 +4405,7 @@ def main() -> None:
     from slam_tpu_torch.models import mcl as mcl_mod
     from slam_tpu_torch.ops import _build, lut_weights_cuda, measurement, motion, motion_cuda
     from slam_tpu_torch.ops import lut as lutlib
-    from slam_tpu_torch.ops import pano_cuda, rayfield
+    from slam_tpu_torch.ops import pano_cuda, rayfield, resample_cuda
     from slam_tpu_torch.ops import resample as resample_mod
     from slam_tpu_torch.ops.raycast import raycast_march
     from slam_tpu_torch.utils.maps import synthetic_floor_plan
@@ -4238,14 +4415,16 @@ def main() -> None:
     gather = pano_cuda.gather_rows
     sampler = motion_cuda.sample_motion_model_odometry_fused
     fused = lut_weights_cuda.launch
+    chain = resample_cuda.launch
 
     def reset_counts():
-        gather.launches = sampler.launches = fused.launches = 0
+        gather.launches = sampler.launches = fused.launches = chain.launches = 0
         gather.warmup_launches = sampler.warmup_launches = fused.warmup_launches = 0
+        chain.warmup_launches = 0
 
     def read_counts():
         return {"gather_rows": gather.launches, "motion_odometry": sampler.launches,
-                "lut_weights": fused.launches}
+                "lut_weights": fused.launches, "resample": chain.launches}
 
     # 1. device -------------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -5137,7 +5316,11 @@ def main() -> None:
     phase_s["padded"] = pd["seconds"]
     say("padded", json.dumps({**{k: v for k, v in pd.items() if k not in ("k2", "lut_weights")},
                               "device": name, "power_limit": power}))
-    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-27 "
+    # 28. the resampler's kernel chain against the plain path.
+    rs = resample_phase(dev, counts)
+    phase_s["resample"] = rs["seconds"]
+    say("resample", json.dumps({**rs, "device": name, "power_limit": power}))
+    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-28 "
         f"{time.perf_counter() - t_new:.1f} s {json.dumps(phase_s)}")
 
     # Launches: the counts of the main paths' runs (phase 7's mcl.step,
@@ -5240,6 +5423,17 @@ def main() -> None:
          "bound_share_padded_bench": lw_pad["bench_bf16"]["bound_share_padded"],
          "ms_padded_1m_uniform": lw_pad["uniform_1m_bf16"]["ms_padded"],
          "bound_share_padded_1m_uniform": lw_pad["uniform_1m_bf16"]["bound_share_padded"]},
+        {"name": "resample", "route": "cuda",
+         "source": "slam_tpu_torch/csrc/resample.cu",
+         "replaces": "none (slam_tpu/ops/resample.py:systematic_indices is plain XLA)",
+         "launches": main_launches["resample"],
+         # Phase 28: slots that differ from the plain path over its clouds
+         # (each a draw within RESAMPLE_EDGE of a bin edge), the chain's
+         # device ms beside its 32 N bytes bound and the plain chain's.
+         "slots_differing": sum(c_["slots_differing"] for c_ in rs["clouds"].values()),
+         "library_ms": None,
+         **{f"{key}_{cloud}": rs["timed"][cloud][key] for cloud in RESAMPLE_TIMED
+            for key in ("ms", "bound_ms", "bound_share", "plain_ms", "kernels_per_call")}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -18,8 +18,10 @@ choices are device values: the uninformative-measurement fallback and the
 injection ratio select (`torch.where`); the auto tier and a single
 filter's ESS gate are JAX's `lax.cond`s (`core/graph.py:cond`: IF nodes in
 a graphed step; elsewhere both branches and a select, but an eager auto
-tier on the card reads its predicate once and computes one tier); the
-every-k resample gate counts updates on the host. So no step syncs with
+tier on the card reads its predicate once and computes one tier), except
+that on the card the systematic resampler's kernel chain reads the ESS
+gate of each row itself (`ops/resample_cuda.py`); the every-k resample
+gate counts updates on the host. So no step syncs with
 the host but the eager auto tier's one read.
 
 Sharding (`slam_tpu_torch/parallel/`): each rank runs these functions on
@@ -365,38 +367,45 @@ def _finish(state: MCLState, lw, cfg: MCLConfig, u0=None, blocked=None,
     # Resample when ESS <= ess_threshold * N (1.0 == every update, the
     # reference's behavior) AND on every resample_every-th update. The
     # every-k gate is a host int and skips the work. The ESS gate is a
-    # device value: one filter resamples under JAX's lax.cond
-    # (`slam_tpu/models/mcl.py:331`, `core/graph.py:cond`) with its draws
-    # made first; a fleet's rows and a shard select, as JAX's vmap does.
+    # device value, formed from the weights the resampler then takes: on
+    # the card the systematic kernel chain reads it a row itself
+    # (`ops/resample_cuda.py`); elsewhere one filter resamples under JAX's
+    # lax.cond (`slam_tpu/models/mcl.py:331`, `core/graph.py:cond`) with
+    # its draws made first, and a fleet's rows and a shard select, as
+    # JAX's vmap does.
     if state.updates % cfg.resample_every == 0:
         with profiling.span("resample", pp.x.device):
             n = particles.n if ax is None else ax.size * particles.n
+            w = None
             if ess is None:
-                ess = resample.effective_sample_size(log_weight)
-            do_it = (ess <= cfg.ess_threshold * n)[..., None]
-            if resample_fn is None and ax is None and log_weight.dim() == 1:
+                w = resample.normalized_weights(log_weight)
+                ess = resample.effective_sample_size(log_weight, w=w)
+            do_it = ess <= cfg.ess_threshold * n
+            kernel = cfg.resample == "systematic" and log_weight.is_cuda
+            if resample_fn is None and ax is None and log_weight.dim() == 1 and not kernel:
                 u0, u = resample.resample_draws(log_weight, cfg.resample, u0=u0, u=u,
                                                 generator=state.generator)
 
                 def do_resample(x, y, theta, lw):
                     new = resample.resample(Particles(pose=Pose(x=x, y=y, theta=theta),
-                                                      log_weight=lw), cfg.resample, u0=u0, u=u)
+                                                      log_weight=lw), cfg.resample, u0=u0, u=u,
+                                            w=w)
                     return new.pose.x, new.pose.y, new.pose.theta, new.log_weight
 
                 pp_ = particles.pose
-                x, y, theta, lw_ = cond(do_it[0], do_resample, lambda *p: p,
+                x, y, theta, lw_ = cond(do_it, do_resample, lambda *p: p,
                                         pp_.x, pp_.y, pp_.theta, particles.log_weight)
                 particles = Particles(pose=Pose(x=x, y=y, theta=theta), log_weight=lw_)
+            elif resample_fn is None and ax is None:
+                particles = resample.resample(particles, cfg.resample, u0=u0, u=u,
+                                              generator=state.generator, w=w, gate=do_it)
             else:
                 if resample_fn is not None:
                     new = resample_fn(particles, u0=u0, generator=state.generator)
-                elif ax is not None:
+                else:
                     new = _resample_gathered(particles, cfg.resample, ax, u0=u0, u=u,
                                              generator=state.generator)
-                else:
-                    new = resample.resample(
-                        particles, cfg.resample, u0=u0, u=u, generator=state.generator
-                    )
+                do_it = do_it[..., None]
                 particles = Particles(
                     pose=_select(do_it, new.pose, particles.pose),
                     log_weight=torch.where(do_it, new.log_weight, particles.log_weight),

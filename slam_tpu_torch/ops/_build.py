@@ -61,6 +61,10 @@ _SIGNATURES = {
         + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P] * 2 + [ctypes.c_int]
         + [ctypes.c_float] * 10 + [_P] + [ctypes.c_longlong] * 2 + [ctypes.c_int, _P]
     ),
+    # (w*, u0*, gate*, x*, y*, th*, lw*, ox*, oy*, oth*, olw*, oidx*, lw_new,
+    #  sums*, ends*, n, n_rows, stream)
+    "resample_launch": [_P] * 12 + [ctypes.c_float] + [_P] * 2 + [ctypes.c_longlong,
+                                                                   ctypes.c_int, _P],
     # (parent stream, pred*, invert, loop, child stream, body**, handle*)
     "graph_cond_begin": [_P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.POINTER(_P),
                          ctypes.POINTER(ctypes.c_ulonglong)],

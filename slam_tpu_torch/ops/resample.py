@@ -5,7 +5,14 @@ Random draws come from a `torch.Generator` on the particles' device, or
 are injected (`u0=` / `u=` / `draws=`) so tests can feed in JAX's own
 draws. The resamplers take log weights [..., N] with any leading batch
 axes (a fleet's robots, `models/fleet.py`) and work on the last axis; a
-single filter is the 1-D case.
+single filter is the 1-D case. A caller that has formed the normalized
+weights already (the ESS gate) hands them in (`w=`), so the softmax runs
+once.
+
+On a CUDA device the systematic resampler is the kernel chain
+`ops/resample_cuda.py` (`csrc/resample.cu`), which also applies a gate
+a row on the device; on the CPU it is the plain version below
+(`systematic_ends`, then `indices_from_ends`), its reference.
 """
 
 from __future__ import annotations
@@ -16,15 +23,18 @@ import torch
 
 from slam_tpu_torch.core import grid as gridlib
 from slam_tpu_torch.core.types import Particles, Pose, log_f32
+from slam_tpu_torch.ops import resample_cuda
 
 
 def normalized_weights(log_w):
     return torch.softmax(log_w, dim=-1)
 
 
-def effective_sample_size(log_w):
-    """ESS = 1 / sum(w_i^2) for normalized w."""
-    w = normalized_weights(log_w)
+def effective_sample_size(log_w, *, w=None):
+    """ESS = 1 / sum(w_i^2) for normalized w (`w`: `normalized_weights(
+    log_w)`, where the caller has formed them)."""
+    if w is None:
+        w = normalized_weights(log_w)
     return 1.0 / torch.sum(w * w, dim=-1)
 
 
@@ -40,38 +50,63 @@ def multinomial_indices(log_w, *, u=None, generator=None):
     return torch.clamp(torch.searchsorted(c, u, right=False), 0, n - 1).to(torch.int32)
 
 
-def systematic_indices(log_w, *, u0=None, generator=None):
-    """Low-variance systematic resampling without a binary search.
-
-    Draw k selects particle i iff c_{i-1} <= (k + u0)/n < c_i, so particle
-    i's output range is [ceil(n c_{i-1} - u0), ceil(n c_i - u0)). Each
-    range offers its particle index at its own start (clamped into [0,
-    n)), an empty range offering -1, which never wins; a scatter-max then
-    a cumulative max fill the output. No slot collects the empty ranges:
-    on CUDA such a slot serializes their atomics. `u0` is one uniform in
-    [0, 1) per batch row (a 0-d tensor for a single filter)."""
-    n = log_w.shape[-1]
-    dev = log_w.device
+def systematic_ends(w, u0):
+    """Particle i's end slot, int32 [..., N], of systematic resampling from
+    the normalized weights `w` with the draw `u0` (f32, one a batch row):
+    draw k selects particle i iff c_{i-1} <= (k + u0)/n < c_i, so particle
+    i's slots are [ceil(n c_{i-1} - u0), ceil(n c_i - u0)), c the prefix
+    sum of w over its last value."""
+    n = w.shape[-1]
     # The prefix sum in float64: at 100k+ particles an f32 sum's rounding
     # (~sqrt(N) ulps) moves n * c by whole slots, so any other summation
     # order (CUDA's scan varies its grouping from run to run, and a batch
     # of rows scans in another order than one row) moved ~1% of the
     # indices; in f64 only a draw within ~1e-11 of a bin edge can move.
-    c = torch.cumsum(normalized_weights(log_w), dim=-1, dtype=torch.float64)
+    c = torch.cumsum(w, dim=-1, dtype=torch.float64)
     c = c / c[..., -1:]
-    if u0 is None:
-        u0 = torch.rand(log_w.shape[:-1], generator=generator, device=dev)
-    u0 = torch.as_tensor(u0, dtype=torch.float32, device=dev)
-    ends = torch.ceil(n * c - u0[..., None]).to(torch.int32)
+    return torch.ceil(n * c - u0[..., None]).to(torch.int32)
+
+
+def indices_from_ends(ends):
+    """The particle of each slot, int32 [..., N], from `systematic_ends`:
+    each particle's range offers its index at its own start (clamped into
+    [0, n)), an empty range offering -1, which never wins; a scatter-max
+    then a cumulative max fill the slots. So slot k takes the largest
+    occupied particle that starts at or before k, which is the first
+    particle whose end lies past k. No slot collects the empty ranges: on
+    CUDA such a slot serializes their atomics."""
+    n = ends.shape[-1]
     starts = torch.cat([torch.zeros_like(ends[..., :1]), ends[..., :-1]], dim=-1)
     occupied = ends > starts
-    lane = torch.arange(n, dtype=torch.int32, device=dev).expand_as(ends)
+    lane = torch.arange(n, dtype=torch.int32, device=ends.device).expand_as(ends)
     seed = torch.full_like(ends, -1).scatter_reduce(
         -1, torch.clamp(starts, 0, n - 1).long(), torch.where(occupied, lane, -1), "amax"
     )
     idx = torch.cummax(seed, dim=-1).values
     # Guard the (floating-point-edge) case where slot 0 got no seed.
     return torch.clamp(idx, 0, n - 1)
+
+
+def _draw_u0(log_w, u0, generator):
+    """`u0` as an f32 tensor on the weights' device, one a batch row, drawn
+    from `generator` where not given."""
+    if u0 is None:
+        u0 = torch.rand(log_w.shape[:-1], generator=generator, device=log_w.device)
+    return torch.as_tensor(u0, dtype=torch.float32, device=log_w.device)
+
+
+def systematic_indices(log_w, *, u0=None, generator=None, w=None):
+    """Low-variance systematic resampling: the slot of draw (k + u0)/n
+    holds the particle whose prefix-sum interval contains it. `u0` is one uniform in [0, 1) per batch row (a 0-d tensor
+    for a single filter); `w` the normalized weights where already formed.
+    On a CUDA device the kernel chain (`ops/resample_cuda.py`), on the CPU
+    `indices_from_ends(systematic_ends(w, u0))`."""
+    if w is None:
+        w = normalized_weights(log_w)
+    u0 = _draw_u0(log_w, u0, generator)
+    if w.is_cuda:
+        return resample_cuda.launch(w.contiguous(), u0.contiguous())
+    return indices_from_ends(systematic_ends(w, u0))
 
 
 def gather_pose_packed(pose: Pose, idx) -> Pose:
@@ -89,26 +124,46 @@ def resample_draws(log_w, method: str, *, u0=None, u=None, generator=None):
     """(u0, u): the draws `resample` would make from `generator` (where not
     given), made now, so a resample under `core/graph.py:cond` draws
     nothing (JAX splits its key before `lax.cond`)."""
-    if method == "systematic" and u0 is None:
-        u0 = torch.rand(log_w.shape[:-1], generator=generator, device=log_w.device)
+    if method == "systematic":
+        u0 = _draw_u0(log_w, u0, generator)
     elif method == "multinomial" and u is None:
         u = torch.rand(log_w.shape, generator=generator, device=log_w.device)
     return u0, u
 
 
 def resample(particles: Particles, method: str = "systematic", *, u0=None,
-             u=None, generator=None) -> Particles:
-    """Select a new particle set and reset weights to uniform."""
+             u=None, generator=None, w=None, gate=None) -> Particles:
+    """Select a new particle set and reset weights to uniform. `w`: the
+    normalized weights where already formed (systematic). `gate` (bool, one
+    a batch row): the rows where it is False keep their particles; the
+    systematic kernel chain on a CUDA device reads it there, elsewhere the
+    rows are selected after resampling."""
+    lw = particles.log_weight
+    if method == "systematic" and lw.is_cuda:
+        if w is None:
+            w = normalized_weights(lw)
+        u0 = _draw_u0(lw, u0, generator)
+        pose, new_lw = resample_cuda.launch(
+            w.contiguous(), u0.contiguous(),
+            gate=None if gate is None else gate.reshape(-1).contiguous(),
+            pose=particles.pose, log_weight=lw)
+        return Particles(pose=pose, log_weight=new_lw)
     if method == "systematic":
-        idx = systematic_indices(particles.log_weight, u0=u0, generator=generator)
+        idx = systematic_indices(lw, u0=u0, generator=generator, w=w)
     elif method == "multinomial":
-        idx = multinomial_indices(particles.log_weight, u=u, generator=generator)
+        idx = multinomial_indices(lw, u=u, generator=generator)
     else:
         raise ValueError(f"unknown resample method: {method}")
+    new = Particles(pose=gather_pose_packed(particles.pose, idx),
+                    log_weight=torch.full_like(lw, -log_f32(particles.n)))
+    if gate is None:
+        return new
+    g = gate.reshape(lw.shape[:-1])[..., None]
+    old, sel = particles.pose, new.pose
     return Particles(
-        pose=gather_pose_packed(particles.pose, idx),
-        log_weight=torch.full_like(particles.log_weight, -log_f32(particles.n)),
-    )
+        pose=Pose(x=torch.where(g, sel.x, old.x), y=torch.where(g, sel.y, old.y),
+                  theta=torch.where(g, sel.theta, old.theta)),
+        log_weight=torch.where(g, new.log_weight, lw))
 
 
 # --------------------------------------------------------------------------

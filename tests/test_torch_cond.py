@@ -11,7 +11,8 @@ code a graph captures on the card reads nothing on the host.
   * the auto-tier `MCL.update` / `MCL.step` equal the forced tier;
   * the fleet's auto step (R = 3, 512 particles) against JAX's `vmap`ped
     `fleet_step`;
-  * an `ess_threshold = 0.5` update against JAX, resampling and not;
+  * an `ess_threshold = 0.5` update against JAX, resampling and not, and
+    the gate a row of [R, N] rows equal to single filters;
   * each planner's chained search equals its single-block replays.
 """
 
@@ -313,6 +314,39 @@ def test_ess_gated_update_matches_jax(cloud):
     assert close.mean() >= 0.995, f"{(~close).sum()} particles differ"
     np.testing.assert_allclose(np_(tp.log_weight)[close], np.asarray(jp.log_weight)[close],
                                rtol=1e-5, atol=1e-3)
+
+
+def test_ess_gate_rows_equal_single_filters():
+    """The ESS gate a row: `_finish` on [R, N] rows, flat and peaked
+    weights mixed at `ess_threshold = 0.5` (the gate handed to the
+    resampler, as the kernel chain reads it on the card), equals each row
+    run as one filter, whose gate is a `cond`, bit for bit, under
+    `no_host_reads`; the flat rows keep their particles and weights."""
+    n, r = 512, 4
+    rng = np.random.default_rng(6)
+    x, y, th = (rng.uniform(5, 75, (r, n)).astype(np.float32) for _ in range(3))
+    spread = np.array([0.01, 5.0, 0.02, 8.0], np.float32)[:, None]
+    lw = torch.from_numpy((rng.standard_normal((r, n)) * spread).astype(np.float32))
+    u0 = torch.from_numpy(rng.uniform(0, 1, r).astype(np.float32))
+    cfg = tc.MCLConfig(n_particles=n, ess_threshold=0.5)
+    pose = Pose(*(torch.from_numpy(v) for v in (x, y, th)))
+    one = tmcl.init(0, n, convert.pose(40.0, 40.0, 0.3))
+    lw0 = one.particles.log_weight
+    rows = one.replace(particles=one.particles.replace(
+        pose=pose, log_weight=lw0.expand(r, n).contiguous()))
+    with no_host_reads():
+        got = tmcl._finish(rows, lw, cfg, u0=u0)
+        singles = [tmcl._finish(one.replace(particles=one.particles.replace(
+            pose=Pose(x=pose.x[q], y=pose.y[q], theta=pose.theta[q]))), lw[q], cfg, u0=u0[q])
+            for q in range(r)]
+    gp = got.particles
+    for q, s_ in enumerate(singles):
+        sp = s_.particles
+        for a, b in ((gp.pose.x[q], sp.pose.x), (gp.pose.theta[q], sp.pose.theta),
+                     (gp.log_weight[q], sp.log_weight)):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+        kept = bool(torch.equal(sp.log_weight, lw0 + lw[q]))
+        assert kept == (q % 2 == 0)
 
 
 # -- the planners' chains ----------------------------------------------------------------
