@@ -290,17 +290,21 @@ class Block:
     (`torch.cuda.graph_pool_handle()`) that blocks whose pool memory holds
     nothing between replays may share. With `capture` False the block runs
     eagerly on the card too, as on the CPU (work that a graph cannot hold:
-    gloo's collectives run on the host)."""
+    gloo's collectives run on the host). `span` names a span
+    (`utils/profiling.py`) that times the graph's device work a replay,
+    stamped outside every conditional node (a chain's runs included,
+    which no span inside the body can time)."""
 
     def __init__(self, fn: Callable, static: Dict[str, torch.Tensor],
                  generators: Iterable[torch.Generator] = (), guard=contextlib.nullcontext,
-                 pool=None, capture: bool = True):
+                 pool=None, capture: bool = True, span: str | None = None):
         self.fn = fn
         self.static = static
         self.generators = tuple(generators)
         self.guard = guard
         self.pool = pool
         self.capture = capture
+        self.span = span
         self.graph = None
         self.replays = 0
         self.capture_ms = 0.0
@@ -388,7 +392,8 @@ class Block:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=pool):
+            with torch.cuda.graph(graph, pool=pool), (
+                    profiling.span(self.span, dev) if self.span else contextlib.nullcontext()):
                 self._record()
         except BaseException:
             if cap.routed:  # a failed capture may leave the thread's routing behind
@@ -451,8 +456,8 @@ class Chain(Block):
 
     def __init__(self, fn: Callable, static: Dict[str, torch.Tensor], copies: int,
                  go: Callable, per_run: int, generators: Iterable[torch.Generator] = (),
-                 guard=contextlib.nullcontext, pool=None):
-        super().__init__(fn, static, generators, guard, pool)
+                 guard=contextlib.nullcontext, pool=None, span: str | None = None):
+        super().__init__(fn, static, generators, guard, pool, span=span)
         self.copies = copies
         self.go = go
         self.per_run = per_run

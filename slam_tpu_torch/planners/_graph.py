@@ -53,14 +53,15 @@ def go(v: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def block_or_chain(graphs: Cache, key: Tuple, fn, make_static, per_block: int, copies: int,
-                   generators=()) -> Block:
+                   generators=(), span: str | None = None) -> Block:
     """The cache's block of `fn` for `key` (buffers `make_static()` when it
     is new): a `Chain` of up to `copies` runs when the cache makes chains,
-    else a `Block`."""
+    else a `Block`; `span` times either's replays on the device
+    (`core/graph.py:Block`)."""
     if graphs.chain:
         return graphs.get(key + ("chain", copies), lambda: Chain(
-            fn, make_static(), copies, go, per_block, generators=generators))
-    return graphs.get(key, lambda: Block(fn, make_static(), generators))
+            fn, make_static(), copies, go, per_block, generators=generators, span=span))
+    return graphs.get(key, lambda: Block(fn, make_static(), generators, span=span))
 
 
 def solve(block: Block, n_iters: int, per_block: int) -> Tuple[int, int]:

@@ -41,6 +41,16 @@ What differs in form, and why the results stay the JAX package's:
     `(w >> b) & 1`); the bits equal the JAX package's.
   * The feasibility build gathers every (bin, lane) shift of a plane in
     one batched indexing op per sample, not one eager op per shift.
+  * Spans and counters (`utils/profiling.py`, recorded only while a
+    profiler session records): `solve` is the root `HybridAStar.solve`,
+    with `hastar.init` (the query init, timed on the device) and
+    `hastar.search` (the search's host loop; on the card the search
+    chain's graph stamps the device time of each replay under the same
+    name, outside its WHILE node's body); `recover_path` is the root
+    `HybridAStar.recover_path` with the host span `hastar.path`. Each
+    solve counts `hastar.rounds`, `hastar.n_expanded`, `hastar.n_lost` and
+    `hastar.host_reads`; `stats()` gives the last query's counters and the
+    search blocks' captures and replays.
   * On the card a search is the counterpart of the JAX package's one
     device program (`_lattice_solve_query_jit`, `_ha_solve_query_jit`,
     `_lattice_solve_many_jit`): the run of `_FLAG_EVERY` loop iterations
@@ -72,6 +82,7 @@ from slam_tpu_torch.ops.rayfield import RayField, make_ray_field, raycast_field
 from slam_tpu_torch.planners import _graph
 from slam_tpu_torch.planners import astar as astar_mod
 from slam_tpu_torch.planners._scatter import last_writer, set_drop, set_drop_, with_spare
+from slam_tpu_torch.utils import profiling
 
 INF = 1e30
 
@@ -413,10 +424,11 @@ _INF_PACKED = np.int32(2**31 - 1)
 def _lattice_chain_device(gp, inv_off, goal_idx, start_idx, k, max_len):
     """Walk up to `max_len` steps of the lattice parent chain on the
     device, from `goal_idx`: returns (cells i64[max_len], the visited
-    state indices goal -> start with -1 once finished; next_idx; done),
-    so the host can continue a chain that outruns one chunk. The walk
-    stops early once `done` (read every `_CHAIN_CHECK` steps); the
-    remaining outputs are -1, as the JAX scan's."""
+    state indices goal -> start with -1 once finished; next_idx; done;
+    the host reads of `done`), so the host can continue a chain that
+    outruns one chunk. The walk stops early once `done` (read every
+    `_CHAIN_CHECK` steps); the remaining outputs are -1, as the JAX
+    scan's."""
     dev = gp.device
     s = gp.shape[0]
     emask = (1 << _EDGE_BITS) - 1
@@ -424,9 +436,12 @@ def _lattice_chain_device(gp, inv_off, goal_idx, start_idx, k, max_len):
     start = torch.as_tensor(start_idx, dtype=torch.int64, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     out = []
+    reads = 0
     for t in range(max_len):
-        if t and t % _CHAIN_CHECK == 0 and bool(done):
-            break
+        if t and t % _CHAIN_CHECK == 0:
+            reads += 1
+            if bool(done):
+                break
         safe = torch.clamp(idx, 0, s - 1)
         word = gp[safe]
         stop = done | (idx < 0) | (idx == start) | (word == int(_INF_PACKED))
@@ -437,7 +452,19 @@ def _lattice_chain_device(gp, inv_off, goal_idx, start_idx, k, max_len):
     cells = torch.full((max_len,), -1, dtype=torch.int64, device=dev)
     if out:
         cells[: len(out)] = torch.stack(out)
-    return cells, idx, done
+    return cells, idx, done, reads
+
+
+def _lattice_chain_cost(gp, inv_off, edge_cost, cells, k):
+    """The quantized cost of the edges into the visited states `cells`
+    (a chunk of `_lattice_chain_device`, -1 past its end): each state's
+    parent edge from its word, its cost from `edge_cost` [K, E] by the
+    parent's bin. A handful of ops a chunk, on the device."""
+    emask = (1 << _EDGE_BITS) - 1
+    safe = torch.clamp(cells, min=0)
+    edge = torch.where(cells >= 0, gp[safe] & emask, 0).long()
+    parent = torch.clamp(safe - inv_off[safe % k, edge], 0, gp.shape[0] - 1)
+    return torch.where(cells >= 0, edge_cost[parent % k, edge], 0).sum()
 
 
 def _shift_gather(planes, src, di, dj, shape):
@@ -797,7 +824,8 @@ def _lattice_solve_blocks(
         graphs, ("lattice", shape, cfg, tuple(st.gp.shape[:-1]), _FLAG_EVERY),
         functools.partial(_lattice_block, feasw=feasw, off_t=off_t, di_t=di_t, dj_t=dj_t,
                           cost_q=cost_q, edge_t=edge_t, cfg=cfg, shape=shape),
-        lambda: _graph.buffers(init, spare=("o_idx", "o_f")), _FLAG_EVERY, _CHAIN_RUNS)
+        lambda: _graph.buffers(init, spare=("o_idx", "o_f")), _FLAG_EVERY, _CHAIN_RUNS,
+        span="hastar.search")
     block.load(**init)
     launched, reads = _graph.solve(block, n_iters, _FLAG_EVERY)
     out = LatticeState(**{f: block.static[f].clone() for f in _LAT_FIELDS})
@@ -895,7 +923,7 @@ def _ha_solve_blocks(st, field, goal, target_bin, hfield, max_rounds, cfg, rc, g
         graphs, ("continuous", tuple(field.blocked.shape), cfg, rc, _FLAG_EVERY),
         functools.partial(_ha_block, field=field, cfg=cfg, rc=rc),
         lambda: _graph.buffers(init, spare=("parent", "px", "py", "pth", "open_f")),
-        _FLAG_EVERY, _CHAIN_RUNS)
+        _FLAG_EVERY, _CHAIN_RUNS, span="hastar.search")
     block.load(**init)
     launched, reads = _graph.solve(block, max_rounds, _FLAG_EVERY)
     out = HAState(**{f: block.static[f].clone() for f in _HA_FIELDS})
@@ -959,6 +987,8 @@ class HybridAStar:
              self._lat_edge) = (torch.from_numpy(t).to(self.device) for t in tables)
             self._lat_inv_off = inv_off
             self._lat_inv_off_dev = torch.from_numpy(inv_off.astype(np.int64)).to(self.device)
+            # The single edges' quantized costs, [K, E] (the first E lanes).
+            self._lat_edge_cost = self._lat_cost[:, :e_n].long()
         else:
             self.field = make_ray_field(~free, self.rc)
         self.reset_query(a, b)
@@ -975,9 +1005,13 @@ class HybridAStar:
         self._fleet_state = None
         self._fleet_paths = None
         # The last solve's rounds (as the JAX loop counts them), loop
-        # iterations launched (gated ones included) and host reads (the
-        # loop's flag reads and the final read of rounds and goal).
+        # iterations launched (gated ones included), host reads (the
+        # loop's flag reads and the final read of rounds and goal), states
+        # expanded and ring entries lost; the last path walk's host reads.
         self.rounds = self.launched = self.host_reads = 0
+        self.n_expanded = self.n_lost = self.path_reads = 0
+        # The cost of the lattice path walked for this query (`path_cost`).
+        self._walked_cost = None
 
     def _ring_capacity(self) -> int:
         # The default (None -> 1M) is clamped to ~4x the cuboid; an
@@ -1061,29 +1095,50 @@ class HybridAStar:
     def solve(self, max_rounds: Optional[int] = None) -> bool:
         """The whole search: on the card the query init and the search run
         as CUDA graph replays, elsewhere as eager loops (the same result)."""
-        return self._solve(max_rounds, self._card_graphs)
+        with profiling.root("HybridAStar.solve"):
+            return self._solve(max_rounds, self._card_graphs)
+
+    def stats(self) -> dict:
+        """The last solve's counters (rounds, loop iterations launched,
+        host reads, states expanded, ring entries lost) and the last path
+        walk's host reads; per search block (named by its key's tag): its
+        capture ms, the device memory its capture added, its replays."""
+        blocks = {str(k[0]): {"capture_ms": b.capture_ms, "pool_bytes": b.pool_bytes,
+                              "replays": b.replays} for k, b in self._graphs.blocks.items()}
+        return {"rounds": self.rounds, "launched": self.launched,
+                "host_reads": self.host_reads, "n_expanded": self.n_expanded,
+                "n_lost": self.n_lost, "path_reads": self.path_reads, "blocks": blocks}
 
     def _solve(self, max_rounds: Optional[int], graphs: Optional[_graph.Cache]) -> bool:
         """`solve` through the blocks of `graphs`, or the eager loops when
         None (the reference a check on the card holds the graphs to)."""
         max_rounds = max_rounds or self.cfg.max_rounds
-        self._ensure_query_state(graphs)
-        if self.cfg.mode == "lattice":
-            args = (self.state, *self._lattice_args(), self._goal, self._target_bin,
-                    self._hfield, max_rounds, self.cfg, self.shape)
-            if graphs is None:
-                self.state, rounds, self.launched, reads = _lattice_solve(*args)
+        self._walked_cost = None
+        with profiling.span("hastar.init", self.device):
+            self._ensure_query_state(graphs)
+        with profiling.span("hastar.search"):
+            if self.cfg.mode == "lattice":
+                args = (self.state, *self._lattice_args(), self._goal, self._target_bin,
+                        self._hfield, max_rounds, self.cfg, self.shape)
+                if graphs is None:
+                    self.state, rounds, self.launched, reads = _lattice_solve(*args)
+                else:
+                    self.state, rounds, self.launched, reads = _lattice_solve_blocks(*args,
+                                                                                     graphs)
+                lost = self.state.n_lost
             else:
-                self.state, rounds, self.launched, reads = _lattice_solve_blocks(*args, graphs)
-        else:
-            args = (self.state, self.field, self._goal, self._target_bin, self._hfield,
-                    max_rounds, self.cfg, self.rc)
-            if graphs is None:
-                self.state, rounds, self.launched, reads = _ha_solve(*args)
-            else:
-                self.state, rounds, self.launched, reads = _ha_solve_blocks(*args, graphs)
-        self.rounds, goal_idx = torch.stack([rounds, self.state.goal_idx]).tolist()
+                args = (self.state, self.field, self._goal, self._target_bin, self._hfield,
+                        max_rounds, self.cfg, self.rc)
+                if graphs is None:
+                    self.state, rounds, self.launched, reads = _ha_solve(*args)
+                else:
+                    self.state, rounds, self.launched, reads = _ha_solve_blocks(*args, graphs)
+                lost = torch.zeros_like(rounds)
+            self.rounds, goal_idx, self.n_expanded, self.n_lost = torch.stack(
+                [rounds, self.state.goal_idx, self.state.n_expanded, lost]).tolist()
         self.host_reads = reads + 1
+        for name in ("rounds", "n_expanded", "n_lost", "host_reads"):
+            profiling.count("hastar." + name, getattr(self, name))
         if goal_idx >= 0:
             self.success = True
         else:
@@ -1094,8 +1149,9 @@ class HybridAStar:
     def solve_many(self, queries, max_rounds: Optional[int] = None, query_sharding=None):
         """Solve Q independent (start, goal) queries together (lattice
         mode): the states stack on a leading axis and advance in lockstep,
-        each frozen once its own search ends. Returns [(success, cost)];
-        `recover_path_for(q)` walks query q's chain.
+        each frozen once its own search ends. Each solved query's chain is
+        walked once; returns [(success, cost)], the cost that of the path
+        `recover_path_for(q)` returns, as `path_cost` gives it.
 
         `query_sharding` (a `parallel.mesh.Sharding` whose spec names the
         mesh dims that split the queries, e.g. ``("p",)``) spreads the
@@ -1132,11 +1188,20 @@ class HybridAStar:
         else:
             out, _, self.launched, reads = _lattice_solve_blocks(*args, graphs)
         self.host_reads = reads + 2
-        goal_idx = out.goal_idx.cpu().numpy()
+        goal_idx, start_idx = torch.stack([out.goal_idx, out.start_idx]).tolist()
         goal_cost = out.goal_cost.cpu().numpy()
         self._fleet_state = out
-        self._fleet_paths = None
-        return [(int(goal_idx[q]) >= 0, float(goal_cost[q])) for q in range(len(queries))]
+        self._fleet_paths, results, self.path_reads = {}, [], 0
+        for q in range(len(queries)):
+            if goal_idx[q] < 0:
+                self._fleet_paths[q] = []
+                results.append((False, float(goal_cost[q])))
+                continue
+            path, reads, cost = self._walk_lattice_chain(out.gp[q], goal_idx[q], start_idx[q])
+            self._fleet_paths[q] = path
+            self.path_reads += reads
+            results.append((True, cost))
+        return results
 
     def _solve_many_sharded(self, queries, max_rounds, query_sharding):
         import torch.distributed as dist
@@ -1171,24 +1236,20 @@ class HybridAStar:
                 self._fleet_paths[q] = pth
         return results
     def recover_path_for(self, q: int) -> List[Tuple[int, int]]:
-        """Parent-chain walk (image coords) of query q of the last
-        `solve_many`; valid until the next `reset_query` / `solve_many`."""
-        if self._fleet_paths is not None:
-            return list(self._fleet_paths[q])
-        if self._fleet_state is None:
+        """The path (image coords) of query q of the last `solve_many`,
+        which walked it; valid until the next `reset_query` / `solve_many`."""
+        if self._fleet_paths is None:
             raise ValueError(
                 "recover_path_for: no solve_many results are live "
                 "(call solve_many first; reset_query invalidates them)"
             )
-        out = self._fleet_state
-        idx = int(out.goal_idx[q])
-        if idx < 0:
-            return []
-        return self._walk_lattice_chain(out.gp[q], idx, int(out.start_idx[q]))
+        return list(self._fleet_paths[q])
 
     def _walk_lattice_chain(self, gp, idx, start_idx):
         """Walk the parent chain on the device in chunks; the host reads
-        only each chunk's [max_len] visited-state buffer."""
+        only each chunk's [max_len] visited-state buffer with the chunk's
+        cost, and its `done` flags. Returns (the path, the host reads, the
+        path's cost: its edges' quantized costs summed, over _G_SCALE)."""
         k = self.cfg.theta_res
         w = self.shape[1]
         s_total = int(np.prod(self.shape)) * k
@@ -1196,20 +1257,23 @@ class HybridAStar:
         max_len = int(min(s_total, getattr(self, "_chain_chunk", 1 << 15)))
         cur = idx
         chunks = []
-        total = 0
+        total = reads = cost_q = 0
         while True:
-            cells, cur, done = _lattice_chain_device(
+            cells, cur, done, chunk_reads = _lattice_chain_device(
                 gp, self._lat_inv_off_dev, cur, start_idx, k, max_len
             )
-            cells = cells.cpu().numpy()
+            cost = _lattice_chain_cost(gp, self._lat_inv_off_dev, self._lat_edge_cost, cells, k)
+            cells = torch.cat([cells, cost.reshape(1)]).cpu().numpy()
+            cost_q, cells = cost_q + int(cells[-1]), cells[:-1]
             chunks.append(cells[cells >= 0])
             total += max_len
+            reads += chunk_reads + 2  # and the chunk's cells and `done`
             if bool(done) or total >= s_total:
                 break
         cells = np.concatenate(chunks)
         path = [(int(c) // k // w, int(c) // k % w) for c in cells]
         path.reverse()
-        return path
+        return path, reads, cost_q / _G_SCALE
 
     def recover_path(self) -> List[Tuple[int, int]]:
         """Parent-chain walk returning image coords (`slam/hastar.cpp:
@@ -1217,13 +1281,22 @@ class HybridAStar:
         word back through the inverse steering table."""
         if not self.success:
             return []
+        with profiling.root("HybridAStar.recover_path"), profiling.span("hastar.path"):
+            return self._recover_path()
+
+    def _recover_path(self) -> List[Tuple[int, int]]:
         k = self.cfg.theta_res
         w = self.shape[1]
-        idx = int(self.state.goal_idx)
-        start_idx = int(self.state.start_idx)
+        idx, start_idx = torch.stack([self.state.goal_idx, self.state.start_idx]).tolist()
         if self.cfg.mode == "lattice":
-            return self._walk_lattice_chain(self.state.gp, idx, start_idx)
+            path, reads, self._walked_cost = self._walk_lattice_chain(self.state.gp, idx,
+                                                                      start_idx)
+            self.path_reads = 1 + reads
+            profiling.count("hastar.host_reads", self.path_reads)
+            return path
         parent = self.state.parent.cpu().numpy()
+        self.path_reads = 2
+        profiling.count("hastar.host_reads", self.path_reads)
         path = []
         seen = 0
         while idx >= 0 and idx != start_idx and seen <= len(parent):
@@ -1235,4 +1308,13 @@ class HybridAStar:
         return path
 
     def path_cost(self) -> float:
+        """The cost of the path `recover_path` returns. In lattice mode that
+        is its edges' costs summed, walked once a query: a state on the
+        chain can improve after its successor was committed, and the walk
+        follows the improved parent, so the goal's cost at its pop
+        (`state.goal_cost`) can exceed it."""
+        if self.cfg.mode == "lattice" and self.success:
+            if self._walked_cost is None:
+                self.recover_path()
+            return self._walked_cost
         return float(self.state.goal_cost)

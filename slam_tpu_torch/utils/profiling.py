@@ -23,7 +23,11 @@ keeps a record in a bounded ring: its name, start and end from
 range's own), its parent span and its request. A root (`MCL.step`,
 `GridSLAM.step`, ...) opens a request; the spans inside it take its id,
 a span outside every root takes none, and no per-request total counts
-it.
+it. The roots opened are counted by name too, so a reader can divide by
+the requests of one entry point where a request opens more than one
+root (a plan's `HybridAStar.solve` and `HybridAStar.recover_path`).
+`count(name, n)` adds to a counter inside a root while a session
+records (a search's rounds), and is a flag read otherwise.
 
 A span given a CUDA `device` also times the device work inside it, on
 the device's current stream:
@@ -158,6 +162,8 @@ class _Recorder:
         self.host_ms: dict = {}
         self.device_ms: dict = {}
         self.roots = 0
+        self.root_names: dict = {}
+        self.counts: dict = {}
         # Device readings not taken yet, oldest first: (an event recorded
         # after the timed work, a function giving [(span name, ms)] once
         # it has completed).
@@ -213,6 +219,7 @@ class _Span:
             if self.is_root and self.request is None:
                 self.request = _REC.roots
                 _REC.roots += 1
+                _REC.root_names[self.name] = _REC.root_names.get(self.name, 0) + 1
                 _REC.drain(wait=False)
             _REC.open.append(self)
             self.fn = _RecordFunction(self.name)
@@ -278,6 +285,13 @@ def root(name: str):
     return _NOOP
 
 
+def count(name: str, n) -> None:
+    """Add `n` to the counter `name` while a session records, inside a
+    root (a count outside every root belongs to no request)."""
+    if _recording() and _REC.open and _REC.open[-1].request is not None:
+        _REC.counts[name] = _REC.counts.get(name, 0) + n
+
+
 def replayed(owner, clock) -> None:
     """After a replay of `owner`'s graph, whose capture stamped its timed
     spans into `clock` (`core/graph.py:_Clock`): while a session records
@@ -307,10 +321,13 @@ def recorded() -> dict:
     """What the spans recorded since the last `reset`: `records` (the
     ring's `Record`s, oldest first), `host_ms` and `device_ms` (each
     span name's total ms over the spans inside a root; device ms only for
-    spans that timed a CUDA device), and `roots` (requests opened)."""
+    spans that timed a CUDA device), `roots` (requests opened),
+    `root_names` (the requests opened by each root's name) and `counts`
+    (each counter's total over the requests)."""
     _REC.drain(wait=True)
     return {"records": list(_REC.records), "host_ms": dict(_REC.host_ms),
-            "device_ms": dict(_REC.device_ms), "roots": _REC.roots}
+            "device_ms": dict(_REC.device_ms), "roots": _REC.roots,
+            "root_names": dict(_REC.root_names), "counts": dict(_REC.counts)}
 
 
 def reset() -> None:

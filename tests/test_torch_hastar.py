@@ -115,6 +115,10 @@ def test_lattice_solve_bitwise(case):
     rounds = 300 if name == "unreachable" else 400
     assert tp.solve(rounds) == jp.solve(rounds) == (name != "unreachable")
     _assert_states_equal(tp.state, jp.state, LAT_FIELDS)
+    # JAX's cost is the goal's at its pop, the port's its walked path's:
+    # equal here, where no state on the chain improved after its
+    # successor's commit (tests/test_torch_plan_reference.py has one that
+    # did).
     assert tp.path_cost() == jp.path_cost()
     assert tp.recover_path() == jp.recover_path()
     if "open_capacity" in over:
@@ -144,6 +148,8 @@ def test_solve_many_matches_single_and_jax():
     jp, tp = _pair(WALL, *queries[0])
     jfleet = jp.solve_many([(JPose.create(*a), JPose.create(*b)) for a, b in queries], 400)
     tfleet = tp.solve_many([(Pose.create(*a), Pose.create(*b)) for a, b in queries], 400)
+    # The walked paths' costs equal JAX's pop costs where no parent on the
+    # chain improved, as on these queries.
     assert tfleet == jfleet
     _assert_states_equal(tp._fleet_state, jp._fleet_state, LAT_FIELDS)
     paths = [tp.recover_path_for(q) for q in range(len(queries))]

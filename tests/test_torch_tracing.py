@@ -82,7 +82,8 @@ def test_no_session_records_nothing():
     blocked = _room()
     eng.step(eng.init(H, W), _odom(0), ALPHAS, _scan(blocked, 0), blocked)
     r = profiling.recorded()
-    assert r == {"records": [], "host_ms": {}, "device_ms": {}, "roots": 0}
+    assert r == {"records": [], "host_ms": {}, "device_ms": {}, "roots": 0, "root_names": {},
+                 "counts": {}}
 
 
 def test_records_names_parents_and_requests(tmp_path):
