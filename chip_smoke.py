@@ -244,6 +244,17 @@ raises, so the exit code is nonzero):
               -log(n) bit for bit, gated-off rows copied; device ms at 1M,
               100k and 16 x 100k beside the 32 N bytes bound, the plain
               chain's and the public resample's
+ 29. estimate   the best and mode poses' kernel chain (csrc/estimate.cu)
+              against the plain estimate on the same particles: dispersed
+              at 256, 4097, 100k, 1M and 16 x 100k; every score equal;
+              equal maxima in different blocks; -inf entries; NaNs;
+              exactly half the scores tied; every log weight -inf; mixed
+              rows: the best index and pose, the tie share and the
+              informative flag bit for bit, the mode within ESTIMATE_RTOL
+              and ESTIMATE_RAD; two launches and a graph replay == eager
+              bit for bit; one launch counted a call; device ms at 100k,
+              1M and 16 x 100k beside the 20 N bytes bound and the plain
+              estimate's
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device; without one it
@@ -345,9 +356,11 @@ TRAIL_SPIN_CYCLES = 100_000
 SPIN_SPLIT_US = 20.0
 # The hand-written kernels by wrapper count, as the profiler names them.
 # The resampler's chain counts one launch a call: its select kernel (the
-# multi-block one, or the one-tile form), whose names share this part.
+# multi-block one, or the one-tile form), whose names share this part; the
+# estimate's chain likewise its pose kernel.
 KERNEL_NAMES = {"gather_rows": "gather_rows_kernel", "motion_odometry": "motion_odometry_kernel",
-                "lut_weights": "lut_weights_kernel", "resample": "resample_select"}
+                "lut_weights": "lut_weights_kernel", "resample": "resample_select",
+                "estimate": "estimate_pose"}
 SPATIAL_POINTS = 1_000_000
 SPATIAL_BOXES = 1000
 SPATIAL_QUERIES = 1024
@@ -462,6 +475,14 @@ PAD_MARCH_N = 2000
 RESAMPLE_SEED = 2024
 RESAMPLE_EDGE = 1e-9
 RESAMPLE_TIMED = ("dispersed_1m", "dispersed_100k", "rows_16x100k")
+# Phase 29: the estimate's kernel chain against the plain estimate. The
+# best index and pose, the tie share and the informative decision bit for
+# bit; the mode pose, whose sums run in another order, within ESTIMATE_RTOL
+# (x, y, relative) and ESTIMATE_RAD (theta); timed at ESTIMATE_TIMED.
+ESTIMATE_SEED = 2121
+ESTIMATE_RTOL = 1e-5
+ESTIMATE_RAD = 1e-6
+ESTIMATE_TIMED = ("dispersed_100k", "dispersed_1m", "rows_16x100k")
 # Phase 22: the apps. GRID_SLAM_ATE_PX is the JAX app test's bound
 # (`tests/test_apps.py:27`); the checkpoint runs take CKPT_STEPS steps.
 GRID_SLAM_ATE_PX = 30.0
@@ -2474,8 +2495,9 @@ def fleet_phase(dev, blocked_np, field, counts, map_png, workdir) -> dict:
         steps = FLEET_ITERS + 3
         w = warmup_counts()  # MCLFleet.step replays a graph: one block, one warm-up
         check(c == {"gather_rows": 0, "motion_odometry": 0,
-                    "lut_weights": steps + w["lut_weights"], "resample": steps + w["resample"]}
-              and w["lut_weights"] == 1 and w["resample"] == 1,
+                    "lut_weights": steps + w["lut_weights"], "resample": steps + w["resample"],
+                    "estimate": steps + w["estimate"]}
+              and w["lut_weights"] == 1 and w["resample"] == 1 and w["estimate"] == 1,
               f"fleet R={r}: launches {c} for {steps} fleet steps (warm-ups {w})")
         for k_ in launches:
             launches[k_] += c[k_]
@@ -3123,7 +3145,7 @@ def par_rank_main(outdir: str) -> None:
     from slam_tpu_torch.ops import edt as edtlib
     from slam_tpu_torch.ops import lut_weights_cuda, measurement, motion_cuda, pano_cuda
     from slam_tpu_torch.ops import resample as resample_mod
-    from slam_tpu_torch.ops import resample_cuda
+    from slam_tpu_torch.ops import estimate_cuda, resample_cuda
     from slam_tpu_torch.ops.raycast import raycast_march
     from slam_tpu_torch.parallel import ShardedGridSLAM, ShardedMCL, ShardedMCLFleet
     from slam_tpu_torch.parallel import _collectives, distributed, make_mesh, shard_state
@@ -3143,14 +3165,16 @@ def par_rank_main(outdir: str) -> None:
     sampler = motion_cuda.sample_motion_model_odometry_fused
     fused = lut_weights_cuda.launch
     chain = resample_cuda.launch
+    estimator = estimate_cuda.launch
     launches = dict.fromkeys(KERNEL_NAMES, 0)
 
     def counted(fn):
         """Run a main-path call with the launch counts zeroed; add its."""
-        gather.launches = sampler.launches = fused.launches = chain.launches = 0
+        gather.launches = sampler.launches = fused.launches = chain.launches = estimator.launches = 0
         r = fn()
         for k, v in (("gather_rows", gather.launches), ("motion_odometry", sampler.launches),
-                     ("lut_weights", fused.launches), ("resample", chain.launches)):
+                     ("lut_weights", fused.launches), ("resample", chain.launches),
+                     ("estimate", estimator.launches)):
             launches[k] += v
         return r
 
@@ -3421,12 +3445,15 @@ def parallel_phase(dev, counts) -> dict:
 def warmup_counts() -> dict:
     """The kernel wrappers' launches made by graph warm-ups since the last
     reset (a block's one eager run before its capture; `core/graph.py`)."""
-    from slam_tpu_torch.ops import lut_weights_cuda, motion_cuda, pano_cuda, resample_cuda
+    from slam_tpu_torch.ops import (
+        estimate_cuda, lut_weights_cuda, motion_cuda, pano_cuda, resample_cuda,
+    )
 
     return {"gather_rows": pano_cuda.gather_rows.warmup_launches,
             "motion_odometry": motion_cuda.sample_motion_model_odometry_fused.warmup_launches,
             "lut_weights": lut_weights_cuda.launch.warmup_launches,
-            "resample": resample_cuda.launch.warmup_launches}
+            "resample": resample_cuda.launch.warmup_launches,
+            "estimate": estimate_cuda.launch.warmup_launches}
 
 
 def capture_gc_check(dev) -> dict:
@@ -4390,6 +4417,206 @@ def resample_phase(dev, counts) -> dict:
     return out
 
 
+def estimate_phase(dev, counts) -> dict:
+    """Phase 29: the estimate's kernel chain (`csrc/estimate.cu`,
+    `ops/estimate_cuda.py`) against the plain estimate
+    (`models/mcl.py:plain_estimate`) on the card, from the same particles.
+    Clouds: dispersed at 256 (the one-block form), 4097 (the smallest
+    chain), 100k, 1M and 16 rows of 100k; every measurement score equal (a
+    majority tie: the best pose is the mode) at 256 and 100k; equal maxima
+    of the log weights in different blocks and within one at 1M; -inf on
+    every third particle at 1M; two NaNs at 1M (the first wins, the mode is
+    NaN); exactly half the scores tied at 82 and 90,002 particles, where
+    PyTorch's CUDA mean rounds the share below 0.5; every log weight -inf;
+    and 4 rows of 4097 mixing these. Per cloud: the best index == the
+    first maximum (torch.argmax), the tie share == the plain path's mean
+    and so the informative flag, bit for bit; the best pose == the plain
+    best pose bit for bit where informative, else == the kernel's own mode;
+    the mode within ESTIMATE_RTOL (x, y) and ESTIMATE_RAD (theta) of the
+    plain mode (both NaN where it is). A second launch gives the same bits,
+    a CUDA graph's replay the eager call's; the launch makes no host sync;
+    one launch is counted a call, `mcl.estimate` among them. Timed at
+    ESTIMATE_TIMED: the chain's device ms (its kernels, from the profiler)
+    beside its 20 N bytes bound and the plain estimate's device ms."""
+    from slam_tpu_torch.core.config import MCLConfig
+    from slam_tpu_torch.core.types import Pose
+    from slam_tpu_torch.models import mcl as mcl_mod
+    from slam_tpu_torch.ops import estimate_cuda
+
+    reset_counts, read_counts = counts
+    t_phase = time.perf_counter()
+    tau = MCLConfig().mode_tau
+    g = torch.Generator(device=dev)
+    g.manual_seed(ESTIMATE_SEED)
+
+    def cloud(shape):
+        """Poses over the floor plan's extent, a prior and a measurement."""
+        u = lambda: torch.rand(shape, generator=g, device=dev)  # noqa: E731
+        pose = Pose(x=u() * 1297.0, y=u() * 599.0, theta=(u() * 2.0 - 1.0) * math.pi)
+        prior = torch.randn(shape, generator=g, device=dev) * 5.0
+        lw = torch.randn(shape, generator=g, device=dev) * 30.0
+        return pose, prior, lw
+
+    def planted(shape, edit):
+        pose, prior, lw = cloud(shape)
+        edit(prior, lw)
+        return pose, prior + lw, lw
+
+    def plain(shape):
+        pose, prior, lw = cloud(shape)
+        return pose, prior + lw, lw
+
+    def equal_scores(prior, lw):
+        lw.fill_(-3.5)
+
+    def maxima_apart(prior, lw):
+        prior.zero_()
+        for i in (700_001, 1000, 1023, 1024, 4096):  # tiles 683, 0, 0, 1, 4: blocks 171, 0, 1, 4
+            lw[i] = 900.0
+
+    def minus_inf(prior, lw):
+        lw[::3] = -math.inf
+
+    def nans(prior, lw):
+        lw[777_777] = math.nan
+        lw[333_333] = math.nan
+
+    def half_tied(prior, lw):
+        n = lw.shape[-1]
+        lw[..., : n // 2] = 40.0
+        lw[..., n // 2:] = -40.0
+
+    def all_minus_inf(prior, lw):
+        lw.fill_(-math.inf)
+
+    def mixed_rows(prior, lw):
+        equal_scores(prior, lw[0])
+        lw[1, 17] = math.nan
+        lw[2, ::3] = -math.inf
+        prior[3].zero_()
+        lw[3, 5] = lw[3, 4096] = 900.0  # equal maxima in the row's two blocks
+
+    clouds = {
+        "dispersed_256": plain((256,)),
+        "dispersed_4097": plain((4097,)),
+        "dispersed_100k": plain((N_PARTICLES,)),
+        "dispersed_1m": plain((SLAM_PARTICLES,)),
+        "rows_16x100k": plain((16, N_PARTICLES)),
+        "equal_scores_256": planted((256,), equal_scores),
+        "equal_scores_100k": planted((N_PARTICLES,), equal_scores),
+        "maxima_apart_1m": planted((SLAM_PARTICLES,), maxima_apart),
+        "minus_inf_1m": planted((SLAM_PARTICLES,), minus_inf),
+        "nan_1m": planted((SLAM_PARTICLES,), nans),
+        "half_tied_82": planted((82,), half_tied),
+        "half_tied_90002": planted((90_002,), half_tied),
+        "all_minus_inf_4097": planted((4097,), all_minus_inf),
+        "mixed_rows_4x4097": planted((4, 4097), mixed_rows),
+    }
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def same_bits(a, b):
+        return torch.equal(bits(a), bits(b))
+
+    def wrapped(a, b):
+        d = torch.remainder(a.double() - b.double() + math.pi, 2.0 * math.pi) - math.pi
+        return torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d), d.abs())
+
+    def rel(a, b):
+        d = (a.double() - b.double()).abs() / b.double().abs().clamp(min=1.0)
+        return torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d), d)
+
+    out = {"mode_tau": tau, "clouds": {}}
+    reset_counts()
+    calls = 0
+    for name, (pose, log_weight, lw) in clouds.items():
+        want_best, want_mode = mcl_mod.plain_estimate(pose, log_weight, lw, tau)
+        want_idx = torch.argmax(log_weight, dim=-1)
+        max_lw = torch.amax(lw, dim=-1, keepdim=True)
+        tie_tol = torch.clamp(1e-6 * torch.abs(max_lw), min=1e-6)
+        want_share = torch.mean(((max_lw - lw) < tie_tol).to(torch.float32), dim=-1)
+        with sync_error():
+            best, mode, share, idx = estimate_cuda.launch(pose, log_weight, lw, tau)
+            again = estimate_cuda.launch(pose, log_weight, lw, tau)
+            routed = mcl_mod.estimate(pose, log_weight, lw, tau)
+        calls += 3
+        check(all(same_bits(a, b) for a, b in zip(
+            (best.x, best.y, best.theta, mode.x, mode.y, mode.theta, share, idx),
+            (again[0].x, again[0].y, again[0].theta, again[1].x, again[1].y, again[1].theta,
+             again[2], again[3]))), f"estimate {name}: two launches differ")
+        check(all(same_bits(a, b) for a, b in zip(
+            (best.x, best.y, best.theta, mode.x, mode.y, mode.theta),
+            (routed[0].x, routed[0].y, routed[0].theta, routed[1].x, routed[1].y,
+             routed[1].theta))), f"estimate {name}: mcl.estimate != the launch")
+        check(torch.equal(idx.long(), want_idx), f"estimate {name}: best index {idx.tolist()} "
+              f"!= torch.argmax {want_idx.tolist()}")
+        check(same_bits(share, want_share), f"estimate {name}: tie share {share.tolist()} != "
+              f"the plain mean {want_share.tolist()}")
+        informative = want_share < 0.5
+        check(torch.equal(share < 0.5, informative), f"estimate {name}: informative differs")
+        for field_, a, b, m in (("x", best.x, want_best.x, mode.x),
+                                ("y", best.y, want_best.y, mode.y),
+                                ("theta", best.theta, want_best.theta, mode.theta)):
+            check(same_bits(torch.where(informative, a, a.new_zeros(())),
+                            torch.where(informative, b, b.new_zeros(()))),
+                  f"estimate {name}: best {field_} != the plain best where informative")
+            check(same_bits(torch.where(informative, m, a), m),
+                  f"estimate {name}: best {field_} != the mode where uninformative")
+        gap_xy = max(float(rel(mode.x, want_mode.x).max()), float(rel(mode.y, want_mode.y).max()))
+        gap_th = float(wrapped(mode.theta, want_mode.theta).max())
+        nan_mode = torch.isnan(mode.x) | torch.isnan(mode.y) | torch.isnan(mode.theta)
+        want_nan = (torch.isnan(want_mode.x) | torch.isnan(want_mode.y)
+                    | torch.isnan(want_mode.theta))
+        check(torch.equal(nan_mode, want_nan), f"estimate {name}: NaN modes differ")
+        check(gap_xy <= ESTIMATE_RTOL and gap_th <= ESTIMATE_RAD,
+              f"estimate {name}: mode {gap_xy} relative, {gap_th} rad from the plain mode")
+        rows, n = (1, log_weight.shape[0]) if log_weight.dim() == 1 else log_weight.shape
+        out["clouds"][name] = {
+            "rows": rows, "particles": n, "informative_rows": int(informative.sum()),
+            "share": share.reshape(-1)[:4].tolist(), "best_index": idx.reshape(-1)[:4].tolist(),
+            "mode_gap_rel": gap_xy, "mode_gap_rad": gap_th, "nan_mode_rows": int(nan_mode.sum())}
+        say("estimate", f"{name}: {json.dumps(out['clouds'][name])}")
+    c_ = read_counts()
+    check(c_["estimate"] == calls, f"estimate: {c_['estimate']} launches counted for {calls} "
+          f"calls")
+
+    # A CUDA graph's replay == the eager launch, bit for bit.
+    for name in ("dispersed_256", "dispersed_1m", "rows_16x100k", "nan_1m"):
+        pose, log_weight, lw = clouds[name]
+        eager = estimate_cuda.launch(pose, log_weight, lw, tau)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = estimate_cuda.launch(pose, log_weight, lw, tau)
+        for _ in range(2):
+            graph.replay()
+        torch.cuda.synchronize()
+        check(all(same_bits(a, b) for a, b in zip(
+            (static[0].x, static[0].y, static[0].theta, static[1].x, static[1].y,
+             static[1].theta, static[2], static[3]),
+            (eager[0].x, eager[0].y, eager[0].theta, eager[1].x, eager[1].y, eager[1].theta,
+             eager[2], eager[3]))), f"estimate {name}: the graph's replay != eager")
+        del graph, static
+    out["graph_equals_eager"] = True
+
+    times = {}
+    for name in ESTIMATE_TIMED:
+        pose, log_weight, lw = clouds[name]
+        n = log_weight.numel()
+        rows_ = kernel_profile(lambda: estimate_cuda.launch(pose, log_weight, lw, tau))
+        ms = sum(r[0] for k, r in rows_.items() if "estimate_" in k)
+        b_ms, b_by = bound(20.0 * n, 0.0)
+        times[name] = {
+            "ms": ms, "kernels_per_call": sum(r[1] for k, r in rows_.items() if "estimate_" in k),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+            "plain_ms": device_ms(lambda: mcl_mod.plain_estimate(pose, log_weight, lw, tau))[0],
+            "softmax_ms": device_ms(lambda: torch.softmax(log_weight * tau, dim=-1))[0]}
+        say("estimate", f"timed {name}: {json.dumps(times[name])}")
+    out["timed"] = times
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -4405,7 +4632,7 @@ def main() -> None:
     from slam_tpu_torch.models import mcl as mcl_mod
     from slam_tpu_torch.ops import _build, lut_weights_cuda, measurement, motion, motion_cuda
     from slam_tpu_torch.ops import lut as lutlib
-    from slam_tpu_torch.ops import pano_cuda, rayfield, resample_cuda
+    from slam_tpu_torch.ops import estimate_cuda, pano_cuda, rayfield, resample_cuda
     from slam_tpu_torch.ops import resample as resample_mod
     from slam_tpu_torch.ops.raycast import raycast_march
     from slam_tpu_torch.utils.maps import synthetic_floor_plan
@@ -4416,15 +4643,17 @@ def main() -> None:
     sampler = motion_cuda.sample_motion_model_odometry_fused
     fused = lut_weights_cuda.launch
     chain = resample_cuda.launch
+    estimator = estimate_cuda.launch
 
     def reset_counts():
-        gather.launches = sampler.launches = fused.launches = chain.launches = 0
+        gather.launches = sampler.launches = fused.launches = chain.launches = estimator.launches = 0
         gather.warmup_launches = sampler.warmup_launches = fused.warmup_launches = 0
-        chain.warmup_launches = 0
+        chain.warmup_launches = estimator.warmup_launches = 0
 
     def read_counts():
         return {"gather_rows": gather.launches, "motion_odometry": sampler.launches,
-                "lut_weights": fused.launches, "resample": chain.launches}
+                "lut_weights": fused.launches, "resample": chain.launches,
+                "estimate": estimator.launches}
 
     # 1. device -------------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -5320,7 +5549,11 @@ def main() -> None:
     rs = resample_phase(dev, counts)
     phase_s["resample"] = rs["seconds"]
     say("resample", json.dumps({**rs, "device": name, "power_limit": power}))
-    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-28 "
+    # 29. the estimate's kernel chain against the plain estimate.
+    es = estimate_phase(dev, counts)
+    phase_s["estimate"] = es["seconds"]
+    say("estimate", json.dumps({**es, "device": name, "power_limit": power}))
+    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-29 "
         f"{time.perf_counter() - t_new:.1f} s {json.dumps(phase_s)}")
 
     # Launches: the counts of the main paths' runs (phase 7's mcl.step,
@@ -5433,6 +5666,19 @@ def main() -> None:
          "slots_differing": sum(c_["slots_differing"] for c_ in rs["clouds"].values()),
          "library_ms": None,
          **{f"{key}_{cloud}": rs["timed"][cloud][key] for cloud in RESAMPLE_TIMED
+            for key in ("ms", "bound_ms", "bound_share", "plain_ms", "kernels_per_call")}},
+        {"name": "estimate", "route": "cuda",
+         "source": "slam_tpu_torch/csrc/estimate.cu",
+         "replaces": "none (slam_tpu/models/mcl.py's estimate is plain XLA)",
+         "launches": main_launches["estimate"],
+         # Phase 29: the mode pose's widest gap from the plain estimate over
+         # its clouds (the best pose and the tie share equal it bit for
+         # bit), the chain's device ms beside its 20 N bytes bound and the
+         # plain estimate's.
+         "mode_gap_rel": max(c_["mode_gap_rel"] for c_ in es["clouds"].values()),
+         "mode_gap_rad": max(c_["mode_gap_rad"] for c_ in es["clouds"].values()),
+         "library_ms": None,
+         **{f"{key}_{cloud}": es["timed"][cloud][key] for cloud in ESTIMATE_TIMED
             for key in ("ms", "bound_ms", "bound_share", "plain_ms", "kernels_per_call")}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@
                 CUDA, its plain PyTorch version on the CPU;
     update   -> beam log weights (on CUDA the fused LUT panorama route
                 runs the kernel `ops/lut_weights_cuda.py`), the best /
-                sharpened mode estimates, then gated systematic resampling;
+                sharpened mode estimates (on CUDA the kernel chain
+                `ops/estimate_cuda.py`), then gated systematic resampling;
     step     -> update(predict(...)); on CUDA with the beam measurement on
                 the LUT route, predict and the weights are ONE launch of
                 that kernel (bench.py's jitted step), then the rest of
@@ -69,7 +70,7 @@ from slam_tpu_torch.core.graph import cond
 from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan, f32_host, log_f32
 from slam_tpu_torch.models._graph import StepGraphs
 from slam_tpu_torch.ops import edt as edtlib
-from slam_tpu_torch.ops import lut_weights_cuda, measurement, rayfield, resample
+from slam_tpu_torch.ops import estimate_cuda, lut_weights_cuda, measurement, rayfield, resample
 from slam_tpu_torch.ops.motion_cuda import (
     draw_seed, odometry_rows, sample_motion_model_odometry_fused,
 )
@@ -166,13 +167,26 @@ def _select(cond, a: Pose, b: Pose) -> Pose:
 
 def estimate(pp: Pose, log_weight, lw, mode_tau: float):
     """(best_pose, mode_pose) of particles `pp` with accumulated log weights
-    `log_weight` after a measurement that scored them `lw`: the best
-    particle (the FIRST maximum, as jnp.argmax) and the softmax(tau *
-    log_w)-weighted circular mean. Under an uninformative measurement (the
-    top score is a majority tie, within a tolerance RELATIVE to |max|) the
-    argmax is arbitrary, so best_pose falls back to the sharpened mean
-    (slam_tpu/models/mcl.py:289-312 has the why). Particles [..., N]: the
-    estimates are taken along the last axis, per batch row."""
+    `log_weight` after a measurement that scored them `lw`, as
+    `plain_estimate` defines them: on a CUDA device the kernel chain
+    (`ops/estimate_cuda.py`), elsewhere `plain_estimate`."""
+    if log_weight.is_cuda:
+        pose = Pose(x=pp.x.contiguous(), y=pp.y.contiguous(), theta=pp.theta.contiguous())
+        best_pose, mode_pose, _, _ = estimate_cuda.launch(
+            pose, log_weight.contiguous(), lw.contiguous(), mode_tau)
+        return best_pose, mode_pose
+    return plain_estimate(pp, log_weight, lw, mode_tau)
+
+
+def plain_estimate(pp: Pose, log_weight, lw, mode_tau: float):
+    """`estimate` in plain PyTorch, the CPU's route and the kernel's
+    reference: the best particle (the FIRST maximum, as jnp.argmax) and the
+    softmax(tau * log_w)-weighted circular mean. Under an uninformative
+    measurement (the top score is a majority tie, within a tolerance
+    RELATIVE to |max|) the argmax is arbitrary, so best_pose falls back to
+    the sharpened mean (slam_tpu/models/mcl.py:289-312 has the why).
+    Particles [..., N]: the estimates are taken along the last axis, per
+    batch row."""
     k = torch.argmax(log_weight, dim=-1, keepdim=True)
     best_pose = Pose(
         x=pp.x.gather(-1, k)[..., 0],

@@ -65,6 +65,12 @@ _SIGNATURES = {
     #  sums*, ends*, n, n_rows, stream)
     "resample_launch": [_P] * 12 + [ctypes.c_float] + [_P] * 2 + [ctypes.c_longlong,
                                                                    ctypes.c_int, _P],
+    # (x*, y*, th*, v*, l*, tau, mean_factor, out*, idx*, scratch*, scratch_words,
+    #  n, n_rows, stream)
+    "estimate_launch": (
+        [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 3 + [ctypes.c_longlong] * 2
+        + [ctypes.c_int, _P]
+    ),
     # (parent stream, pred*, invert, loop, child stream, body**, handle*)
     "graph_cond_begin": [_P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.POINTER(_P),
                          ctypes.POINTER(ctypes.c_ulonglong)],
