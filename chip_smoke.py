@@ -73,29 +73,26 @@ raises, so the exit code is nonzero):
               step + margin); both timed
  13. plan-lattice  the suite's lattice HA* on the floor plan inflated by 7:
               reset, 5 x (reset_query + solve) through the CUDA graphs of
-              its search blocks and of the query init's A* wavefront (every
+              its search chain and of the query init's A* wavefront (every
               warm-up and replay under set_sync_debug_mode("error")), each
-              beside the same query by the eager loops on the card: equal
-              bit for bit (state, heuristic, rounds, flag reads, iterations
-              launched, path), also with max_rounds cut inside a block;
-              graph and eager ms, query init, capture ms, the pools' memory,
-              replays, the profiles (device ms, kernels, host-issued
-              launches); the search as a chain (one host read a replay) and
-              as single-block replays (a host read before each), both == eager, ms and host
-              reads a query each way; the path free and no shorter than the
-              straight line less tol; the same search by the port on the CPU
-              equal bit for bit; solve_many of 4 queries, graph == eager
+              beside the same query through chains of the same blocks run
+              eagerly on the card (capture=False): equal bit for bit (state,
+              heuristic, rounds, iterations launched, path; host reads no
+              more), also with max_rounds cut inside a block; graph and
+              eager ms, query init, capture ms, the pools' memory, replays,
+              the profiles (device ms, kernels, host-issued launches); the
+              path free and no shorter than the straight line less tol; the
+              same search by the port on the CPU equal bit for bit;
+              solve_many of 4 queries, graph == eager
  14. plan-rrt / plan-continuous / spatial  the suite's RRT* over seeds
-              1234-1238 through its block's CUDA graph, each seed == the
-              eager loop on the card (tree, rounds, the generator's state;
+              1234-1238 through its chain's CUDA graph, each seed == the
+              eager chain on the card (tree, rounds, the generator's state;
               also cut inside a block) (success count; every path edge ends
               in a free cell of the map inflated by 7 and crosses no blocked
               stretch of a ray step along it; the edges the fixed-step march
               flags are printed), continuous HA* with the lut edge field and
               with the sdf backend (graph == eager the same way), and the
-              spatial workload at 1M points (card == CPU); RRT* seed 1234
-              and continuous HA* (lut) as chains and as single-block
-              replays, ms and host reads a query each way
+              spatial workload at 1M points (card == CPU)
 
  15. globalloc  `tools/global_loc_bench.py`'s configuration at 1M
               particles through mcl.step, driven by the port's
@@ -786,56 +783,48 @@ def snapshot(p, fields) -> dict:
     """What a planner's last solve left: its state's fields (copies) and
     its counters."""
     return {"state": {f: getattr(p.state, f).clone() for f in fields}, "rounds": p.rounds,
-            "launched": getattr(p, "launched", None), "host_reads": getattr(p, "host_reads", None)}
+            "launched": p.launched, "host_reads": p.host_reads}
 
 
-def hold_solves(graph, eager, fields, what: str, cut_block: int = 0,
-                same_reads: bool = False) -> None:
-    """A graph solve == the eager loop's on the card: every state field,
-    rounds and iterations launched; host reads no more than the eager
-    loop's (a chain reads once a replay), the same with `same_reads`
-    (single-block replays). With `cut_block` (the block's iterations,
-    where max_rounds ended the search) the graph may launch up to a block
-    more, in whole blocks."""
+def hold_solves(graph, eager, fields, what: str) -> None:
+    """A graph solve == the same query through eager chains on the card
+    (`eager_chains`): every state field, rounds and iterations launched;
+    host reads no more than the eager chains'."""
     for f in fields:
         check(torch.equal(graph["state"][f], eager["state"][f]),
-              f"{what}: {f} of the graph solve != the eager loop's on the card")
+              f"{what}: {f} of the graph solve != the eager chain's on the card")
     check(graph["rounds"] == eager["rounds"],
           f"{what}: rounds {graph['rounds']} (graph) != {eager['rounds']} (eager)")
-    reads_ok = (graph["host_reads"] == eager["host_reads"] if same_reads
-                else graph["host_reads"] <= eager["host_reads"])
-    check(reads_ok, f"{what}: host reads {graph['host_reads']} (graph), "
-          f"{eager['host_reads']} (eager)")
-    if graph["launched"] is not None:
-        if cut_block:
-            want = -(-eager["launched"] // cut_block) * cut_block
-        else:
-            want = eager["launched"]
-        check(graph["launched"] == want,
-              f"{what}: launched {graph['launched']} (graph) != {want} (eager {eager['launched']})")
+    check(graph["host_reads"] <= eager["host_reads"],
+          f"{what}: host reads {graph['host_reads']} (graph), {eager['host_reads']} (eager)")
+    check(graph["launched"] == eager["launched"],
+          f"{what}: launched {graph['launched']} (graph) != {eager['launched']} (eager)")
 
 
-def block_replays(p, solve, take, eager, chain, fields, what: str, n: int) -> dict:
-    """The single-block replays of a planner's search (a host read
-    before each block; `solve(cache)` runs one query through `cache`)
-    beside the chains: each of `n` queries equal to the eager loop's
-    (`eager`, with its host reads) and read more often than the chain
-    (`chain`). Returns their ms and host reads."""
+def eager_chains(p):
+    """A context in which planner `p`'s searches run through a cache of its
+    own whose chains run their blocks eagerly on the card (`capture`
+    False): the same block code as the captured chains, the reference
+    they are held to."""
     from slam_tpu_torch.planners import _graph as planner_graph
 
-    bc = planner_graph.Cache(chain=False)
-    bc.guard = sync_error
-    solve(bc)  # captures the single blocks
-    ms = []
-    for _ in range(n):
-        ms.append(event_ms(lambda: solve(bc)))
-        got = take()
-        hold_solves(got, eager, fields, f"{what} (block replays)", same_reads=True)
-        check(chain["host_reads"] < got["host_reads"],
-              f"{what}: the chain read {chain['host_reads']} times, the block replays "
-              f"{got['host_reads']}")
-    return {"ms": spread(ms), "host_reads": got["host_reads"], "graphs": graph_stats(bc),
-            "profile": planner_profile(lambda: solve(bc))}
+    class Eager(planner_graph.Cache):
+        def get(self, key, make):
+            block = super().get(key, make)
+            block.capture = False
+            return block
+
+    cache = Eager()
+
+    @contextlib.contextmanager
+    def through():
+        saved, p._graphs = p._graphs, cache
+        try:
+            yield
+        finally:
+            p._graphs = saved
+
+    return through
 
 
 def plan_poses(h: int):
@@ -889,13 +878,14 @@ def sdf_phase(dev, blocked_np) -> dict:
 def lattice_phase(dev, free_np) -> dict:
     """Phase 13: the suite's lattice HA* on `free_np`: one reset (the
     tables), then LATTICE_QUERIES x (reset_query + solve) through the CUDA
-    graphs (the query init's A* wavefront and the search blocks, every
-    warm-up and replay under `sync_error`), each beside the same query by
-    the eager loops on the card. The graph solve equals the eager one bit
-    for bit (every state field, the heuristic field the wavefront made,
-    rounds, host reads, iterations launched, the path), also with
-    max_rounds cut inside a block; the path is checked on the map; the
-    same search by the port on the CPU equals the card's bit for bit."""
+    graphs (the query init's A* wavefront and the search chain, every
+    warm-up and replay under `sync_error`), each beside the same query
+    through eager chains on the card (`eager_chains`). The graph solve
+    equals the eager one bit for bit (every state field, the heuristic
+    field the wavefront made, rounds, iterations launched, the path; host
+    reads no more), also with max_rounds cut inside a block; the path is
+    checked on the map; the same search by the port on the CPU equals the
+    card's bit for bit."""
     from slam_tpu_torch.core.types import Pose
     from slam_tpu_torch.planners import HybridAStar
     from slam_tpu_torch.planners import hastar as hastar_mod
@@ -914,22 +904,32 @@ def lattice_phase(dev, free_np) -> dict:
         p._graphs.guard = sync_error
 
     reset_ms = [event_ms(reset) for _ in range(2)]
-    check(p.solve(), "lattice HA*: no path to the goal")  # captures the blocks
+    check(p.solve(), "lattice HA*: no path to the goal")  # captures the chains
     captured = graph_stats(p._graphs)
+    eagerly = eager_chains(p)
 
     def query(max_rounds=None):
         p.reset_query(a, b)
         p.solve(max_rounds)
 
     def eager(max_rounds=None):
+        with eagerly():
+            query(max_rounds)
+
+    def init():
         p.reset_query(a, b)
-        p._solve(max_rounds, None)
+        p._ensure_query_state()
+
+    def init_eager():
+        with eagerly():
+            init()
 
     def take():
         return {**snapshot(p, fields), "hfield": p._hfield.clone(), "path": p.recover_path()}
 
-    init_ms = event_ms(lambda: (p.reset_query(a, b), p._ensure_query_state(p._graphs)))
-    init_eager_ms = event_ms(lambda: (p.reset_query(a, b), p._ensure_query_state(None)))
+    eager()  # makes the eager chains' buffers
+    init_ms = event_ms(init)
+    init_eager_ms = event_ms(init_eager)
     solve_ms, eager_ms = [], []
     for _ in range(LATTICE_QUERIES):
         eager_ms.append(event_ms(eager))
@@ -939,18 +939,9 @@ def lattice_phase(dev, free_np) -> dict:
         g = take()
         hold_solves(g, e, fields, "lattice HA*")
         check(torch.equal(g["hfield"], e["hfield"]),
-              "lattice HA*: the A* wavefront's heuristic (graph) != the eager loop's")
+              "lattice HA*: the A* wavefront's heuristic (graph) != the eager chain's")
         check(g["path"] == e["path"], "lattice HA* path: graph != eager")
     replays = graph_stats(p._graphs, before)
-
-    def lattice_blocks(bc):
-        p.reset_query(a, b)
-        p._solve(None, bc)
-
-    ways = {"chain": {"ms": spread(solve_ms), "host_reads": g["host_reads"]},
-            "blocks": block_replays(p, lattice_blocks, take, e, g, fields, "lattice HA*",
-                                    LATTICE_QUERIES),
-            "eager": {"ms": spread(eager_ms), "host_reads": e["host_reads"]}}
     # max_rounds inside a block: n_iters = ceil(cut / 2) is not a multiple
     # of the block's iterations.
     cut = 8 * (g["rounds"] // 16) + 5
@@ -958,8 +949,7 @@ def lattice_phase(dev, free_np) -> dict:
     e_cut = take()
     query(cut)
     g_cut = take()
-    hold_solves(g_cut, e_cut, fields, f"lattice HA* max_rounds {cut}",
-                cut_block=hastar_mod._FLAG_EVERY)
+    hold_solves(g_cut, e_cut, fields, f"lattice HA* max_rounds {cut}")
     query()
     path = []
     walk_ms = event_ms(lambda: path.extend(p.recover_path()))
@@ -977,10 +967,9 @@ def lattice_phase(dev, free_np) -> dict:
            "graph_equals_eager": True, "cut": {"max_rounds": cut, "rounds": g_cut["rounds"],
                                                "launched_graph": g_cut["launched"],
                                                "launched_eager": e_cut["launched"]},
-           "graphs": captured, "replays_per_query": replays, "ways": ways,
+           "graphs": captured, "replays_per_query": replays,
            "profile": planner_profile(query), "profile_eager": planner_profile(eager),
-           "query_init_profile": planner_profile(
-               lambda: (p.reset_query(a, b), p._ensure_query_state(p._graphs)))}
+           "query_init_profile": planner_profile(init)}
     query()
     t0 = time.perf_counter()
     q = HybridAStar(torch.from_numpy(free_np), a, b, cfg, device="cpu")
@@ -992,13 +981,17 @@ def lattice_phase(dev, free_np) -> dict:
     check(q.recover_path() == path, f"lattice HA* path: {dev} != CPU")
     out["cpu_equal"] = True
     # solve_many: LATTICE_MANY stacked queries through their own capture
-    # == the eager loop == one query at a time.
+    # == eager chains == one query at a time.
     queries = [(a, b)] * LATTICE_MANY
+
+    def many_eager():
+        with eagerly():
+            return p.solve_many(queries)
+
     many = (p.solve_many(queries), p._fleet_state.gp.clone(), p.launched, p.host_reads)
-    many_e = (p._solve_many(queries, None, None), p._fleet_state.gp.clone(), p.launched,
-              p.host_reads)
+    many_e = (many_eager(), p._fleet_state.gp.clone(), p.launched, p.host_reads)
     many_ms = event_ms(lambda: p.solve_many(queries))  # after the capture for Q
-    many_eager_ms = event_ms(lambda: p._solve_many(queries, None, None))
+    many_eager_ms = event_ms(many_eager)
     check(many[0] == many_e[0] and torch.equal(many[1], many_e[1]) and many[2] == many_e[2]
           and many[3] <= many_e[3], "lattice HA* solve_many: graph != eager")
     check(all(r == (True, cost) for r in many[0]), "lattice HA* solve_many != solve")
@@ -1043,11 +1036,11 @@ def path_edges(blocked, path):
 
 def rrt_phase(dev, free_np) -> dict:
     """Phase 14a: `suite.py:229`'s RRT* (sdf default) over RRT_SEEDS,
-    through the CUDA graph of its search block (warm-up and replays under
-    `sync_error`), each seed beside the eager loop on the card: the tree,
-    rounds and the generator's state afterwards equal bit for bit, also
-    with max_rounds cut inside a block (the generator then stands a
-    block's remaining draws further). Every path edge ends in a free cell
+    through the CUDA graph of its search chain (warm-up and replays under
+    `sync_error`), each seed beside eager chains on the card
+    (`eager_chains`): the tree, rounds and the generator's state
+    afterwards equal bit for bit, also with max_rounds cut inside a block
+    (both then draw for the block's remaining rounds). Every path edge ends in a free cell
     of `free_np` (the map inflated by 7) and crosses no blocked stretch of
     a ray step or more along it. The planner's sphere trace tests a ray at
     points a step or more apart, as the march does but at other points, so
@@ -1064,8 +1057,9 @@ def rrt_phase(dev, free_np) -> dict:
     cfg = RRTStarConfig(reach=20.0, radius=50.0, max_nodes=8192, batch=256)
     p = RRTStar(free, a, b, cfg, seed=999)
     p._graphs.guard = sync_error
-    p.solve(max_rounds=RRT_ROUNDS)  # captures the block
+    p.solve(max_rounds=RRT_ROUNDS)  # captures the chain
     captured = graph_stats(p._graphs)
+    eagerly = eager_chains(p)
 
     def take():
         return {**snapshot(p, fields), "generator": p.generator.get_state(),
@@ -1076,9 +1070,10 @@ def rrt_phase(dev, free_np) -> dict:
         p.solve(max_rounds=max_rounds)
 
     def eager_run(seed, max_rounds=RRT_ROUNDS):
-        p.reset_query(a, b, seed)
-        p._solve(max_rounds, 0, None, None)
+        with eagerly():
+            graph_run(seed, max_rounds)
 
+    eager_run(RRT_SEEDS[0])  # makes the eager chain's buffers
     ms, eager_ms, wins, rounds, costs, faults, max_run = [], [], 0, [], [], [], 0.0
     for seed in RRT_SEEDS:
         eager_ms.append(event_ms(lambda: eager_run(seed)))
@@ -1106,37 +1101,21 @@ def rrt_phase(dev, free_np) -> dict:
     check(wins >= RRT_MIN_SUCCESS,
           f"RRT* {wins} of {len(RRT_SEEDS)} found a path < {RRT_MIN_SUCCESS}")
     replays = graph_stats(p._graphs, before)
-    # Seed 1234 three ways: the chain, single-block replays, eager.
-    eager_run(RRT_SEEDS[0])
-    e0 = take()
-    chain_ms = [event_ms(lambda: graph_run(RRT_SEEDS[0])) for _ in range(2)]
-    g0 = take()
-
-    def rrt_blocks(bc):
-        p.reset_query(a, b, RRT_SEEDS[0])
-        p._solve(RRT_ROUNDS, 0, None, bc)
-
-    ways = {"chain": {"ms": spread(chain_ms), "host_reads": g0["host_reads"]},
-            "blocks": block_replays(p, rrt_blocks, take, e0, g0, fields,
-                                    f"RRT* seed {RRT_SEEDS[0]}", 2),
-            "eager": {"ms": eager_ms[0], "host_reads": e0["host_reads"]}}
-    # max_rounds inside a block: the graph draws for the block's remaining
-    # gated rounds, so its generator stands that many draws further.
+    # max_rounds inside a block: both draw for the block's remaining gated
+    # rounds.
     cut = 8 * (rounds[0] // 16) + 3
     eager_run(RRT_SEEDS[0], cut)
-    for _ in range(-cut % rrt_mod._FLAG_EVERY):
-        p._draw(None, 0)
     e_cut = take()
     graph_run(RRT_SEEDS[0], cut)
     g_cut = take()
-    hold_solves(g_cut, e_cut, fields, f"RRT* max_rounds {cut}", cut_block=rrt_mod._FLAG_EVERY)
+    hold_solves(g_cut, e_cut, fields, f"RRT* max_rounds {cut}")
     check(torch.equal(g_cut["generator"], e_cut["generator"]),
-          f"RRT* max_rounds {cut}: generator state, graph != eager + the block's draws")
+          f"RRT* max_rounds {cut}: generator state, graph != eager")
     out = {"solve_ms": spread(ms), "eager_solve_ms": spread(eager_ms), "success": wins,
            "seeds": list(RRT_SEEDS), "rounds": rounds, "costs": costs, "nodes": p.size,
            "max_blocked_run_px": max_run, "march_faults": faults, "graph_equals_eager": True,
            "cut": {"max_rounds": cut, "rounds": g_cut["rounds"]}, "graphs": captured,
-           "replays_last_seed": replays, "ways_seed_1234": ways}
+           "replays_last_seed": replays}
     out["profile_seed_1234"] = planner_profile(lambda: graph_run(RRT_SEEDS[0]))
     out["profile_eager_seed_1234"] = planner_profile(lambda: eager_run(RRT_SEEDS[0]))
     return out
@@ -1145,9 +1124,10 @@ def rrt_phase(dev, free_np) -> dict:
 def continuous_phase(dev, free_np) -> dict:
     """Phase 14b: continuous HA* with the suite's lut edge field
     (`suite.py:195`), theta_res 5, and with the sdf backend: the graph
-    solve (the A* wavefront and the search blocks, under `sync_error`)
-    beside the eager loops on the card, equal bit for bit (state, rounds,
-    host reads, launched, path), also with max_rounds cut inside a block."""
+    solve (the A* wavefront and the search chain, under `sync_error`)
+    beside eager chains on the card (`eager_chains`), equal bit for bit
+    (state, rounds, launched, path; host reads no more), also with
+    max_rounds cut inside a block."""
     from slam_tpu_torch.core.config import RaycastConfig
     from slam_tpu_torch.core.types import Pose
     from slam_tpu_torch.planners import HybridAStar
@@ -1174,15 +1154,17 @@ def continuous_phase(dev, free_np) -> dict:
             p.solve(max_rounds)
 
         def eager(max_rounds=None):
-            p.reset_query(a, b)
-            p._solve(max_rounds, None)
+            with eagerly():
+                query(max_rounds)
 
         def take():
             return {**snapshot(p, fields), "path": p.recover_path()}
 
         reset_ms = event_ms(reset)
-        query()  # captures the blocks
+        query()  # captures the chains
         captured = graph_stats(p._graphs)
+        eagerly = eager_chains(p)
+        eager()  # makes the eager chains' buffers
         ms, eager_ms = [], []
         for _ in range(2 if backend == "lut" else 1):
             eager_ms.append(event_ms(eager))
@@ -1203,21 +1185,12 @@ def continuous_phase(dev, free_np) -> dict:
                "n_expanded": int(p.state.n_expanded), "states": h * w * cfg.theta_res,
                "graph_equals_eager": True, "graphs": captured, "replays_per_query": replays}
         if backend == "lut":
-            def cont_blocks(bc):
-                p.reset_query(a, b)
-                p._solve(None, bc)
-
-            res["ways"] = {"chain": {"ms": spread(ms), "host_reads": g["host_reads"]},
-                           "blocks": block_replays(p, cont_blocks, take, e, g, fields,
-                                                   "continuous HA* (lut)", 2),
-                           "eager": {"ms": spread(eager_ms), "host_reads": e["host_reads"]}}
             cut = 4 * (g["rounds"] // 8) + 3
             eager(cut)
             e_cut = take()
             query(cut)
             g_cut = take()
-            hold_solves(g_cut, e_cut, fields, f"continuous HA* max_rounds {cut}",
-                        cut_block=hastar_mod._FLAG_EVERY)
+            hold_solves(g_cut, e_cut, fields, f"continuous HA* max_rounds {cut}")
             res["cut"] = {"max_rounds": cut, "rounds": g_cut["rounds"],
                           "launched_graph": g_cut["launched"],
                           "launched_eager": e_cut["launched"]}

@@ -451,13 +451,14 @@ class Chain(Block):
     draws); after a replay every generator is put where the runs that
     happened leave it, as a replay advances a registered generator by
     every captured run. `per_run` is what one run adds to `it`. On the
-    CPU, `run` runs the block while `go` holds, up to `copies` times,
-    reading `go` between runs."""
+    CPU, and on the card with `capture` False, `run` runs the block while
+    `go` holds, up to `copies` times, reading `go` between runs."""
 
     def __init__(self, fn: Callable, static: Dict[str, torch.Tensor], copies: int,
                  go: Callable, per_run: int, generators: Iterable[torch.Generator] = (),
-                 guard=contextlib.nullcontext, pool=None, span: str | None = None):
-        super().__init__(fn, static, generators, guard, pool, span=span)
+                 guard=contextlib.nullcontext, pool=None, capture: bool = True,
+                 span: str | None = None):
+        super().__init__(fn, static, generators, guard, pool, capture, span)
         self.copies = copies
         self.go = go
         self.per_run = per_run
@@ -490,7 +491,7 @@ class Chain(Block):
     def run(self, it: int) -> Tuple[bool, int]:
         """Run the chain from the counter value `it` (the last read's, or
         the loaded one); returns (the flag's any(), the counter) after it."""
-        if not next(iter(self.static.values())).is_cuda:
+        if not self.capture or not next(iter(self.static.values())).is_cuda:
             for _ in range(self.copies):
                 if not bool(self.go(self.static)):
                     break

@@ -12,14 +12,13 @@ field from the start; the number of rounds is the longest geodesic, not
 the node count. Path recovery is the reference's pointerless greedy
 descent (`slam/astar.cpp:108-133`).
 
-The JAX package's `while_loop` becomes a host loop over chunks of 32
-rounds with one host read of `changed` per chunk. A round after the
-fixpoint changes nothing, so the result is the JAX package's bit for bit:
-min is exact and every sum is one correctly rounded f32 add. Given a
-block cache (`planners/_graph.py`, as the planners pass on the card), the
-chunk is a captured CUDA graph over static `free` and `dist` buffers, and
-a chain of up to `_CHAIN_RUNS` chunks runs in one replay (a CUDA graph
-WHILE node on `changed`), with one host read a replay.
+The JAX package's `while_loop` becomes a chain of blocks of 32 rounds
+(`planners/_graph.py`), each block also saying whether it changed the
+field, with one host read a run of up to `_CHAIN_RUNS` blocks; on the
+card a run is one replay of a captured CUDA graph (a WHILE node on
+`changed`). A round after the fixpoint changes nothing, so the result is
+the JAX package's bit for bit: min is exact and every sum is one
+correctly rounded f32 add.
 """
 
 from __future__ import annotations
@@ -47,7 +46,7 @@ DIRS = [
     (1, 1, SQRT2),
 ]
 
-# Relaxation rounds between two host reads of `changed`.
+# Relaxation rounds in one block (one test of `changed`).
 _CHUNK = 32
 # Chunks a chain runs a replay at most (the suite's floor plan, inflated,
 # settles in a few dozen chunks).
@@ -86,58 +85,22 @@ def distance_field(free: torch.Tensor, start_ij, graphs: "_graph.Cache | None" =
                    ) -> torch.Tensor:
     """Exact geodesic (8-connected, 1 / sqrt2 costs) distance field from
     `start_ij` = (i, j) (host ints or 0-d tensors on `free`'s device), INF
-    on blocked and unreachable cells. With a block cache `graphs` each
-    chunk of rounds runs as one block (a CUDA graph replay on the card);
-    without one, as eager rounds."""
+    on blocked and unreachable cells: the rounds run as a chain of
+    `_relax_chunk` blocks from the cache `graphs` (a fresh one when None)."""
     free = free.to(torch.bool)
-    dist = _init_dist(free, start_ij)
-    if graphs is None:
-        return _relax_eager(free, dist)
-    return _relax_blocks(free, dist, graphs)
-
-
-def _relax_eager(free: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
     h, w = free.shape
-    rounds = 0
-    while rounds < h * w:
-        new = relax_round(dist, free, _CHUNK)
-        changed = bool(torch.any(new < dist))
-        dist = new
-        rounds += _CHUNK
-        if not changed:
-            break
-    return dist
+    values = {"free": free, "dist": _init_dist(free, start_ij),
+              "flag": torch.ones((), dtype=torch.bool, device=free.device)}
+    out, _, _ = _graph.search(graphs or _graph.Cache(), ("astar", (h, w), _CHUNK), _relax_chunk,
+                              values, h * w, _CHUNK, _CHAIN_RUNS, ("dist",))
+    return out["dist"]
 
 
 def _relax_chunk(v):
-    """The block of `_relax_eager`: `_CHUNK` rounds on the buffers `free`
-    and `dist`, whether they changed `dist`, and the round counter."""
+    """A block: `_CHUNK` rounds on the buffers `free` and `dist`, whether
+    they changed `dist`, and the round counter."""
     new = relax_round(v["dist"], v["free"], _CHUNK)
     return {"dist": new, "flag": torch.any(new < v["dist"]), "it": v["it"] + _CHUNK}
-
-
-def _relax_blocks(free: torch.Tensor, dist: torch.Tensor, graphs: "_graph.Cache") -> torch.Tensor:
-    """`_relax_eager` as a chain of `_relax_chunk` blocks (one host read a
-    replay of up to `_CHAIN_RUNS` blocks), or as single-block replays
-    with `_relax_eager`'s reads."""
-    h, w = free.shape
-    dev = free.device
-    init = {"free": free, "dist": dist, "flag": torch.ones((), dtype=torch.bool, device=dev),
-            "it": torch.zeros((), dtype=torch.int32, device=dev),
-            "limit": torch.full((), h * w, dtype=torch.int32, device=dev)}
-    block = _graph.block_or_chain(graphs, ("astar", (h, w), _CHUNK), _relax_chunk,
-                                  lambda: _graph.buffers(init), _CHUNK, _CHAIN_RUNS)
-    block.load(**init)
-    if isinstance(block, _graph.Chain):
-        _graph.run_chain(block, h * w)
-    else:
-        rounds = 0
-        while rounds < h * w:
-            block.run()
-            rounds += _CHUNK
-            if not bool(block.static["flag"]):
-                break
-    return block.static["dist"].clone()
 
 
 def recover_path(
@@ -177,7 +140,7 @@ class AStar:
 
     def __init__(self, free, a: Tuple[int, int], b: Tuple[int, int], device=None):
         self.free = torch.as_tensor(free, dtype=torch.bool, device=entry_device(device))
-        self._graphs = _graph.Cache() if self.free.is_cuda else None
+        self._graphs = _graph.Cache()
         self.a = tuple(int(v) for v in a)
         self.b = tuple(int(v) for v in b)
         self.dist = _init_dist(self.free, self.a)

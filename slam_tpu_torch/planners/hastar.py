@@ -18,18 +18,17 @@ the JAX package:
     raycast through the configured ray backend.
 
 What differs in form, and why the results stay the JAX package's:
-  * No device `while_loop`. A round past the loop's stop condition is not
-    a no-op (it pops, commits and counts), so every round is gated by an
-    `active` flag, the loop's condition evaluated on the device: an
-    inactive round pops nothing, and a round with no pops changes
-    nothing. The host reads the flag once every `_FLAG_EVERY` loop
-    iterations. The lattice loop runs two rounds per iteration and tests
-    its condition only between pairs, as the JAX loop does.
+  * A round past the loop's stop condition is not a no-op (it pops,
+    commits and counts), so every round is gated by an `active` flag, the
+    loop's condition evaluated on the device: an inactive round pops
+    nothing, and a round with no pops changes nothing. The lattice loop
+    runs two rounds per iteration and tests its condition only between
+    pairs, as the JAX loop does.
   * `solve_many` stacks Q queries on a leading axis (JAX's `vmap`): each
     query has its own flag, so a finished query stays frozen while the
     others go on.
   * `mode="drop"` scatters write a spare slot past the end of the array;
-    `.at[].min` is `scatter_reduce(..., "amin")`. The solve loops own
+    `.at[].min` is `scatter_reduce(..., "amin")`. The search loops own
     their state, so they keep the spare slot in the arrays and commit
     every scatter in place: a round copies no [S] or ring array.
   * Duplicate-target `set` scatters (continuous mode's parent and pose,
@@ -51,17 +50,17 @@ What differs in form, and why the results stay the JAX package's:
     solve counts `hastar.rounds`, `hastar.n_expanded`, `hastar.n_lost` and
     `hastar.host_reads`; `stats()` gives the last query's counters and the
     search blocks' captures and replays.
-  * On the card a search is the counterpart of the JAX package's one
-    device program (`_lattice_solve_query_jit`, `_ha_solve_query_jit`,
+  * A search is the counterpart of the JAX package's one device program
+    (`_lattice_solve_query_jit`, `_ha_solve_query_jit`,
     `_lattice_solve_many_jit`): the run of `_FLAG_EVERY` loop iterations
-    between two host reads of the flag is captured once as a CUDA graph
-    (`planners/_graph.py`), and a chain of up to `_CHAIN_RUNS` such blocks
-    runs in one replay, each behind the flag the one before it wrote (one
-    CUDA graph WHILE node); the host reads the flag once a replay. The
+    between two tests of the flag is one block, and a chain of up to
+    `_CHAIN_RUNS` such blocks runs with one host read of the flag, each
+    block behind the flag the one before it wrote (`planners/_graph.py`).
+    On the card a run of the chain is one replay of a captured CUDA graph
+    (one WHILE node); on the CPU the same block code runs eagerly. The
     query init's A* wavefront runs the same way. A device iteration
     counter inside the gate stops the rounds at `max_rounds`, as the JAX
-    loop's condition does. The eager loop is the CPU path and the
-    reference the graphs are held to; `pathfind` stays eager.
+    loop's condition does. `pathfind` runs one round eagerly.
 """
 
 from __future__ import annotations
@@ -81,13 +80,13 @@ from slam_tpu_torch.ops.edt import _sqrt
 from slam_tpu_torch.ops.rayfield import RayField, make_ray_field, raycast_field
 from slam_tpu_torch.planners import _graph
 from slam_tpu_torch.planners import astar as astar_mod
-from slam_tpu_torch.planners._scatter import last_writer, set_drop, set_drop_, with_spare
+from slam_tpu_torch.planners._scatter import last_writer, set_drop, set_drop_
 from slam_tpu_torch.utils import profiling
 
 INF = 1e30
 
-# Search loop iterations in one block (between two host reads of the
-# `active` flag in the eager loop and in single-block replays).
+# Search loop iterations in one block (the loop's flag is tested between
+# blocks).
 _FLAG_EVERY = 4
 # Blocks a chain runs a replay at most: the suite's lattice query (122
 # rounds, 16 blocks) and a continuous query fit in one replay.
@@ -196,7 +195,7 @@ def _ha_round(
 ) -> HAState:
     """One continuous-mode expansion round; with `active` False (a 0-d
     bool tensor) it changes nothing. `inplace` commits into the state's
-    own arrays (the copies `_ha_solve` makes, with spare slots);
+    own arrays (a search block's buffers, with spare slots);
     `early_exit` False runs the edge rays' whole count with no host read
     (the same result; the form a captured block needs)."""
     h, w = field.blocked.shape
@@ -553,8 +552,8 @@ def _lattice_round(
     A state with a leading query axis ([Q, S] gp, with goal [Q, 2],
     target_bin [Q], hfield [Q, H*W] and `active` [Q]) runs every query at
     once; a query whose `active` is False pops nothing and changes
-    nothing. `inplace` commits into the state's own arrays (the copies
-    `_lattice_solve` makes, with spare slots) instead of new ones."""
+    nothing. `inplace` commits into the state's own arrays (a search
+    block's buffers, with spare slots) instead of new ones."""
     if st.gp.dim() == 1:
         out = _lattice_round(
             _map_state(st, lambda a: a[None]), feasw, off_t, di_t, dj_t, cost_q,
@@ -675,11 +674,11 @@ def _weight_h(hfield, cfg):
     return torch.where(hfield < INF, hfield * cfg.heuristic_weight, INF)
 
 
-def _coarse_geodesic_cells(free, bx, by, cfg, shape, graphs=None):
+def _coarse_geodesic_cells(free, bx, by, cfg, shape, graphs):
     """Per-cell [H*W] goal-distance heuristic: the A* wavefront on a
     `coarse`-downsampled grid (max-pooled free space, an admissible
-    underestimate), tiled back to full resolution; its chunks run as
-    blocks of `graphs` when given (`astar.distance_field`)."""
+    underestimate), tiled back to full resolution; its chunks run as a
+    chain from the cache `graphs` (`astar.distance_field`)."""
     h, w = shape
     f4 = max(1, cfg.coarse)
     ph = (-h) % f4
@@ -697,10 +696,10 @@ def _scalar(v, dtype, dev):
     return torch.tensor(v, dtype=dtype, device=dev)
 
 
-def _lattice_query_init(free, a_xyt, b_xyt, cfg, shape, cap, graphs=None):
+def _lattice_query_init(free, a_xyt, b_xyt, cfg, shape, cap, graphs):
     """A fresh lattice query: start / goal indexing, the heuristic (the
-    coarse geodesic wavefront, host-looped; as blocks of `graphs` when
-    given), and the initial state."""
+    coarse geodesic wavefront, a chain from the cache `graphs`), and the
+    initial state."""
     h, w = shape
     k = cfg.theta_res
     s = h * w * k
@@ -745,51 +744,18 @@ def _ha_flag(st):
     return (st.goal_idx < 0) & (st.open_f < INF).any()
 
 
-def _lattice_solve(
-    st, feasw, off_t, di_t, dj_t, cost_q, edge_t, goal, target_bin, hfield,
-    max_rounds, cfg, shape,
-):
-    """The JAX loop: while no goal, an open entry and rounds < max_rounds,
-    run TWO rounds (the condition is tested only between pairs). Each
-    iteration's flag gates both of its rounds. Works on single or
-    query-stacked states. Returns (state, rounds: the JAX loop's round
-    count, i32 per query on the device, iterations launched, host reads
-    of the flag)."""
-    # The rounds commit in place, into the loop's own copies.
-    st = st.replace(gp=st.gp.clone(), o_idx=with_spare(st.o_idx), o_f=with_spare(st.o_f))
-    rounds = torch.zeros_like(st.goal_idx)
-    it = reads = 0
-    while it < -(-max_rounds // 2):
-        active = _lattice_flag(st)
-        if it % _FLAG_EVERY == 0:
-            reads += 1
-            if not bool(active.any()):
-                break
-        for _ in range(2):
-            st = _lattice_round(
-                st, feasw, off_t, di_t, dj_t, cost_q, edge_t, goal, target_bin,
-                hfield, cfg, shape, active, inplace=True,
-            )
-        rounds = rounds + 2 * active.to(torch.int32)
-        it += 1
-    return st, rounds, it, reads
-
-
 _LAT_FIELDS = tuple(f.name for f in dataclasses.fields(LatticeState))
 _HA_FIELDS = tuple(f.name for f in dataclasses.fields(HAState))
 
 
-def _counter(v, dev):
-    return torch.full((), v, dtype=torch.int32, device=dev)
-
-
 def _lattice_block(v, feasw, off_t, di_t, dj_t, cost_q, edge_t, cfg, shape):
-    """`_FLAG_EVERY` iterations of `_lattice_solve`'s loop on the block
-    buffers `v` (the state's fields, goal, target_bin, hfield, rounds, the
-    iteration counter `it` and its `limit`). The counter is in the gate, so
+    """`_FLAG_EVERY` iterations of the lattice loop on the block buffers
+    `v` (the state's fields, goal, target_bin, hfield, rounds, the
+    iteration counter `it` and its `limit`): each iteration two rounds,
+    both gated by the iteration's flag. The counter is in the gate, so
     iterations past `limit` change nothing, as the JAX loop stops at
     `max_rounds`. Returns the new state, rounds, counter and `flag` (the
-    condition the host reads before the next block)."""
+    condition tested before the next block)."""
     st = LatticeState(**{f: v[f] for f in _LAT_FIELDS})
     rounds, it = v["rounds"], v["it"]
     for _ in range(_FLAG_EVERY):
@@ -805,36 +771,31 @@ def _lattice_block(v, feasw, off_t, di_t, dj_t, cost_q, edge_t, cfg, shape):
             "flag": _lattice_flag(st)}
 
 
-def _lattice_solve_blocks(
+def _lattice_search(
     st, feasw, off_t, di_t, dj_t, cost_q, edge_t, goal, target_bin, hfield,
     max_rounds, cfg, shape, graphs,
 ):
-    """`_lattice_solve` as runs of `_lattice_block` from the cache
-    `graphs` (a CUDA graph replay each on the card): the same state,
-    rounds and host reads. `launched` counts whole blocks, so where
-    `max_rounds` ends the search it exceeds the eager loop's count by up to
-    `_FLAG_EVERY - 1` gated iterations. Works on single or query-stacked
-    states; each query count Q has its own capture."""
-    dev = st.gp.device
-    n_iters = -(-max_rounds // 2)
-    init = {**{f: getattr(st, f) for f in _LAT_FIELDS}, "goal": goal, "target_bin": target_bin,
-            "hfield": hfield, "rounds": torch.zeros_like(st.goal_idx), "it": _counter(0, dev),
-            "limit": _counter(n_iters, dev), "flag": _lattice_flag(st)}
-    block = _graph.block_or_chain(
+    """The JAX loop: while no goal, an open entry and rounds < max_rounds,
+    run TWO rounds (the condition is tested only between pairs), as a
+    chain of `_lattice_block`s from the cache `graphs`. Works on single or
+    query-stacked states; each query count Q has its own chain. Returns
+    (state, rounds: the JAX loop's round count, i32 per query on the
+    device, iterations launched in whole blocks, host reads)."""
+    values = {**{f: getattr(st, f) for f in _LAT_FIELDS}, "goal": goal,
+              "target_bin": target_bin, "hfield": hfield,
+              "rounds": torch.zeros_like(st.goal_idx), "flag": _lattice_flag(st)}
+    out, launched, reads = _graph.search(
         graphs, ("lattice", shape, cfg, tuple(st.gp.shape[:-1]), _FLAG_EVERY),
         functools.partial(_lattice_block, feasw=feasw, off_t=off_t, di_t=di_t, dj_t=dj_t,
                           cost_q=cost_q, edge_t=edge_t, cfg=cfg, shape=shape),
-        lambda: _graph.buffers(init, spare=("o_idx", "o_f")), _FLAG_EVERY, _CHAIN_RUNS,
-        span="hastar.search")
-    block.load(**init)
-    launched, reads = _graph.solve(block, n_iters, _FLAG_EVERY)
-    out = LatticeState(**{f: block.static[f].clone() for f in _LAT_FIELDS})
-    return out, block.static["rounds"].clone(), launched, reads
+        values, -(-max_rounds // 2), _FLAG_EVERY, _CHAIN_RUNS, _LAT_FIELDS + ("rounds",),
+        spare=("o_idx", "o_f"), span="hastar.search")
+    return LatticeState(**{f: out[f] for f in _LAT_FIELDS}), out["rounds"], launched, reads
 
 
-def _ha_query_init(free, a_xyt, b_xyt, cfg, shape, graphs=None):
+def _ha_query_init(free, a_xyt, b_xyt, cfg, shape, graphs):
     """A fresh continuous-mode query: start / goal indexing, the
-    heuristic (its wavefront as blocks of `graphs` when given) and the
+    heuristic (its wavefront a chain from the cache `graphs`) and the
     initial state."""
     h, w = shape
     k = cfg.theta_res
@@ -872,32 +833,11 @@ def _ha_query_init(free, a_xyt, b_xyt, cfg, shape, graphs=None):
     return goal, target_bin, hfield, state
 
 
-def _ha_solve(st, field, goal, target_bin, hfield, max_rounds, cfg, rc):
-    """The JAX loop: one round while no goal, an open cell and rounds <
-    max_rounds; each round gated by the condition on the device. Returns
-    (state, rounds: i32 on the device, rounds launched, host reads of the
-    flag)."""
-    # The rounds commit in place, into the loop's own copies.
-    st = st.replace(g=st.g.clone(), **{f: with_spare(getattr(st, f))
-                                       for f in ("parent", "px", "py", "pth", "open_f")})
-    rounds = torch.zeros_like(st.goal_idx)
-    r = reads = 0
-    while r < max_rounds:
-        active = _ha_flag(st)
-        if r % _FLAG_EVERY == 0:
-            reads += 1
-            if not bool(active):
-                break
-        st = _ha_round(st, field, goal, target_bin, hfield, cfg, rc, active, inplace=True)
-        rounds = rounds + active.to(torch.int32)
-        r += 1
-    return st, rounds, r, reads
-
-
 def _ha_block(v, field, cfg, rc):
-    """`_FLAG_EVERY` rounds of `_ha_solve`'s loop on the block buffers `v`
-    (as `_lattice_block`: the counter `it` gates rounds past `limit`); the
-    edge rays run their whole count, with no host read."""
+    """`_FLAG_EVERY` rounds of the continuous loop on the block buffers
+    `v` (as `_lattice_block`: the counter `it` gates rounds past `limit`,
+    one round an iteration); the edge rays run their whole count, with no
+    host read."""
     st = HAState(**{f: v[f] for f in _HA_FIELDS})
     rounds, it = v["rounds"], v["it"]
     for _ in range(_FLAG_EVERY):
@@ -910,24 +850,20 @@ def _ha_block(v, field, cfg, rc):
             "flag": _ha_flag(st)}
 
 
-def _ha_solve_blocks(st, field, goal, target_bin, hfield, max_rounds, cfg, rc, graphs):
-    """`_ha_solve` as runs of `_ha_block` from the cache `graphs`, with
-    the same state, rounds and host reads (`launched` as in
-    `_lattice_solve_blocks`)."""
-    dev = st.g.device
-    _fan_tables(cfg, dev)  # built outside the block: a host-to-device copy
-    init = {**{f: getattr(st, f) for f in _HA_FIELDS}, "goal": goal, "target_bin": target_bin,
-            "hfield": hfield, "rounds": torch.zeros_like(st.goal_idx), "it": _counter(0, dev),
-            "limit": _counter(max_rounds, dev), "flag": _ha_flag(st)}
-    block = _graph.block_or_chain(
+def _ha_search(st, field, goal, target_bin, hfield, max_rounds, cfg, rc, graphs):
+    """The JAX loop: one round while no goal, an open cell and rounds <
+    max_rounds, as a chain of `_ha_block`s from the cache `graphs`.
+    Returns as `_lattice_search`, one round an iteration."""
+    _fan_tables(cfg, st.g.device)  # built outside the block: a host-to-device copy
+    values = {**{f: getattr(st, f) for f in _HA_FIELDS}, "goal": goal,
+              "target_bin": target_bin, "hfield": hfield,
+              "rounds": torch.zeros_like(st.goal_idx), "flag": _ha_flag(st)}
+    out, launched, reads = _graph.search(
         graphs, ("continuous", tuple(field.blocked.shape), cfg, rc, _FLAG_EVERY),
         functools.partial(_ha_block, field=field, cfg=cfg, rc=rc),
-        lambda: _graph.buffers(init, spare=("parent", "px", "py", "pth", "open_f")),
-        _FLAG_EVERY, _CHAIN_RUNS, span="hastar.search")
-    block.load(**init)
-    launched, reads = _graph.solve(block, max_rounds, _FLAG_EVERY)
-    out = HAState(**{f: block.static[f].clone() for f in _HA_FIELDS})
-    return out, block.static["rounds"].clone(), launched, reads
+        values, max_rounds, _FLAG_EVERY, _CHAIN_RUNS, _HA_FIELDS + ("rounds",),
+        spare=("parent", "px", "py", "pth", "open_f"), span="hastar.search")
+    return HAState(**{f: out[f] for f in _HA_FIELDS}), out["rounds"], launched, reads
 
 
 def _pose_xyt(p: Pose, dev) -> torch.Tensor:
@@ -1023,22 +959,18 @@ class HybridAStar:
         cap = max(cap, self.cfg.batch)
         return -(-cap // self.cfg.batch) * self.cfg.batch
 
-    @property
-    def _card_graphs(self) -> Optional[_graph.Cache]:
-        """The block cache on the card; None (the eager loops) elsewhere."""
-        return self._graphs if self.device.type == "cuda" else None
-
-    def _ensure_query_state(self, graphs: Optional[_graph.Cache] = None):
+    def _ensure_query_state(self):
         if self.state is not None:
             return
         a_xyt, b_xyt = self._pending
         if self.cfg.mode == "lattice":
             self._goal, self._target_bin, self._hfield, self.state = _lattice_query_init(
-                self._free, a_xyt, b_xyt, self.cfg, self.shape, self._ring_capacity(), graphs
+                self._free, a_xyt, b_xyt, self.cfg, self.shape, self._ring_capacity(),
+                self._graphs
             )
         else:
             self._goal, self._target_bin, self._hfield, self.state = _ha_query_init(
-                self._free, a_xyt, b_xyt, self.cfg, self.shape, graphs
+                self._free, a_xyt, b_xyt, self.cfg, self.shape, self._graphs
             )
 
     def _lattice_args(self):
@@ -1093,10 +1025,36 @@ class HybridAStar:
             )
 
     def solve(self, max_rounds: Optional[int] = None) -> bool:
-        """The whole search: on the card the query init and the search run
-        as CUDA graph replays, elsewhere as eager loops (the same result)."""
+        """The whole search: the query init's wavefront and the search run
+        as chains of blocks (CUDA graph replays on the card, the same block
+        code eagerly elsewhere)."""
         with profiling.root("HybridAStar.solve"):
-            return self._solve(max_rounds, self._card_graphs)
+            max_rounds = max_rounds or self.cfg.max_rounds
+            self._walked_cost = None
+            with profiling.span("hastar.init", self.device):
+                self._ensure_query_state()
+            with profiling.span("hastar.search"):
+                if self.cfg.mode == "lattice":
+                    self.state, rounds, self.launched, reads = _lattice_search(
+                        self.state, *self._lattice_args(), self._goal, self._target_bin,
+                        self._hfield, max_rounds, self.cfg, self.shape, self._graphs)
+                    lost = self.state.n_lost
+                else:
+                    self.state, rounds, self.launched, reads = _ha_search(
+                        self.state, self.field, self._goal, self._target_bin, self._hfield,
+                        max_rounds, self.cfg, self.rc, self._graphs)
+                    lost = torch.zeros_like(rounds)
+                self.rounds, goal_idx, self.n_expanded, self.n_lost = torch.stack(
+                    [rounds, self.state.goal_idx, self.state.n_expanded, lost]).tolist()
+            self.host_reads = reads + 1
+            for name in ("rounds", "n_expanded", "n_lost", "host_reads"):
+                profiling.count("hastar." + name, getattr(self, name))
+            if goal_idx >= 0:
+                self.success = True
+            else:
+                self.used_up = True
+                self._warn_if_overflowed()
+            return self.success
 
     def stats(self) -> dict:
         """The last solve's counters (rounds, loop iterations launched,
@@ -1108,43 +1066,6 @@ class HybridAStar:
         return {"rounds": self.rounds, "launched": self.launched,
                 "host_reads": self.host_reads, "n_expanded": self.n_expanded,
                 "n_lost": self.n_lost, "path_reads": self.path_reads, "blocks": blocks}
-
-    def _solve(self, max_rounds: Optional[int], graphs: Optional[_graph.Cache]) -> bool:
-        """`solve` through the blocks of `graphs`, or the eager loops when
-        None (the reference a check on the card holds the graphs to)."""
-        max_rounds = max_rounds or self.cfg.max_rounds
-        self._walked_cost = None
-        with profiling.span("hastar.init", self.device):
-            self._ensure_query_state(graphs)
-        with profiling.span("hastar.search"):
-            if self.cfg.mode == "lattice":
-                args = (self.state, *self._lattice_args(), self._goal, self._target_bin,
-                        self._hfield, max_rounds, self.cfg, self.shape)
-                if graphs is None:
-                    self.state, rounds, self.launched, reads = _lattice_solve(*args)
-                else:
-                    self.state, rounds, self.launched, reads = _lattice_solve_blocks(*args,
-                                                                                     graphs)
-                lost = self.state.n_lost
-            else:
-                args = (self.state, self.field, self._goal, self._target_bin, self._hfield,
-                        max_rounds, self.cfg, self.rc)
-                if graphs is None:
-                    self.state, rounds, self.launched, reads = _ha_solve(*args)
-                else:
-                    self.state, rounds, self.launched, reads = _ha_solve_blocks(*args, graphs)
-                lost = torch.zeros_like(rounds)
-            self.rounds, goal_idx, self.n_expanded, self.n_lost = torch.stack(
-                [rounds, self.state.goal_idx, self.state.n_expanded, lost]).tolist()
-        self.host_reads = reads + 1
-        for name in ("rounds", "n_expanded", "n_lost", "host_reads"):
-            profiling.count("hastar." + name, getattr(self, name))
-        if goal_idx >= 0:
-            self.success = True
-        else:
-            self.used_up = True
-            self._warn_if_overflowed()
-        return self.success
 
     def solve_many(self, queries, max_rounds: Optional[int] = None, query_sharding=None):
         """Solve Q independent (start, goal) queries together (lattice
@@ -1163,16 +1084,11 @@ class HybridAStar:
             raise ValueError("solve_many requires mode='lattice'")
         if query_sharding is not None:
             return self._solve_many_sharded(queries, max_rounds, query_sharding)
-        return self._solve_many(queries, max_rounds, self._card_graphs)
-
-    def _solve_many(self, queries, max_rounds, graphs: Optional[_graph.Cache]):
-        """`solve_many` on one rank, through the blocks of `graphs` (one
-        capture per query count) or the eager loop when None."""
         max_rounds = max_rounds or self.cfg.max_rounds
         states, goals, tbins, hfields = [], [], [], []
         for a, b in queries:
             self.reset_query(a, b)
-            self._ensure_query_state(graphs)
+            self._ensure_query_state()
             states.append(self.state)
             goals.append(self._goal)
             tbins.append(self._target_bin)
@@ -1181,12 +1097,9 @@ class HybridAStar:
             f.name: torch.stack([getattr(s, f.name) for s in states])
             for f in dataclasses.fields(LatticeState)
         })
-        args = (stacked, *self._lattice_args(), torch.stack(goals), torch.stack(tbins),
-                torch.stack(hfields), max_rounds, self.cfg, self.shape)
-        if graphs is None:
-            out, _, self.launched, reads = _lattice_solve(*args)
-        else:
-            out, _, self.launched, reads = _lattice_solve_blocks(*args, graphs)
+        out, _, self.launched, reads = _lattice_search(
+            stacked, *self._lattice_args(), torch.stack(goals), torch.stack(tbins),
+            torch.stack(hfields), max_rounds, self.cfg, self.shape, self._graphs)
         self.host_reads = reads + 2
         goal_idx, start_idx = torch.stack([out.goal_idx, out.start_idx]).tolist()
         goal_cost = out.goal_cost.cpu().numpy()

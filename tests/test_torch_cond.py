@@ -13,7 +13,8 @@ code a graph captures on the card reads nothing on the host.
     `fleet_step`;
   * an `ess_threshold = 0.5` update against JAX, resampling and not, and
     the gate a row of [R, N] rows equal to single filters;
-  * each planner's chained search equals its single-block replays.
+  * each planner's search as chains of one block a run equals its
+    search as the module's own chains.
 """
 
 import functools
@@ -46,7 +47,7 @@ from slam_tpu_torch.utils import convert
 from test_torch_fleet import ALPHAS as FLEET_ALPHAS
 from test_torch_fleet import _jax_draws, _stack, _t_scans, _t_state
 from test_torch_globalloc import _sdf_fields
-from test_torch_graph import RRT_A, RRT_B, _continuous
+from test_torch_graph import RRT_A, RRT_B, _continuous, chain_runs
 from test_torch_hastar import A, B, BASE, HA_FIELDS, LAT_FIELDS, WALL
 from test_torch_rrtstar import KW as RRT_KW
 from test_torch_slam import _carry, _close_particles, _draws, _make, _run_jax, _scans
@@ -352,34 +353,38 @@ def test_ess_gate_rows_equal_single_filters():
 # -- the planners' chains ----------------------------------------------------------------
 
 @pytest.mark.parametrize("search", ["lattice", "continuous", "rrt", "astar"])
-def test_chained_search_equals_block_replays(search):
-    """Each planner's search as a chain (`core/graph.py:Chain`, one host
-    read a chain on the CPU) and as single-block replays (`replay_until`,
-    a read before each block): the same state, path, rounds and
-    iterations launched, with fewer host reads."""
+def test_one_block_a_run_equals_the_default_chain(search, monkeypatch):
+    """Each planner's search as chains of one block a run (`_CHAIN_RUNS` 1:
+    every block its own run, the host loop reading the flag before each)
+    and as the module's own chains (`core/graph.py:Chain`): the same
+    state, path, rounds and iterations launched, with fewer host reads at
+    the default length."""
     out = {}
-    for chain in (False, True):
-        cache = _graph.Cache(chain=chain)
-        cache.guard = no_host_reads
+    for runs in ("one", "default"):
+        chain_runs(monkeypatch, runs)
         if search == "lattice":
             p = HybridAStar(WALL, Pose.create(*A), Pose.create(*B), HybridAStarConfig(**BASE),
                             device="cpu")
-            p._solve(400, cache)
+            p._graphs.guard = no_host_reads
+            p.solve(400)
             res = [getattr(p.state, f) for f in LAT_FIELDS]
         elif search == "continuous":
-            p = _continuous("sdf")
-            p._solve(400, cache)
+            _, p = _continuous("sdf")
+            p.solve(400)
             res = [getattr(p.state, f) for f in HA_FIELDS]
         elif search == "rrt":
             p = RRTStar(WALL, RRT_A, RRT_B, RRTStarConfig(**RRT_KW), seed=5, device="cpu")
-            p._solve(120, 300, None, cache)
+            p._graphs.guard = no_host_reads
+            p.solve(120, 600)  # two blocks: the one-block chain reads twice
             res = [getattr(p.state, f) for f in trrt._RRT_FIELDS] + [p.generator.get_state()]
         else:
-            out[chain] = ([tastar.distance_field(torch.from_numpy(WALL), (5, 5), cache)],
-                          None, None)
+            cache = _graph.Cache()
+            cache.guard = no_host_reads
+            out[runs] = ([tastar.distance_field(torch.from_numpy(WALL), (5, 5), cache)],
+                         None, None)
             continue
-        out[chain] = (res, p, p.recover_path())
-    (res0, p0, path0), (res1, p1, path1) = out[False], out[True]
+        out[runs] = (res, p, p.recover_path())
+    (res0, p0, path0), (res1, p1, path1) = out["one"], out["default"]
     for a, b in zip(res0, res1):
         assert torch.equal(a, b)
     assert path0 == path1

@@ -262,15 +262,14 @@ def test_the_plan_readers_divide_by_the_queries(fresh):
 
 
 def test_chained_blocks_are_made_once_across_queries(fresh):
-    """Through the block cache (the card's route, eager here) a second
-    and third query reuse the first query's blocks and answer as the eager
-    loop does."""
+    """A second and third query reuse the first query's chains (the card's
+    captures; eager blocks here) and answer as the first queries did."""
     p, q1, q2 = _rooms_planner()
     want = [plan.Plan.step(p, q) for q in (q1, q2)]
     got, blocks = [], []
     for q in (q1, q2, q1):
         p.reset_query(*q)
-        p._solve(None, p._graphs)
+        p.solve()
         got.append(plan.Answer(p.path_cost(), tuple(p.recover_path())))
         blocks.append(dict(p._graphs.blocks))
     assert got == want + want[:1]
