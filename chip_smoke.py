@@ -82,8 +82,14 @@ raises, so the exit code is nonzero):
               eager ms, query init, capture ms, the pools' memory, replays,
               the profiles (device ms, kernels, host-issued launches); the
               path free and no shorter than the straight line less tol; the
-              same search by the port on the CPU equal bit for bit;
-              solve_many of 4 queries, graph == eager
+              same search by the port on the CPU equal bit for bit; the
+              path walk's kernel (csrc/lattice_chain.cu) == the eager walk
+              bit for bit (cells, next index, done, cost; whole and in
+              chunks of 4, from the goal, the start and the max_rounds
+              cut's deepest states), one launch and one host read a chunk,
+              its device ms and the walk's ms beside the eager walk's;
+              solve_many of 4 queries, graph == eager, one walk launch a
+              query and each path the query's
  14. plan-rrt / plan-continuous / spatial  the suite's RRT* over seeds
               1234-1238 through its chain's CUDA graph, each seed == the
               eager chain on the card (tree, rounds, the generator's state;
@@ -875,6 +881,98 @@ def sdf_phase(dev, blocked_np) -> dict:
     return out
 
 
+def hold_chain_walks(p, gp, firsts, what: str) -> int:
+    """The path walk's kernel (`ops/lattice_chain_cuda.py`) against the
+    eager walk (`_lattice_chain_device`, `_lattice_chain_cost`) on the
+    card, over the packed words `gp` from each state of `firsts` (ints,
+    each on a chain that ends at the start: the eager walk cannot leave
+    one), whole and in chunks of 4: each chunk's cells with their -1 tail,
+    next index, `done` and quantized cost bit for bit, the kernel going on
+    from its own next index on the device. Returns the chunks held."""
+    from slam_tpu_torch.ops import lattice_chain_cuda
+    from slam_tpu_torch.planners import hastar as hastar_mod
+
+    k = p.cfg.theta_res
+    inv, cost_t = p._lat_inv_off_dev, p._lat_edge_cost
+    start = p.state.start_idx
+    head = lattice_chain_cuda.HEADER
+    held = 0
+    for first in firsts:
+        for max_len in (4, 1 << 15):
+            idx_k = torch.full((1,), first, dtype=torch.int64, device=gp.device)
+            idx_e, done = first, False
+            while not done:
+                out = lattice_chain_cuda.launch(gp, inv, cost_t, idx_k, start, max_len)
+                cells, nxt, done_t, _ = hastar_mod._lattice_chain_device(
+                    gp, inv, idx_e, start, k, max_len)
+                cost = hastar_mod._lattice_chain_cost(gp, inv, cost_t, cells, k)
+                want = [int((cells >= 0).sum()), int(cost), int(done_t), int(nxt)]
+                check(torch.equal(out[head:], cells) and out[:head].tolist() == want,
+                      f"{what}: the walk's kernel from {first} (chunk {max_len}) gave "
+                      f"{out[:head].tolist()}, the eager walk {want}, or other cells")
+                idx_k, idx_e, done = out[3:4], nxt, bool(done_t)
+                held += 1
+    return held
+
+
+def lattice_walk_phase(p, path, cut_gp) -> dict:
+    """Phase 13's path walk on the card: the kernel against the eager walk
+    (`hold_chain_walks`) from the query's goal and start, and from the
+    three deepest set states of the max_rounds cut's words `cut_gp`; from
+    -1 and from an unset state it stops at once. `recover_path` makes one
+    launch and one host read a chunk, whole and with `_chain_chunk` 4, and
+    gives the same path and cost; the kernel's device ms; the query's walk
+    beside the eager walk's (with its read of the two ends)."""
+    from slam_tpu_torch.ops import lattice_chain_cuda
+    from slam_tpu_torch.planners import hastar as hastar_mod
+
+    st = p.state
+    goal, start = torch.stack([st.goal_idx, st.start_idx]).tolist()
+    held = hold_chain_walks(p, st.gp, (goal, start), "lattice HA* walk")
+    unset = int(hastar_mod._INF_PACKED)
+    deep = torch.where(cut_gp == unset, -1, cut_gp).topk(3).indices.tolist()
+    held += hold_chain_walks(p, cut_gp, deep, "lattice HA* walk (max_rounds cut)")
+    inv, cost_t = p._lat_inv_off_dev, p._lat_edge_cost
+    none = int(torch.nonzero(st.gp == unset)[0])
+    for first in (-1, none):
+        out = lattice_chain_cuda.launch(st.gp, inv, cost_t, torch.full(
+            (1,), first, dtype=torch.int32, device=st.gp.device), st.start_idx, 4)
+        check(out.tolist() == [0, 0, 1, first, -1, -1, -1, -1],
+              f"lattice HA* walk from {first}: {out.tolist()}")
+    cost = p.path_cost()
+    counts = {}
+    for chunk in (1 << 15, 4):
+        p._chain_chunk = chunk
+        before = lattice_chain_cuda.launch.launches
+        got = p.recover_path()
+        chunks = len(path) // chunk + 1
+        counts[chunk] = lattice_chain_cuda.launch.launches - before
+        check(got == path and p.path_cost() == cost,
+              f"lattice HA* walk with chunk {chunk}: another path or cost")
+        check(counts[chunk] == p.path_launches == p.path_reads == chunks,
+              f"lattice HA* walk with chunk {chunk}: {counts[chunk]} launches, "
+              f"{p.path_launches} counted, {p.path_reads} reads, {chunks} chunks")
+    del p._chain_chunk
+    reps = 20
+    ends = (st.goal_idx, st.start_idx)
+    kernel_ms = event_ms(lambda: [lattice_chain_cuda.launch(st.gp, inv, cost_t, *ends, 1 << 15)
+                                  for _ in range(reps)]) / reps
+    k = p.cfg.theta_res
+
+    def eager_walk():
+        idx, first = torch.stack(list(ends)).tolist()
+        cells, _, done, _ = hastar_mod._lattice_chain_device(st.gp, inv, idx, first, k, 1 << 15)
+        cost_q = hastar_mod._lattice_chain_cost(st.gp, inv, cost_t, cells, k)
+        torch.cat([cells, cost_q.reshape(1)]).cpu()
+        bool(done)
+
+    walk_ms = [event_ms(p.recover_path) for _ in range(5)]
+    eager_ms = [event_ms(eager_walk) for _ in range(5)]
+    return {"chunks_held": held, "cut_firsts": deep, "launches": counts,
+            "kernel_ms": kernel_ms, "path_walk_ms": spread(walk_ms),
+            "eager_walk_ms": spread(eager_ms), "kernel_equals_eager": True}
+
+
 def lattice_phase(dev, free_np) -> dict:
     """Phase 13: the suite's lattice HA* on `free_np`: one reset (the
     tables), then LATTICE_QUERIES x (reset_query + solve) through the CUDA
@@ -884,9 +982,11 @@ def lattice_phase(dev, free_np) -> dict:
     equals the eager one bit for bit (every state field, the heuristic
     field the wavefront made, rounds, iterations launched, the path; host
     reads no more), also with max_rounds cut inside a block; the path is
-    checked on the map; the same search by the port on the CPU equals the
-    card's bit for bit."""
+    checked on the map; the path walk's kernel equals the eager walk
+    (`lattice_walk_phase`); the same search by the port on the CPU equals
+    the card's bit for bit, and so do `solve_many`'s paths."""
     from slam_tpu_torch.core.types import Pose
+    from slam_tpu_torch.ops import lattice_chain_cuda
     from slam_tpu_torch.planners import HybridAStar
     from slam_tpu_torch.planners import hastar as hastar_mod
 
@@ -952,7 +1052,10 @@ def lattice_phase(dev, free_np) -> dict:
     hold_solves(g_cut, e_cut, fields, f"lattice HA* max_rounds {cut}")
     query()
     path = []
+    before = lattice_chain_cuda.launch.launches
     walk_ms = event_ms(lambda: path.extend(p.recover_path()))
+    check(lattice_chain_cuda.launch.launches - before == p.path_launches == p.path_reads == 1,
+          f"lattice HA* walk: {p.path_launches} launches, {p.path_reads} host reads")
     check(p.success and len(path) >= 2, "lattice HA*: no path")
     check(all(free_np[i, j] for i, j in path), "lattice HA*: a path cell is blocked")
     cost = p.path_cost()
@@ -964,6 +1067,7 @@ def lattice_phase(dev, free_np) -> dict:
            "path_walk_ms": walk_ms, "rounds": p.rounds, "iterations_launched": p.launched,
            "host_reads": p.host_reads, "cost": cost, "n_expanded": int(p.state.n_expanded),
            "n_lost": int(p.state.n_lost), "path_cells": len(path),
+           "walk": lattice_walk_phase(p, path, g_cut["state"]["gp"]),
            "graph_equals_eager": True, "cut": {"max_rounds": cut, "rounds": g_cut["rounds"],
                                                "launched_graph": g_cut["launched"],
                                                "launched_eager": e_cut["launched"]},
@@ -988,7 +1092,11 @@ def lattice_phase(dev, free_np) -> dict:
         with eagerly():
             return p.solve_many(queries)
 
+    before = lattice_chain_cuda.launch.launches
     many = (p.solve_many(queries), p._fleet_state.gp.clone(), p.launched, p.host_reads)
+    check(lattice_chain_cuda.launch.launches - before == p.path_launches == LATTICE_MANY
+          and all(p.recover_path_for(q) == path for q in range(LATTICE_MANY)),
+          f"lattice HA* solve_many: {p.path_launches} walk launches, or a path != the query's")
     many_e = (many_eager(), p._fleet_state.gp.clone(), p.launched, p.host_reads)
     many_ms = event_ms(lambda: p.solve_many(queries))  # after the capture for Q
     many_eager_ms = event_ms(many_eager)

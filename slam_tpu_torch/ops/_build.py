@@ -71,6 +71,12 @@ _SIGNATURES = {
         [_P] * 5 + [ctypes.c_float] * 2 + [_P] * 3 + [ctypes.c_longlong] * 2
         + [ctypes.c_int, _P]
     ),
+    # (gp*, s, inv_off*, edge_cost*, k, e, idx*, idx_wide, start*, start_wide,
+    #  max_len, out*, stream)
+    "lattice_chain_launch": (
+        [_P, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+         ctypes.c_int, ctypes.c_longlong, _P, _P]
+    ),
     # (parent stream, pred*, invert, loop, child stream, body**, handle*)
     "graph_cond_begin": [_P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.POINTER(_P),
                          ctypes.POINTER(ctypes.c_ulonglong)],

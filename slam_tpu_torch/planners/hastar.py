@@ -48,8 +48,15 @@ What differs in form, and why the results stay the JAX package's:
     name, outside its WHILE node's body); `recover_path` is the root
     `HybridAStar.recover_path` with the host span `hastar.path`. Each
     solve counts `hastar.rounds`, `hastar.n_expanded`, `hastar.n_lost` and
-    `hastar.host_reads`; `stats()` gives the last query's counters and the
-    search blocks' captures and replays.
+    `hastar.host_reads`; a lattice path walk counts its host reads and
+    its kernel launches (`hastar.path_launches`); `stats()` gives the last
+    query's counters and the search blocks' captures and replays.
+  * The lattice parent-chain walk (JAX's `lax.scan`) is one kernel launch
+    a chunk on the card (`csrc/lattice_chain.cu`), which reads the goal
+    and start indices on the device and stops where the chain ends, with
+    one host read of the chunk's header and cells; on the CPU it is the
+    eager walk, `_lattice_chain_device` and `_lattice_chain_cost`, the
+    kernel's reference. The route follows the words' device.
   * A search is the counterpart of the JAX package's one device program
     (`_lattice_solve_query_jit`, `_ha_solve_query_jit`,
     `_lattice_solve_many_jit`): the run of `_FLAG_EVERY` loop iterations
@@ -76,6 +83,7 @@ import torch
 from slam_tpu_torch.core.config import HybridAStarConfig, RaycastConfig
 from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch.core.types import Pose
+from slam_tpu_torch.ops import lattice_chain_cuda
 from slam_tpu_torch.ops.edt import _sqrt
 from slam_tpu_torch.ops.rayfield import RayField, make_ray_field, raycast_field
 from slam_tpu_torch.planners import _graph
@@ -91,7 +99,7 @@ _FLAG_EVERY = 4
 # Blocks a chain runs a replay at most: the suite's lattice query (122
 # rounds, 16 blocks) and a continuous query fit in one replay.
 _CHAIN_RUNS = 32
-# Parent-chain walk steps between two host reads of `done`.
+# Eager (CPU) parent-chain walk steps between two host reads of `done`.
 _CHAIN_CHECK = 64
 
 
@@ -421,11 +429,12 @@ _INF_PACKED = np.int32(2**31 - 1)
 
 
 def _lattice_chain_device(gp, inv_off, goal_idx, start_idx, k, max_len):
-    """Walk up to `max_len` steps of the lattice parent chain on the
-    device, from `goal_idx`: returns (cells i64[max_len], the visited
-    state indices goal -> start with -1 once finished; next_idx; done;
-    the host reads of `done`), so the host can continue a chain that
-    outruns one chunk. The walk stops early once `done` (read every
+    """The CPU route of the walk, and the reference of the card's kernel
+    (`csrc/lattice_chain.cu`): walk up to `max_len` steps of the lattice
+    parent chain eagerly, from `goal_idx`: returns (cells i64[max_len],
+    the visited state indices goal -> start with -1 once finished;
+    next_idx; done; the host reads of `done`), so the host can continue a
+    chain that outruns one chunk. The walk stops early once `done` (read every
     `_CHAIN_CHECK` steps); the remaining outputs are -1, as the JAX
     scan's."""
     dev = gp.device
@@ -464,6 +473,26 @@ def _lattice_chain_cost(gp, inv_off, edge_cost, cells, k):
     edge = torch.where(cells >= 0, gp[safe] & emask, 0).long()
     parent = torch.clamp(safe - inv_off[safe % k, edge], 0, gp.shape[0] - 1)
     return torch.where(cells >= 0, edge_cost[parent % k, edge], 0).sum()
+
+
+def _lattice_chain_chunk(gp, inv_off, edge_cost, idx, start, k, max_len):
+    """One chunk of the parent-chain walk from `idx` towards `start`:
+    (the visited states goal -> start, i64 numpy; the quantized cost of
+    their parent edges; done; the next chunk's `idx`; host reads; kernel
+    launches). On the card one `lattice_chain_cuda` launch and one read of
+    its output, `idx` / `start` one-element device tensors (the next index
+    stays on the device); on the CPU the eager walk and its cost."""
+    if gp.is_cuda:
+        out = lattice_chain_cuda.launch(gp, inv_off, edge_cost, idx, start, max_len)
+        host = out.cpu().numpy()
+        n, cost, done = (int(v) for v in host[:3])
+        head = lattice_chain_cuda.HEADER
+        return host[head:head + n], cost, bool(done), out[3:4], 1, 1
+    cells, nxt, done, reads = _lattice_chain_device(gp, inv_off, idx, start, k, max_len)
+    cost = _lattice_chain_cost(gp, inv_off, edge_cost, cells, k)
+    host = torch.cat([cells, cost.reshape(1)]).cpu().numpy()
+    cells = host[:-1]
+    return cells[cells >= 0], int(host[-1]), bool(done), nxt, reads + 2, 0
 
 
 def _shift_gather(planes, src, di, dj, shape):
@@ -943,9 +972,10 @@ class HybridAStar:
         # The last solve's rounds (as the JAX loop counts them), loop
         # iterations launched (gated ones included), host reads (the
         # loop's flag reads and the final read of rounds and goal), states
-        # expanded and ring entries lost; the last path walk's host reads.
+        # expanded and ring entries lost; the last path walk's host reads
+        # and kernel launches.
         self.rounds = self.launched = self.host_reads = 0
-        self.n_expanded = self.n_lost = self.path_reads = 0
+        self.n_expanded = self.n_lost = self.path_reads = self.path_launches = 0
         # The cost of the lattice path walked for this query (`path_cost`).
         self._walked_cost = None
 
@@ -1101,18 +1131,21 @@ class HybridAStar:
             stacked, *self._lattice_args(), torch.stack(goals), torch.stack(tbins),
             torch.stack(hfields), max_rounds, self.cfg, self.shape, self._graphs)
         self.host_reads = reads + 2
-        goal_idx, start_idx = torch.stack([out.goal_idx, out.start_idx]).tolist()
+        goal_idx = out.goal_idx.tolist()
         goal_cost = out.goal_cost.cpu().numpy()
         self._fleet_state = out
-        self._fleet_paths, results, self.path_reads = {}, [], 0
+        self._fleet_paths, results = {}, []
+        self.path_reads = self.path_launches = 0
         for q in range(len(queries)):
             if goal_idx[q] < 0:
                 self._fleet_paths[q] = []
                 results.append((False, float(goal_cost[q])))
                 continue
-            path, reads, cost = self._walk_lattice_chain(out.gp[q], goal_idx[q], start_idx[q])
+            path, reads, launches, cost = self._walk_lattice_chain(
+                out.gp[q], out.goal_idx[q], out.start_idx[q])
             self._fleet_paths[q] = path
             self.path_reads += reads
+            self.path_launches += launches
             results.append((True, cost))
         return results
 
@@ -1159,10 +1192,10 @@ class HybridAStar:
         return list(self._fleet_paths[q])
 
     def _walk_lattice_chain(self, gp, idx, start_idx):
-        """Walk the parent chain on the device in chunks; the host reads
-        only each chunk's [max_len] visited-state buffer with the chunk's
-        cost, and its `done` flags. Returns (the path, the host reads, the
-        path's cost: its edges' quantized costs summed, over _G_SCALE)."""
+        """Walk the parent chain from `idx` to `start_idx` (0-d tensors on
+        the words' device, read there) in chunks (`_lattice_chain_chunk`).
+        Returns (the path, the host reads, the kernel launches, the path's
+        cost: its edges' quantized costs summed, over _G_SCALE)."""
         k = self.cfg.theta_res
         w = self.shape[1]
         s_total = int(np.prod(self.shape)) * k
@@ -1170,23 +1203,21 @@ class HybridAStar:
         max_len = int(min(s_total, getattr(self, "_chain_chunk", 1 << 15)))
         cur = idx
         chunks = []
-        total = reads = cost_q = 0
+        total = reads = launches = cost_q = 0
         while True:
-            cells, cur, done, chunk_reads = _lattice_chain_device(
-                gp, self._lat_inv_off_dev, cur, start_idx, k, max_len
-            )
-            cost = _lattice_chain_cost(gp, self._lat_inv_off_dev, self._lat_edge_cost, cells, k)
-            cells = torch.cat([cells, cost.reshape(1)]).cpu().numpy()
-            cost_q, cells = cost_q + int(cells[-1]), cells[:-1]
-            chunks.append(cells[cells >= 0])
+            cells, cost, done, cur, chunk_reads, chunk_launches = _lattice_chain_chunk(
+                gp, self._lat_inv_off_dev, self._lat_edge_cost, cur, start_idx, k, max_len)
+            chunks.append(cells)
+            cost_q += cost
             total += max_len
-            reads += chunk_reads + 2  # and the chunk's cells and `done`
-            if bool(done) or total >= s_total:
+            reads += chunk_reads
+            launches += chunk_launches
+            if done or total >= s_total:
                 break
         cells = np.concatenate(chunks)
         path = [(int(c) // k // w, int(c) // k % w) for c in cells]
         path.reverse()
-        return path, reads, cost_q / _G_SCALE
+        return path, reads, launches, cost_q / _G_SCALE
 
     def recover_path(self) -> List[Tuple[int, int]]:
         """Parent-chain walk returning image coords (`slam/hastar.cpp:
@@ -1200,13 +1231,14 @@ class HybridAStar:
     def _recover_path(self) -> List[Tuple[int, int]]:
         k = self.cfg.theta_res
         w = self.shape[1]
-        idx, start_idx = torch.stack([self.state.goal_idx, self.state.start_idx]).tolist()
+        st = self.state
         if self.cfg.mode == "lattice":
-            path, reads, self._walked_cost = self._walk_lattice_chain(self.state.gp, idx,
-                                                                      start_idx)
-            self.path_reads = 1 + reads
+            path, self.path_reads, self.path_launches, self._walked_cost = (
+                self._walk_lattice_chain(st.gp, st.goal_idx, st.start_idx))
             profiling.count("hastar.host_reads", self.path_reads)
+            profiling.count("hastar.path_launches", self.path_launches)
             return path
+        idx, start_idx = torch.stack([st.goal_idx, st.start_idx]).tolist()
         parent = self.state.parent.cpu().numpy()
         self.path_reads = 2
         profiling.count("hastar.host_reads", self.path_reads)

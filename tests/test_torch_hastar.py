@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from slam_tpu.core.config import HybridAStarConfig as JCfg
 from slam_tpu.core.config import RaycastConfig as JRaycast
@@ -26,7 +27,7 @@ from slam_tpu_torch.core.types import Pose
 from slam_tpu_torch.planners import HybridAStar
 from slam_tpu_torch.planners import hastar as th
 from slam_tpu_torch.planners._scatter import set_drop, set_drop_, with_spare
-from slam_tpu_torch.utils import convert
+from slam_tpu_torch.utils import convert, profiling
 from test_planners import wall_map
 from torch_port import np_, one_rank_sharding
 
@@ -257,3 +258,149 @@ def test_set_drop_spare_slot_in_place():
     assert one.tolist() == [[0.0, 0.0, 1.0, 0.0, 0.0]]
     with pytest.raises(ValueError, match="spare"):
         set_drop_(a.clone(), idx, v)
+
+
+def _kernel_walk(gp, inv_off, edge_cost, idx, start, max_len):
+    """`csrc/lattice_chain.cu`'s walk step for step in numpy: its output,
+    i64 [4 + max_len] (cells written, their edges' cost, done, the next
+    index, then the cells, -1 past the written ones)."""
+    s, (k, _) = len(gp), inv_off.shape
+    out = np.full(4 + max_len, -1, np.int64)
+    n = cost = done = 0
+    while n < max_len:
+        safe = min(max(idx, 0), s - 1)
+        word = int(gp[safe])
+        if idx < 0 or idx == start or word == int(th._INF_PACKED):
+            done = 1
+            break
+        edge = word & 7
+        nxt = idx - int(inv_off[safe % k, edge])
+        cost += int(edge_cost[min(max(nxt, 0), s - 1) % k, edge])
+        out[4 + n] = idx
+        idx, n = nxt, n + 1
+    out[:4] = n, cost, done, idx
+    return out
+
+
+def test_lattice_chain_kernel_walk_equals_eager_chunks():
+    """The kernel's rule (one pass; each edge's cost from the next index,
+    clamped, as its parent), modelled in numpy, equals the eager walk and
+    its cost chunk by chunk: the cells with their -1 tail, the next index,
+    `done` and the cost, whole and in chunks of 4 and 7 (continuing from
+    the next index), from the goal, from a state on its chain and from the
+    start. (The eager walk cannot start from -1 or an unset state: it
+    indexes `inv_off` with the unset word's edge bits, 7.)"""
+    _, tp = _pair(WALL, A, B)
+    assert tp.solve(400)
+    gp, inv, cost_t = tp.state.gp, tp._lat_inv_off_dev, tp._lat_edge_cost
+    k = tp.cfg.theta_res
+    goal, start = int(tp.state.goal_idx), int(tp.state.start_idx)
+    mid = int(_kernel_walk(gp.numpy(), inv.numpy(), cost_t.numpy(), goal, start, 5)[3])
+    walked = 0
+    for first in (goal, mid, start):
+        for max_len in (4, 7, gp.numel()):
+            idx, done = first, False
+            while not done:
+                want = _kernel_walk(gp.numpy(), inv.numpy(), cost_t.numpy(), idx, start, max_len)
+                cells, nxt, done_t, _ = th._lattice_chain_device(gp, inv, idx, start, k, max_len)
+                cost = th._lattice_chain_cost(gp, inv, cost_t, cells, k)
+                assert np.array_equal(want[4:], cells.numpy())
+                assert want[:4].tolist() == [int((cells >= 0).sum()), int(cost), int(done_t),
+                                             int(nxt)]
+                idx, done = int(nxt), bool(done_t)
+                walked += int(want[0])
+    assert walked > 3 * 8  # the goal's chain, three times, and mid's
+
+
+@pytest.mark.parametrize("case", ["wall", "open"])
+def test_lattice_walk_cpu_route_equals_jax_chunked_and_whole(case):
+    """The CPU route (the eager walk) gives JAX's path and cost in chunks
+    of 4 and in one chunk, and launches no kernel."""
+    if case == "open":
+        jp, tp = _pair(np.ones((64, 64), bool), (10.0, 10.0, 0.0), (50.0, 50.0, 0.0))
+    else:
+        jp, tp = _pair(WALL, A, B)
+    assert tp.solve(400) and jp.solve(400)
+    want = (jp.recover_path(), jp.path_cost())
+    for chunk in (4, 1 << 15):
+        tp._chain_chunk = chunk
+        assert (tp.recover_path(), tp.path_cost()) == want
+        assert tp.path_launches == 0 and len(want[0]) > 8
+
+
+def test_solve_many_walks_chunked():
+    """`solve_many`'s per-query walks (the ends as 0-d tensors) give the
+    same results and paths in chunks of 4 as in one chunk."""
+    queries = [(Pose.create(*A), Pose.create(*B)),
+               (Pose.create(10.0, 10.0, 0.0), Pose.create(50.0, 50.0, 0.0))]
+    _, tp = _pair(WALL, A, B)
+    whole = tp.solve_many(queries, 400)
+    paths = [tp.recover_path_for(q) for q in range(len(queries))]
+    tp._chain_chunk = 4
+    assert tp.solve_many(queries, 400) == whole and all(ok for ok, _ in whole)
+    assert [tp.recover_path_for(q) for q in range(len(queries))] == paths
+    assert tp.path_launches == 0
+
+
+@pytest.fixture
+def fresh_profiling():
+    profiling.reset()
+    yield
+    profiling.reset()
+
+
+@pytest.mark.parametrize("chunk", [4, 1 << 15])
+def test_path_walk_counters(fresh_profiling, chunk):
+    """Under a profiler session `recover_path` counts what its route did:
+    on the CPU no kernel launch (`hastar.path_launches` 0) and the eager
+    walk's host reads, a chunk's reads of `done` every 64 steps, its cells
+    and its `done` (the goal and start stay tensors). The kernel's wrapper
+    counts no launch."""
+    from slam_tpu_torch.ops import lattice_chain_cuda
+
+    _, tp = _pair(WALL, A, B)
+    assert tp.solve(400)
+    tp._chain_chunk = chunk
+    before = lattice_chain_cuda.launch.launches
+    with profile(activities=[ProfilerActivity.CPU]):
+        n = len(tp.recover_path())
+    counts = profiling.recorded()["counts"]
+    chunks = n // chunk + 1
+    per_chunk = 2 + (n // 64 + 1 if chunk > n else 0)
+    assert tp.path_reads == chunks * per_chunk
+    assert counts == {"hastar.host_reads": tp.path_reads, "hastar.path_launches": 0}
+    assert tp.path_launches == 0 and lattice_chain_cuda.launch.launches == before
+
+
+def _chain_args():
+    return dict(gp=torch.zeros(10, dtype=torch.int32),
+                inv_off=torch.zeros((4, 3), dtype=torch.int64),
+                edge_cost=torch.zeros((4, 3), dtype=torch.int64),
+                idx=torch.tensor(3, dtype=torch.int32), start=torch.tensor(0, dtype=torch.int32),
+                max_len=5)
+
+
+@pytest.mark.parametrize("name, bad", [
+    ("gp", torch.zeros(10, dtype=torch.int64)), ("gp", torch.zeros((2, 5), dtype=torch.int32)),
+    ("gp", torch.zeros(20, dtype=torch.int32)[::2]), ("gp", torch.zeros(0, dtype=torch.int32)),
+    ("inv_off", torch.zeros((4, 3), dtype=torch.int32)),
+    ("inv_off", torch.zeros((4, 9), dtype=torch.int64)),
+    ("inv_off", torch.zeros((385, 3), dtype=torch.int64)),
+    ("edge_cost", torch.zeros((4, 2), dtype=torch.int64)),
+    ("edge_cost", torch.zeros((3, 4), dtype=torch.int64).t()),
+    ("idx", torch.tensor([1, 2], dtype=torch.int32)), ("idx", torch.tensor(1.0)),
+    ("start", torch.tensor(0, dtype=torch.int16)), ("max_len", 0), ("cpu", None),
+])
+def test_lattice_chain_cuda_wrapper_rejects(name, bad):
+    """`lattice_chain_cuda.launch` raises ValueError, before any build, on
+    a wrong dtype, shape or layout and on tensors off the card (the last
+    case: every argument right, on the CPU); no launch is counted."""
+    from slam_tpu_torch.ops import lattice_chain_cuda
+
+    before = lattice_chain_cuda.launch.launches
+    a = _chain_args()
+    if name != "cpu":
+        a[name] = bad
+    with pytest.raises(ValueError):
+        lattice_chain_cuda.launch(**a)
+    assert lattice_chain_cuda.launch.launches == before
