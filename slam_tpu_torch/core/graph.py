@@ -64,8 +64,11 @@ _WARMING = False
 # that capture conditional bodies, by (device index, nesting depth).
 _CAPTURE = None
 _BODY_STREAMS: Dict[Tuple[int, int], torch.cuda.Stream] = {}
-# Slots of a graph's clock: the timed span boundaries one graph may hold.
+# Slots of a graph's clock at the least; a graph whose warm-up passed more
+# timed span boundaries (`note_warm_stamps`) gets a slot for each.
 _CLOCK_SLOTS = 64
+# The timed span boundaries the warm-up under way has passed.
+_WARM_STAMPS = 0
 
 
 def count_launch(wrapper) -> None:
@@ -101,6 +104,15 @@ def count_host(fn: Callable, *args) -> None:
     fn(*args)
 
 
+def note_warm_stamps(n: int) -> None:
+    """Count `n` span boundaries that a block's warm-up passes with a CUDA
+    device to time: its capture stamps as many at the most (it stamps
+    none inside a conditional body, where the warm-up runs both
+    branches), so its clock is made with a slot for each."""
+    global _WARM_STAMPS
+    _WARM_STAMPS += n
+
+
 def in_conditional_body() -> bool:
     """Whether a conditional node's body is being captured now."""
     return _CAPTURE is not None and _CAPTURE.depth > 0
@@ -117,10 +129,11 @@ class _Clock:
     pinned host slots that its kernel nodes stamp with the device's
     nanosecond timer (`csrc/span_clock.cu`), the spans that stamped them
     ((name, start slot, end slot)), and an event recorded after a replay
-    whose stamps are to be read. Made before the capture starts."""
+    whose stamps are to be read. Made before the capture starts, with
+    `size` slots."""
 
-    def __init__(self):
-        self.slots = torch.zeros(_CLOCK_SLOTS, dtype=torch.int64, pin_memory=True)
+    def __init__(self, size: int):
+        self.slots = torch.zeros(size, dtype=torch.int64, pin_memory=True)
         self.stamps = 0
         self.spans = []
         self.done = torch.cuda.Event()
@@ -131,8 +144,8 @@ class _Clock:
         from slam_tpu_torch.ops import _build
 
         i = self.stamps
-        if i == _CLOCK_SLOTS:
-            raise RuntimeError(f"more than {_CLOCK_SLOTS} timed span boundaries in one graph")
+        if i == self.slots.numel():
+            raise RuntimeError(f"more than {i} timed span boundaries in one graph")
         _build.check(_build.library()[0].span_clock_launch(
             self.slots[i:].data_ptr(), torch.cuda.current_stream().cuda_stream),
             "span_clock_launch")
@@ -143,16 +156,16 @@ class _Clock:
 class _Capture:
     """A block's capture under way: its device and memory pool, the
     nesting depth of the body being captured, the IF nodes recorded, and
-    the graph's clock (`_Clock`)."""
+    the graph's clock (`_Clock`, of `clock_slots` slots)."""
 
-    def __init__(self, dev: torch.device, pool):
+    def __init__(self, dev: torch.device, pool, clock_slots: int):
         self.dev = dev
         self.index = dev.index if dev.index is not None else torch.cuda.current_device()
         self.pool = pool
         self.depth = 0
         self.routed = False
         self.if_nodes = 0
-        self.clock = _Clock()
+        self.clock = _Clock(clock_slots)
 
     def route_pool(self) -> None:
         """Route every allocation of this thread to the capture's pool, on
@@ -340,10 +353,10 @@ class Block:
 
     def _warm(self, dev) -> None:
         """The eager runs before the capture, on a side stream."""
-        global _WARMING
+        global _WARMING, _WARM_STAMPS
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        _WARMING = True
+        _WARMING, _WARM_STAMPS = True, 0
         try:
             with torch.cuda.stream(side), self.guard():
                 for _ in range(_WARMUP):
@@ -369,6 +382,8 @@ class Block:
         gen_states = [g.get_state() for g in self.generators]
         global _TALLY, _NOTES, _CAPTURE
         self._warm(dev)
+        # The block's own span stamps twice besides what one run stamps.
+        clock_slots = max(_CLOCK_SLOTS, _WARM_STAMPS // _WARMUP + 2)
         for k, v in saved.items():
             self.static[k].copy_(v)
         del saved
@@ -384,7 +399,7 @@ class Block:
         # it by its id (`_Capture.route_pool`).
         pool = self.pool if self.pool is not None else torch.cuda.graph_pool_handle()
         _TALLY, _NOTES = {}, []
-        cap = _CAPTURE = _Capture(dev, pool)
+        cap = _CAPTURE = _Capture(dev, pool, clock_slots)
         # No garbage collection during the capture: a collection that frees
         # an earlier block's graph (an engine left in a reference cycle)
         # destroys it, a call that a capture under way refuses, and the

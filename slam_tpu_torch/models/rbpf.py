@@ -1,12 +1,12 @@
-"""Fidelity-mode RBPF: every particle carries its own map (port of
-`slam_tpu/models/rbpf.py`).
+"""The RBPF in which every particle carries its own map (port of
+`slam_tpu/models/rbpf.py`): the benchmark's per-particle-map deployment,
+`rbpf_floorplan_1k`, at 1000 maps of the floor plan.
 
 This is the reference's own algorithm: `Particle{pose, weight, cv::Mat
 map}` (`slam/pose.h:32-37`), weighting fused with per-particle mapping
 (`slam/mcl.cpp:49-77` -> `slam/raycast.cpp:143-223`), and map copies on
 resample (`slam/mcl.cpp:205-227`). It costs N x H x W bytes, which is why
-the production engine (`models/slam.py`) shares one grid; this mode is the
-small-N fidelity A/B against the C++ behavior.
+the production engine (`models/slam.py`) shares one grid.
 
 The maps are uint8 quantized P(free) with the reference's multiplicative
 clamped updates (floor 1/255, init 128 = 0.5); resampling copies the maps
@@ -18,6 +18,14 @@ the device from the host. `RBPF.step` runs the step as one block of its
 `StepGraphs` (`models/_graph.py`): one CUDA graph replay a step on the
 card, as the JAX class jits it (`slam_tpu/models/rbpf.py:123`); the free
 `step` stays eager.
+
+Spans (`utils/profiling.py`): `RBPF.step` opens a request; inside it
+`motion` (predict), `rbpf.march` and `rbpf.map_write` (each chunk of the
+fused weight + map, `ops/mapping.py`), `resample` (the draw and the
+indices) and `rbpf.map_copy` (the gather of the resampled maps). Counters
+(`profiling.count`, replayed by the step's graph): `rbpf.chunks` and
+`rbpf.lanes` (`ops/mapping.py`), `rbpf.map_copy_bytes` (the bytes the
+gather writes).
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import dataclasses
 
 import torch
 
-from slam_tpu_torch.core import stats
+from slam_tpu_torch.core import graph, stats
 from slam_tpu_torch.core.config import MCLConfig, RaycastConfig
 from slam_tpu_torch.core.device import entry_device
 from slam_tpu_torch.core.types import Odometry, Particles, Pose, Scan, log_f32
@@ -34,6 +42,7 @@ from slam_tpu_torch.models._graph import StepGraphs
 from slam_tpu_torch.models.mcl import make_generator
 from slam_tpu_torch.ops import mapping, resample
 from slam_tpu_torch.ops.motion_cuda import sample_motion_model_odometry_fused
+from slam_tpu_torch.utils import profiling
 
 # The motion noise `slam_tpu/models/rbpf.py:63` fixes for this mode.
 ALPHAS = (5e-4, 5e-4, 1e-2, 1e-2)
@@ -86,11 +95,12 @@ def update(state: RBPFState, pose: Pose, scan: Scan, cfg: MCLConfig, rc: Raycast
     best_idx = torch.argmax(log_weight).view(1)
     best_pose = Pose(*(v[0] for v in (pose.x[best_idx], pose.y[best_idx],
                                       pose.theta[best_idx])))
-    if cfg.resample == "multinomial":
-        idx = resample.multinomial_indices(log_weight, u=u, generator=state.generator)
-    else:
-        idx = resample.systematic_indices(log_weight, u0=u0, generator=state.generator)
-    idx = idx.long()
+    with profiling.span("resample", log_weight.device):
+        if cfg.resample == "multinomial":
+            idx = resample.multinomial_indices(log_weight, u=u, generator=state.generator)
+        else:
+            idx = resample.systematic_indices(log_weight, u0=u0, generator=state.generator)
+        idx = idx.long()
     n = log_weight.shape[0]
     # A surviving copy of the best particle; under multinomial resampling
     # the best particle can draw no copy, and then the highest-weight
@@ -98,13 +108,16 @@ def update(state: RBPFState, pose: Pose, scan: Scan, cfg: MCLConfig, rc: Raycast
     is_best = idx == best_idx
     best_map_idx = torch.where(is_best.any(), torch.argmax(is_best.to(torch.uint8)),
                                torch.argmax(log_weight[idx]))
+    with profiling.span("rbpf.map_copy", new_maps.device):
+        maps = new_maps[idx] if maps_out is None else torch.index_select(new_maps, 0, idx,
+                                                                         out=maps_out)
+    graph.count_host(profiling.count, "rbpf.map_copy_bytes", maps.numel())
     return RBPFState(
         particles=Particles(
             pose=Pose(x=pose.x[idx], y=pose.y[idx], theta=pose.theta[idx]),
             log_weight=torch.full((n,), -log_f32(n), device=log_weight.device),
         ),
-        maps=new_maps[idx] if maps_out is None else torch.index_select(new_maps, 0, idx,
-                                                                       out=maps_out),
+        maps=maps,
         generator=state.generator,
         best_pose=best_pose,
         best_map_idx=best_map_idx,
@@ -117,8 +130,9 @@ def step(state: RBPFState, odom: Odometry, scan: Scan, cfg: MCLConfig,
     """One full RBPF step: predict -> fused weight + map -> resample.
     `noise` (CPU only: the CUDA kernel draws its own) injects the motion
     draws, `u0` / `u` the resampler's; `maps_out` is `update`'s."""
-    pose = sample_motion_model_odometry_fused(
-        odom, state.particles.pose, ALPHAS, generator=state.generator, noise=noise)
+    with profiling.span("motion", state.particles.pose.x.device):
+        pose = sample_motion_model_odometry_fused(
+            odom, state.particles.pose, ALPHAS, generator=state.generator, noise=noise)
     return update(state, pose, scan, cfg, rc, u0=u0, u=u, maps_out=maps_out)
 
 
@@ -155,5 +169,6 @@ class RBPF:
     def step(self, state: RBPFState, odom: Odometry, scan: Scan) -> RBPFState:
         cfg, rc = self.cfg, self.rc
         # The block gathers the resampled maps straight into its buffer.
-        return self.graphs.run(lambda s, o, z: step(s, o, z, cfg, rc, maps_out=s.maps),
-                               state, odom, scan, key=("step", cfg, rc))
+        with profiling.root("RBPF.step"):
+            return self.graphs.run(lambda s, o, z: step(s, o, z, cfg, rc, maps_out=s.maps),
+                                   state, odom, scan, key=("step", cfg, rc))

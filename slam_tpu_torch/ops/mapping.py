@@ -11,7 +11,10 @@ Per scan, every beam marches in fixed steps from the sensor:
 
 The fidelity mode (per-particle uint8 maps with the reference's
 multiplicative quantized updates, `fidelity_measurement_and_mapping`)
-serves the RBPF of `models/rbpf.py`.
+serves the RBPF of `models/rbpf.py`, and names its layers for it: each
+chunk's march is the span `rbpf.march`, its write into the new maps
+`rbpf.map_write`; the counters `rbpf.chunks` and `rbpf.lanes` (particle x
+beam x ray step) count a call's chunks and lanes.
 """
 
 from __future__ import annotations
@@ -21,10 +24,12 @@ import math
 import numpy as np
 import torch
 
+from slam_tpu_torch.core import graph
 from slam_tpu_torch.core import grid as gridlib
 from slam_tpu_torch.core.types import Pose, Scan
 from slam_tpu_torch.ops.measurement import beam_log_weights, scanner_displacement, sensor_pose
 from slam_tpu_torch.planners._scatter import last_lanes
+from slam_tpu_torch.utils import profiling
 
 
 def _beam_cells(shape, sp: Pose, angles, *, step, max_dist):
@@ -235,10 +240,14 @@ def fidelity_measurement_and_mapping(
     chunk = max(1, _FIDELITY_CHUNK_LANES // max(lanes, 1))
     new_maps = maps_u8.reshape(-1).clone()
     hit_dist, hit_any = [], []
+    dev = maps_u8.device
     for n0 in range(0, n, chunk):
         n1 = min(n, n0 + chunk)
-        hd, ha, flat, updated, write = _fidelity_chunk(
-            maps_u8.reshape(-1), n0, n1, (h, w), sp, scan, step=step, max_dist=max_dist)
+        graph.count_host(profiling.count, "rbpf.chunks", 1)
+        graph.count_host(profiling.count, "rbpf.lanes", (n1 - n0) * lanes)
+        with profiling.span("rbpf.march", dev):
+            hd, ha, flat, updated, write = _fidelity_chunk(
+                maps_u8.reshape(-1), n0, n1, (h, w), sp, scan, step=step, max_dist=max_dist)
         hit_dist.append(hd)
         hit_any.append(ha)
         # Targets of this chunk lie in its particles' maps: index them
@@ -247,12 +256,13 @@ def fidelity_measurement_and_mapping(
         # target's last writing lane, or its own (the pre-scan value)
         # where no lane writes the target: duplicate writes carry one
         # value, and no slot is shared.
-        flat = flat.reshape(-1)
-        updated = updated.reshape(-1)
-        tgt = flat - n0 * h * w
-        top = last_lanes(write.reshape(-1), tgt, (n1 - n0) * h * w)[tgt]
-        lane = torch.arange(updated.numel(), device=updated.device)
-        new_maps.scatter_(0, flat, updated[torch.where(top >= 0, top, lane)])
+        with profiling.span("rbpf.map_write", dev):
+            flat = flat.reshape(-1)
+            updated = updated.reshape(-1)
+            tgt = flat - n0 * h * w
+            top = last_lanes(write.reshape(-1), tgt, (n1 - n0) * h * w)[tgt]
+            lane = torch.arange(updated.numel(), device=updated.device)
+            new_maps.scatter_(0, flat, updated[torch.where(top >= 0, top, lane)])
     lw = beam_log_weights(
         torch.cat(hit_dist), torch.cat(hit_any), scan.dists[None, :],
         stddev=stddev, max_dist=max_dist, eps=eps,

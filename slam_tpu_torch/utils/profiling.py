@@ -270,6 +270,8 @@ def span(name: str, device=None):
     """A context that names a layer: recorded while a torch.profiler
     session records, a shared no-op otherwise. With a CUDA `device` it
     also times the device work inside it (the module's docstring)."""
+    if _graph._WARMING and device is not None and device.type == "cuda":
+        _graph.note_warm_stamps(2)
     if _autograd_profiler._is_profiler_enabled or (
             device is not None and _graph._CAPTURE is not None):
         return _Span(name, device, False)
