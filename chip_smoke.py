@@ -131,8 +131,9 @@ raises, so the exit code is nonzero):
  19. rbpf       `tools/rbpf_fidelity.py`'s configuration at 1000 particles
               (777 MB of u8 maps), 30 steps through `RBPF.step`'s CUDA
               graph: ATE, ms/step, peak memory, profile, the graph's
-              capture ms and pool; one N = 8 step card vs CPU (maps bit for
-              bit, weights 1e-5, best_map_idx)
+              capture ms and pool, one launch of K1 a step and of each
+              fidelity kernel a chunk; one N = 8 step card vs CPU (maps bit
+              for bit, weights 1e-5, best_map_idx)
  20. maze       `benchmarks/maze_bench.py` through the port's tool: the 2400
               px procedural maze's CDDT built on the card == the CPU's build
               bit for bit (K > 64: binary search), the dense u8 table beside
@@ -258,6 +259,19 @@ raises, so the exit code is nonzero):
               bit for bit; one launch counted a call; device ms at 100k,
               1M and 16 x 100k beside the 20 N bytes bound and the plain
               estimate's
+ 30. rbpf_fidelity  the RBPF's march and map write kernels
+              (csrc/rbpf_fidelity.cu) at phase 19's shapes (1000 maps of
+              the plan, 90 beams to 500 px, step 0.5): RBPF_FIDELITY_FRAMES
+              frames of phase 19's wander from maps at 128, each through
+              the kernels == the plain path on the card (log weights and
+              maps bit for bit, the first chunk's hits and distances), one
+              launch of each kernel a chunk; the last frame with every
+              second beam cut to 2 px (cells of a particle written with
+              both updates) held the same way, and the first writer's maps
+              differing; on the last frame each kernel's device ms over the
+              chunks beside its byte bound and the plain path's march and
+              write, the whole update both ways, and the mean steps a beam
+              marched against K
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device; without one it
@@ -302,12 +316,14 @@ ADVERSARIAL_KINDS = ("last_cell", "off_bottom_right", "wrapped", "odd_row", "ran
 # rounds of 2 wide and 2 low multiplies, 4 xors and 2 key adds; Box-Muller;
 # the integration and wrap) ~130; locating the sensor cell and bin ~20; one
 # beam (bin index, decode, hit test, error, the clamped pdf's 3 multiplies,
-# exp, log, the sum) ~12.
+# exp, log, the sum) ~12; a ray step's cell in the RBPF's march and write
+# (two products, two sums, two differences, two floors) 8.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 OPS_SAMPLE = 130
 OPS_LOCATE = 20
 OPS_BEAM = 12
+OPS_RAY_STEP = 8
 # Tracking bound (phase 8), px: the final best pose must be this close.
 # Over 16 H100 runs (12 filter seeds, seed 1 five times) the error ranged
 # 0.31-1.33 px: the step is not bitwise run-to-run deterministic (CUDA's
@@ -363,7 +379,8 @@ SPIN_SPLIT_US = 20.0
 # estimate's chain likewise its pose kernel.
 KERNEL_NAMES = {"gather_rows": "gather_rows_kernel", "motion_odometry": "motion_odometry_kernel",
                 "lut_weights": "lut_weights_kernel", "resample": "resample_select",
-                "estimate": "estimate_pose"}
+                "estimate": "estimate_pose", "rbpf_march": "rbpf_march_kernel",
+                "rbpf_write": "rbpf_write_kernel"}
 SPATIAL_POINTS = 1_000_000
 SPATIAL_BOXES = 1000
 SPATIAL_QUERIES = 1024
@@ -415,6 +432,17 @@ RBPF_ATE_PX = 5.0
 # Phase 25: host-issued calls a graphed RBPF step may make (the replay, the
 # odometry's copy, the graph-safe RNG's fills, the state's copies out).
 RBPF_HOST_CALLS = 10
+# Phase 30: frames of phase 19's wander through the RBPF's march and write
+# kernels against the plain path (the walls the first frames write give
+# the later ones hits), the particles spread around the truth by
+# RBPF_FIDELITY_SPREAD px.
+RBPF_FIDELITY_FRAMES = 4
+RBPF_FIDELITY_SPREAD = 1.5
+# Phase 30's last-lane frame: every second beam of the last frame's scan
+# cut to RBPF_POST_PX, and the first writer's maps formed on the CPU for
+# RBPF_POST_FEW of the particles.
+RBPF_POST_PX = 2.0
+RBPF_POST_FEW = 8
 # Phase 20: `benchmarks/maze_bench.py` through the port's tool on its
 # procedural maze (MAZE_SIZE px, walls every MAZE_PITCH) and its
 # beyond-memory demo (BIG_SIZE, BIG_PITCH), 10k particles, 60 ATE steps.
@@ -2174,8 +2202,16 @@ def rbpf_phase(dev, blocked_np, counts) -> dict:
     c = read_counts()
     # One K1 launch a step: a replay counts its capture's, and the capture's
     # warm-up (step 1) its own.
-    want = RBPF_STEPS + warmup_counts()["motion_odometry"]
+    warm = warmup_counts()
+    want = RBPF_STEPS + warm["motion_odometry"]
     check(c["motion_odometry"] == want, f"RBPF K1 launches {c} != {want}")
+    # One launch of each fidelity kernel a chunk of a step, the same way.
+    chunks = len(mapping._fidelity_spans(RBPF_PARTICLES, lidar.n_rays,
+                                         int(math.ceil(rc.max_dist / rc.step))))
+    for k_ in ("rbpf_march", "rbpf_write"):
+        check(warm[k_] == chunks and c[k_] == chunks * RBPF_STEPS + warm[k_],
+              f"RBPF {k_} launches {c[k_]} (warm-up {warm[k_]}) != {chunks} a step over "
+              f"{RBPF_STEPS} steps and the warm-up's")
     peak = torch.cuda.max_memory_allocated(dev)
     ms = [a.elapsed_time(b) for a, b in step_ms]
     est_np = torch.stack(est).cpu().numpy().astype(np.float64)
@@ -2577,7 +2613,7 @@ def fleet_phase(dev, blocked_np, field, counts, map_png, workdir) -> dict:
         w = warmup_counts()  # MCLFleet.step replays a graph: one block, one warm-up
         check(c == {"gather_rows": 0, "motion_odometry": 0,
                     "lut_weights": steps + w["lut_weights"], "resample": steps + w["resample"],
-                    "estimate": steps + w["estimate"]}
+                    "estimate": steps + w["estimate"], "rbpf_march": 0, "rbpf_write": 0}
               and w["lut_weights"] == 1 and w["resample"] == 1 and w["estimate"] == 1,
               f"fleet R={r}: launches {c} for {steps} fleet steps (warm-ups {w})")
         for k_ in launches:
@@ -3527,14 +3563,17 @@ def warmup_counts() -> dict:
     """The kernel wrappers' launches made by graph warm-ups since the last
     reset (a block's one eager run before its capture; `core/graph.py`)."""
     from slam_tpu_torch.ops import (
-        estimate_cuda, lut_weights_cuda, motion_cuda, pano_cuda, resample_cuda,
+        estimate_cuda, lut_weights_cuda, motion_cuda, pano_cuda, rbpf_fidelity_cuda,
+        resample_cuda,
     )
 
     return {"gather_rows": pano_cuda.gather_rows.warmup_launches,
             "motion_odometry": motion_cuda.sample_motion_model_odometry_fused.warmup_launches,
             "lut_weights": lut_weights_cuda.launch.warmup_launches,
             "resample": resample_cuda.launch.warmup_launches,
-            "estimate": estimate_cuda.launch.warmup_launches}
+            "estimate": estimate_cuda.launch.warmup_launches,
+            "rbpf_march": rbpf_fidelity_cuda.march.warmup_launches,
+            "rbpf_write": rbpf_fidelity_cuda.write.warmup_launches}
 
 
 def capture_gc_check(dev) -> dict:
@@ -4698,6 +4737,175 @@ def estimate_phase(dev, counts) -> dict:
     return out
 
 
+def plain_fidelity(fn):
+    """`fn()` with `ops/mapping.py`'s fidelity update on its plain path
+    (`_fidelity_chunk` and `last_lanes`) on the card too."""
+    from slam_tpu_torch.ops import mapping
+
+    saved = mapping._kernels
+    mapping._kernels = lambda dev: False
+    try:
+        return fn()
+    finally:
+        mapping._kernels = saved
+
+
+def hold_rbpf_fidelity(maps, pose, scan, kw, what: str = "rbpf_fidelity") -> dict:
+    """The fidelity update (`mapping.fidelity_measurement_and_mapping(maps,
+    pose, scan, **kw)`) through the kernels of `ops/rbpf_fidelity_cuda.py`
+    against its plain path, both on the card: the log weights and maps bit
+    for bit, one launch of each kernel a chunk (`mapping._fidelity_spans`)
+    and none on the plain path, and the first chunk's hits and their
+    distances against `_fidelity_chunk`'s. Returns the kernels' log
+    weights ("lw"), maps ("maps") and first chunk's hits ("hit_any"), and
+    the chunks ("spans")."""
+    from slam_tpu_torch.ops import mapping, rbpf_fidelity_cuda
+
+    n, h, w = maps.shape
+    step, max_dist = kw["step"], kw["max_dist"]
+    k_total = int(math.ceil(max_dist / step))
+    spans_ = mapping._fidelity_spans(n, scan.angles.shape[0], k_total)
+    kernels = (rbpf_fidelity_cuda.march, rbpf_fidelity_cuda.write)
+    before = [k.launches for k in kernels]
+    lw, new = mapping.fidelity_measurement_and_mapping(maps, pose, scan, **kw)
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    check(launched == [len(spans_)] * 2,
+          f"{what}: launches {launched} != one of each a chunk ({len(spans_)})")
+    plw, pnew = plain_fidelity(
+        lambda: mapping.fidelity_measurement_and_mapping(maps, pose, scan, **kw))
+    check([k.launches - b for k, b in zip(kernels, before)] == launched,
+          f"{what}: the plain path launched a kernel")
+    check(torch.equal(lw, plw), f"{what}: log weights != the plain path's")
+    check(torch.equal(new, pnew), f"{what}: maps != the plain path's")
+    del plw, pnew
+    sp = mapping._fidelity_sensors(pose, kw["scanner_offset"])
+    n0, n1 = spans_[0]
+    hd, ha = rbpf_fidelity_cuda.march(*mapping._fidelity_rays(maps, sp, scan, n0, n1),
+                                      step=step, k_total=k_total)
+    phd, pha = mapping._fidelity_chunk(maps.reshape(-1), n0, n1, (h, w), sp, scan, step=step,
+                                       max_dist=max_dist)[:2]
+    check(torch.equal(hd, phd) and torch.equal(ha, pha),
+          f"{what}: the first chunk's hits != the plain path's")
+    return {"lw": lw, "maps": new, "hit_any": ha, "spans": spans_}
+
+
+def rbpf_fidelity_phase(dev, blocked_np) -> dict:
+    """Phase 30: the RBPF's march and map write kernels
+    (`ops/rbpf_fidelity_cuda.py`, `csrc/rbpf_fidelity.cu`) against the
+    plain path (`ops/mapping.py:_fidelity_chunk` with `last_lanes`, run on
+    the card) at phase 19's shapes (`hold_rbpf_fidelity`), along
+    RBPF_FIDELITY_FRAMES frames of its wander from maps at 128. Then the
+    last frame with every second beam cut to RBPF_POST_PX, so that beams of
+    one particle write one cell with both updates: held the same way, and
+    the first writer's maps (the plain path with `portbench/faults_rbpf.py`'s
+    `first_lane`, on CPU copies of RBPF_POST_FEW particles) differ. On the
+    last frame: each kernel's device ms over the step's chunks beside the
+    plain path's march (`_fidelity_chunk`) and write (`_plain_write`) over
+    the same chunks, the whole update both ways, the steps the beams
+    marched against K and the cells written, which give each kernel's
+    least-time bound."""
+    from portbench import faults_rbpf
+    from slam_tpu_torch.core.types import Pose, Scan
+    from slam_tpu_torch.models import fake_lidar
+    from slam_tpu_torch.ops import mapping, rbpf_fidelity_cuda
+    from slam_tpu_torch.ops.measurement import sensor_pose
+
+    t0 = time.perf_counter()
+    cfg, rc, lidar = rbpf_config()
+    blocked = torch.from_numpy(blocked_np).to(dev)
+    h, w = blocked_np.shape
+    n, b_n, step = RBPF_PARTICLES, lidar.n_rays, rc.step
+    k_total = int(math.ceil(rc.max_dist / step))
+    kw = dict(scanner_offset=cfg.scanner_offset, stddev=cfg.meas_stddev, eps=cfg.meas_epsilon,
+              max_dist=rc.max_dist, step=step)
+    spans_ = mapping._fidelity_spans(n, b_n, k_total)
+    g = torch.Generator(device=dev).manual_seed(30)
+    start_xy, _ = rbpf_start(blocked_np)
+    gt = [*start_xy, math.pi / 2]
+    maps = torch.full((n, h, w), 128, dtype=torch.uint8, device=dev)
+
+    frames = []
+    for _ in range(RBPF_FIDELITY_FRAMES):
+        th1 = gt[2] + 0.01
+        gt = [gt[0] + 2.5 * math.cos(th1), gt[1] + 2.5 * math.sin(th1), th1 + 0.01]
+        scan = fake_lidar.scan(blocked, sensor_pose(Pose.create(*gt, device=dev),
+                                                    cfg.scanner_offset), lidar, rc)
+        pose = Pose(*(v + s * torch.randn(n, generator=g, device=dev) for v, s in
+                      ((gt[0], RBPF_FIDELITY_SPREAD), (gt[1], RBPF_FIDELITY_SPREAD),
+                       (gt[2], 0.02))))
+        held = hold_rbpf_fidelity(maps, pose, scan, kw)
+        frames.append({"hit_share": float(held["hit_any"].float().mean()),
+                       "cells_changed": int((held["maps"] != maps).sum())})
+        maps = held["maps"]
+    check(frames[0]["hit_share"] == 0.0 and frames[-1]["hit_share"] > 0.0,
+          f"rbpf_fidelity: hit shares {[f['hit_share'] for f in frames]}: none at first, some "
+          "after the walls are written")
+
+    # The last-lane rule: cells that beams of one particle write with both
+    # updates, which the wander's frames never make.
+    cut = scan.dists.clone()
+    cut[1::2] = RBPF_POST_PX
+    posts = Scan(angles=scan.angles, dists=cut)
+    held = hold_rbpf_fidelity(maps, pose, posts, kw, "rbpf_fidelity posts")
+    few = slice(0, RBPF_POST_FEW)
+    with faults_rbpf.planted("first_lane"):
+        _, first = mapping.fidelity_measurement_and_mapping(
+            maps[few].cpu(), Pose(*(v[few].cpu() for v in (pose.x, pose.y, pose.theta))),
+            posts.to("cpu"), **kw)
+    posts_out = {"cells_changed": int((held["maps"] != maps).sum()),
+                 "first_writer_cells_differ": int((first != held["maps"][few].cpu()).sum())}
+    check(posts_out["first_writer_cells_differ"] > 0,
+          "rbpf_fidelity posts: the first writer's maps equal the last writer's, so the frame "
+          "does not test the last-lane rule")
+    del held, first
+
+    # The last frame's scan and particles, timed.
+    sp = mapping._fidelity_sensors(pose, cfg.scanner_offset)
+    ray = [mapping._fidelity_rays(maps, sp, scan, a, b) for a, b in spans_]
+    steps = [torch.empty((b - a, b_n), dtype=torch.int32, device=dev) for a, b in spans_]
+    for r, s in zip(ray, steps):
+        rbpf_fidelity_cuda.march(*r, step=step, k_total=k_total, steps=s)
+    marched = int(torch.cat(steps).sum(dtype=torch.int64))
+    out = maps.clone()
+    dists = scan.dists.contiguous()
+    wkw = dict(step=step, k_total=k_total, max_dist=rc.max_dist,
+               occ_scale=mapping._u8_scale(mapping._LOCC / mapping._L0),
+               free_scale=mapping._u8_scale(mapping._LFREE / mapping._L0))
+    march_ms = cuda_ms(lambda: [rbpf_fidelity_cuda.march(*r, step=step, k_total=k_total)
+                                for r in ray])
+    write_ms = cuda_ms(lambda: [rbpf_fidelity_cuda.write(*r, dists, out[a:b], **wkw)
+                                for r, (a, b) in zip(ray, spans_)])
+    update_ms = cuda_ms(lambda: mapping.fidelity_measurement_and_mapping(maps, pose, scan, **kw))
+    plain_ms = plain_fidelity(lambda: cuda_ms(
+        lambda: mapping.fidelity_measurement_and_mapping(maps, pose, scan, **kw),
+        iters=3, warmup=1))
+
+    def plain_chunks():
+        return [mapping._fidelity_chunk(maps.reshape(-1), a, b, (h, w), sp, scan, step=step,
+                                        max_dist=rc.max_dist) for a, b in spans_]
+
+    plain_march_ms = cuda_ms(plain_chunks, iters=3, warmup=1)
+    lanes = [c[2:] for c in plain_chunks()]  # (flat, updated, write) a chunk
+    written = sum(int(torch.unique(f.reshape(-1)[wr.reshape(-1)]).numel()) for f, _, wr in lanes)
+    plain_write_ms = cuda_ms(lambda: [mapping._plain_write(out, a, b, *c)
+                                      for (a, b), c in zip(spans_, lanes)], iters=3, warmup=1)
+    del lanes, out
+    # Least bytes: a byte each step marched reads, the rays' inputs and the
+    # hits (c, s, x, y; hit_dist, hit_any); each written cell's code read
+    # and written, the rays and ranges.
+    march_bound = bound(marched + n * b_n * 13 + n * 8, marched * OPS_RAY_STEP)
+    write_bound = bound(2 * written + n * b_n * 8 + n * 8 + b_n * 4, written * OPS_RAY_STEP)
+    return {"particles": n, "beams": b_n, "k": k_total, "chunks": len(spans_),
+            "frames": frames, "posts": posts_out, "march_ms": march_ms, "write_ms": write_ms,
+            "plain_march_ms": plain_march_ms, "plain_write_ms": plain_write_ms,
+            "update_ms": update_ms, "plain_update_ms": plain_ms,
+            "steps_marched": marched, "mean_steps_marched": marched / (n * b_n),
+            "mean_steps_share_of_k": marched / (n * b_n * k_total), "cells_written": written,
+            "march_bound_ms": march_bound[0], "march_bound_by": march_bound[1],
+            "write_bound_ms": write_bound[0], "write_bound_by": write_bound[1],
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -4713,8 +4921,9 @@ def main() -> None:
     from slam_tpu_torch.models import mcl as mcl_mod
     from slam_tpu_torch.ops import _build, lut_weights_cuda, measurement, motion, motion_cuda
     from slam_tpu_torch.ops import lut as lutlib
-    from slam_tpu_torch.ops import estimate_cuda, pano_cuda, rayfield, resample_cuda
+    from slam_tpu_torch.ops import estimate_cuda, pano_cuda, rayfield, rbpf_fidelity_cuda
     from slam_tpu_torch.ops import resample as resample_mod
+    from slam_tpu_torch.ops import resample_cuda
     from slam_tpu_torch.ops.raycast import raycast_march
     from slam_tpu_torch.utils.maps import synthetic_floor_plan
 
@@ -4725,16 +4934,18 @@ def main() -> None:
     fused = lut_weights_cuda.launch
     chain = resample_cuda.launch
     estimator = estimate_cuda.launch
+    rbpf_march, rbpf_write = rbpf_fidelity_cuda.march, rbpf_fidelity_cuda.write
+    wrappers = (gather, sampler, fused, chain, estimator, rbpf_march, rbpf_write)
 
     def reset_counts():
-        gather.launches = sampler.launches = fused.launches = chain.launches = estimator.launches = 0
-        gather.warmup_launches = sampler.warmup_launches = fused.warmup_launches = 0
-        chain.warmup_launches = estimator.warmup_launches = 0
+        for wrapper in wrappers:
+            wrapper.launches = wrapper.warmup_launches = 0
 
     def read_counts():
         return {"gather_rows": gather.launches, "motion_odometry": sampler.launches,
                 "lut_weights": fused.launches, "resample": chain.launches,
-                "estimate": estimator.launches}
+                "estimate": estimator.launches, "rbpf_march": rbpf_march.launches,
+                "rbpf_write": rbpf_write.launches}
 
     # 1. device -------------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -5634,7 +5845,11 @@ def main() -> None:
     es = estimate_phase(dev, counts)
     phase_s["estimate"] = es["seconds"]
     say("estimate", json.dumps({**es, "device": name, "power_limit": power}))
-    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-29 "
+    # 30. the RBPF's march and map write kernels against the plain path.
+    rf = rbpf_fidelity_phase(dev, blocked_np)
+    phase_s["rbpf_fidelity"] = rf["seconds"]
+    say("rbpf_fidelity", json.dumps({**rf, "device": name, "power_limit": power}))
+    say("total", f"{time.perf_counter() - t_start:.1f} s on {name}, {power}; phases 15-30 "
         f"{time.perf_counter() - t_new:.1f} s {json.dumps(phase_s)}")
 
     # Launches: the counts of the main paths' runs (phase 7's mcl.step,
@@ -5761,6 +5976,25 @@ def main() -> None:
          "library_ms": None,
          **{f"{key}_{cloud}": es["timed"][cloud][key] for cloud in ESTIMATE_TIMED
             for key in ("ms", "bound_ms", "bound_share", "plain_ms", "kernels_per_call")}},
+        # Phase 30: over the step's chunks of phase 19's shapes (1000 maps,
+        # 90 beams, K = 1000), the kernel's ms beside its byte bound (the
+        # steps marched; the cells written) and the plain path's chunks.
+        {"name": "rbpf_march", "route": "cuda",
+         "source": "slam_tpu_torch/csrc/rbpf_fidelity.cu",
+         "replaces": "none (slam_tpu/ops/mapping.py:141, the fidelity update, is plain XLA)",
+         "launches": main_launches["rbpf_march"],
+         "ms": rf["march_ms"], "plain_ms": rf["plain_march_ms"],
+         "bound_ms": rf["march_bound_ms"], "bound_by": rf["march_bound_by"],
+         "bound_share": rf["march_bound_ms"] / rf["march_ms"], "library_ms": None,
+         "mean_steps_marched": rf["mean_steps_marched"]},
+        {"name": "rbpf_write", "route": "cuda",
+         "source": "slam_tpu_torch/csrc/rbpf_fidelity.cu",
+         "replaces": "none (slam_tpu/ops/mapping.py:141, the fidelity update, is plain XLA)",
+         "launches": main_launches["rbpf_write"],
+         "ms": rf["write_ms"], "plain_ms": rf["plain_write_ms"],
+         "bound_ms": rf["write_bound_ms"], "bound_by": rf["write_bound_by"],
+         "bound_share": rf["write_bound_ms"] / rf["write_ms"], "library_ms": None,
+         "cells_written": rf["cells_written"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

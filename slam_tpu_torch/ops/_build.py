@@ -77,6 +77,16 @@ _SIGNATURES = {
         [_P, ctypes.c_longlong, _P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
          ctypes.c_int, ctypes.c_longlong, _P, _P]
     ),
+    # (maps*, x*, y*, c*, s*, n, n_beams, k_total, h, w, step, hit_dist*, hit_any*,
+    #  steps*, stream)
+    "rbpf_march_launch": (
+        [_P] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_float] + [_P] * 4
+    ),
+    # (maps*, out*, x*, y*, c*, s*, dists*, n, n_beams, k_total, h, w, step,
+    #  max_dist, occ_scale, free_scale, stream)
+    "rbpf_write_launch": (
+        [_P] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [_P]
+    ),
     # (parent stream, pred*, invert, loop, child stream, body**, handle*)
     "graph_cond_begin": [_P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.POINTER(_P),
                          ctypes.POINTER(ctypes.c_ulonglong)],

@@ -11,7 +11,8 @@ Per scan, every beam marches in fixed steps from the sensor:
 
 The fidelity mode (per-particle uint8 maps with the reference's
 multiplicative quantized updates, `fidelity_measurement_and_mapping`)
-serves the RBPF of `models/rbpf.py`, and names its layers for it: each
+serves the RBPF of `models/rbpf.py` (on a CUDA device through the two
+kernels of `csrc/rbpf_fidelity.cu`), and names its layers for it: each
 chunk's march is the span `rbpf.march`, its write into the new maps
 `rbpf.map_write`; the counters `rbpf.chunks` and `rbpf.lanes` (particle x
 beam x ray step) count a call's chunks and lanes.
@@ -27,6 +28,7 @@ import torch
 from slam_tpu_torch.core import graph
 from slam_tpu_torch.core import grid as gridlib
 from slam_tpu_torch.core.types import Pose, Scan
+from slam_tpu_torch.ops import rbpf_fidelity_cuda
 from slam_tpu_torch.ops.measurement import beam_log_weights, scanner_displacement, sensor_pose
 from slam_tpu_torch.planners._scatter import last_lanes
 from slam_tpu_torch.utils import profiling
@@ -134,6 +136,12 @@ _LFREE = 0.60
 _FIDELITY_CHUNK_LANES = 1 << 25
 
 
+def _u8_scale(factor) -> float:
+    """The f32 constant `_u8_update` multiplies a code by: f32(f32(1 / 255)
+    * f32(factor))."""
+    return float(np.float32(np.float32(1.0) / np.float32(255.0)) * np.float32(factor))
+
+
 def _u8_update(values_u8, factor):
     """One multiplicative quantized update: p = clamp(p * factor) with
     ceiling 1.0 and floor 1/255 (`slam/raycast.cpp:193-213`).
@@ -143,8 +151,7 @@ def _u8_update(values_u8, factor):
     the two constants into one, v * f32(f32(1 / 255) * f32(factor)). The
     port multiplies by that constant, so the codes equal the compiled
     reference's."""
-    c = float(np.float32(np.float32(1.0) / np.float32(255.0)) * np.float32(factor))
-    p = torch.clamp(values_u8.to(torch.float32) * c, max=1.0)
+    p = torch.clamp(values_u8.to(torch.float32) * _u8_scale(factor), max=1.0)
     return torch.clamp(torch.floor(p * 255.0), min=1.0).to(torch.uint8)
 
 
@@ -154,6 +161,33 @@ def _cos_sin(a):
     CPU, and a ray step on a cell boundary then lands in another cell)."""
     a = a.to(torch.float64)
     return torch.cos(a).to(torch.float32), torch.sin(a).to(torch.float32)
+
+
+def _fidelity_sensors(poses: Pose, scanner_offset) -> Pose:
+    """The sensor poses of `fidelity_measurement_and_mapping`'s particles."""
+    dist, th, rot = scanner_displacement(scanner_offset)
+    c, s = _cos_sin(poses.theta + th)
+    return Pose(x=poses.x + c * dist, y=poses.y + s * dist, theta=poses.theta + rot)
+
+
+def _fidelity_spans(n: int, beams: int, k_total: int) -> list[tuple[int, int]]:
+    """The particles (n0, n1) of each chunk of the fidelity update: about
+    `_FIDELITY_CHUNK_LANES` lanes (particle x beam x ray step) a chunk."""
+    chunk = max(1, _FIDELITY_CHUNK_LANES // max(beams * k_total, 1))
+    return [(n0, min(n, n0 + chunk)) for n0 in range(0, n, chunk)]
+
+
+def _fidelity_rays(maps_u8, sp: Pose, scan: Scan, n0: int, n1: int):
+    """The inputs of particles n0..n1 the kernels take (maps, sensor x, y,
+    each beam's cos, sin) for sensor poses `sp` of all particles."""
+    return (maps_u8[n0:n1], sp.x[n0:n1], sp.y[n0:n1],
+            *_cos_sin(sp.theta[n0:n1, None] + scan.angles[None, :]))
+
+
+def _kernels(dev: torch.device) -> bool:
+    """Whether the fidelity update's chunks go to the kernels of
+    `ops/rbpf_fidelity_cuda.py`: on a CUDA device."""
+    return dev.type == "cuda"
 
 
 def _fidelity_chunk(maps_flat, n0: int, n1: int, hw, sp: Pose, scan: Scan, *,
@@ -201,6 +235,23 @@ def _fidelity_chunk(maps_flat, n0: int, n1: int, hw, sp: Pose, scan: Scan, *,
     return hit_dist, hit_any, flat, updated, free | occ
 
 
+def _plain_write(new_maps, n0: int, n1: int, flat, updated, write) -> None:
+    """Write `_fidelity_chunk`'s lanes of particles n0..n1 (`flat`,
+    `updated`, `write`) into `new_maps`, the last writing lane of a cell
+    winning. Targets of the chunk lie in its particles' maps: they are
+    indexed from the chunk's first cell so `last_lanes`' table is the
+    chunk's size. Every lane writes its target the value of the target's
+    last writing lane, or its own (the pre-scan value) where no lane writes
+    the target: duplicate writes carry one value, and no slot is shared."""
+    hw = new_maps.shape[1] * new_maps.shape[2]
+    flat = flat.reshape(-1)
+    updated = updated.reshape(-1)
+    tgt = flat - n0 * hw
+    top = last_lanes(write.reshape(-1), tgt, (n1 - n0) * hw)[tgt]
+    lane = torch.arange(updated.numel(), device=updated.device)
+    new_maps.view(-1).scatter_(0, flat, updated[torch.where(top >= 0, top, lane)])
+
+
 def fidelity_measurement_and_mapping(
     maps_u8: torch.Tensor,
     poses: Pose,
@@ -223,48 +274,46 @@ def fidelity_measurement_and_mapping(
 
     Where several lanes of one particle write one cell (beams crossing near
     the sensor), the last lane in (beam, step) order wins, as XLA's
-    in-order scatter keeps it: `planners/_scatter.py:last_lanes` picks it
-    and every lane writes that lane's value, so the maps are the same on
-    every device.
-    Particles go in chunks of about `_FIDELITY_CHUNK_LANES` lanes. The ray
-    geometry's cos / sin are taken in f64 and rounded (`_cos_sin`), so the
-    maps are the same on the card and the CPU.
+    in-order scatter keeps it. On the CPU the chunk's [C, B, K] lanes are
+    tensors (`_fidelity_chunk`) and `planners/_scatter.py:last_lanes` picks
+    that lane, every lane writing its value. On a CUDA device two kernels
+    a chunk (`ops/rbpf_fidelity_cuda.py`) march each beam to its hit and
+    write each cell once by the same rule, bit for bit as the CPU route.
+    Particles go in chunks of about `_FIDELITY_CHUNK_LANES` lanes
+    (`_fidelity_spans`). The ray geometry's cos / sin are taken in f64 and
+    rounded (`_cos_sin`), so the maps are the same on the card and the CPU.
 
     Returns (log_weights f32[N], new_maps u8[N, H, W])."""
     n, h, w = maps_u8.shape
-    dist, th, rot = scanner_displacement(scanner_offset)
-    c, s = _cos_sin(poses.theta + th)
-    sp = Pose(x=poses.x + c * dist, y=poses.y + s * dist, theta=poses.theta + rot)
+    sp = _fidelity_sensors(poses, scanner_offset)
     k_total = int(math.ceil(max_dist / step))
     lanes = scan.angles.shape[0] * k_total
-    chunk = max(1, _FIDELITY_CHUNK_LANES // max(lanes, 1))
-    new_maps = maps_u8.reshape(-1).clone()
+    new_maps = maps_u8.clone(memory_format=torch.contiguous_format)
     hit_dist, hit_any = [], []
     dev = maps_u8.device
-    for n0 in range(0, n, chunk):
-        n1 = min(n, n0 + chunk)
+    for n0, n1 in _fidelity_spans(n, scan.angles.shape[0], k_total):
         graph.count_host(profiling.count, "rbpf.chunks", 1)
         graph.count_host(profiling.count, "rbpf.lanes", (n1 - n0) * lanes)
         with profiling.span("rbpf.march", dev):
-            hd, ha, flat, updated, write = _fidelity_chunk(
-                maps_u8.reshape(-1), n0, n1, (h, w), sp, scan, step=step, max_dist=max_dist)
+            if _kernels(dev):
+                ray = _fidelity_rays(maps_u8, sp, scan, n0, n1)
+                hd, ha = rbpf_fidelity_cuda.march(*ray, step=step, k_total=k_total)
+            else:
+                hd, ha, flat, updated, write = _fidelity_chunk(
+                    maps_u8.reshape(-1), n0, n1, (h, w), sp, scan, step=step,
+                    max_dist=max_dist)
         hit_dist.append(hd)
         hit_any.append(ha)
-        # Targets of this chunk lie in its particles' maps: index them
-        # from the chunk's first cell so `last_lanes`' table is the
-        # chunk's size. Every lane writes its target the value of the
-        # target's last writing lane, or its own (the pre-scan value)
-        # where no lane writes the target: duplicate writes carry one
-        # value, and no slot is shared.
         with profiling.span("rbpf.map_write", dev):
-            flat = flat.reshape(-1)
-            updated = updated.reshape(-1)
-            tgt = flat - n0 * h * w
-            top = last_lanes(write.reshape(-1), tgt, (n1 - n0) * h * w)[tgt]
-            lane = torch.arange(updated.numel(), device=updated.device)
-            new_maps.scatter_(0, flat, updated[torch.where(top >= 0, top, lane)])
+            if _kernels(dev):
+                rbpf_fidelity_cuda.write(
+                    *ray, scan.dists.contiguous(), new_maps[n0:n1], step=step,
+                    k_total=k_total, max_dist=max_dist, occ_scale=_u8_scale(_LOCC / _L0),
+                    free_scale=_u8_scale(_LFREE / _L0))
+            else:
+                _plain_write(new_maps, n0, n1, flat, updated, write)
     lw = beam_log_weights(
         torch.cat(hit_dist), torch.cat(hit_any), scan.dists[None, :],
         stddev=stddev, max_dist=max_dist, eps=eps,
     )
-    return torch.sum(lw, dim=-1), new_maps.reshape(n, h, w)
+    return torch.sum(lw, dim=-1), new_maps
